@@ -29,8 +29,10 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve
+from .device import BatchedModeKeccak
 from .keccak_fused import SegmentSpec
-from .keccak_torch import MASK32, WORDS_PER_BLOCK, to_int32
+from .keccak_torch import MASK32, WORDS_PER_BLOCK, default_batched_keccak, \
+    to_int32
 
 MAX_SEGMENTS = 64
 
@@ -211,11 +213,16 @@ def default_planned_commit(device: DeviceLike = None) -> PlannedCommit:
     return pc
 
 
-class PlannedMode:
+class PlannedMode(BatchedModeKeccak):
     """Marker handed to Trie / StateTrie as `batch_keccak`: Trie.hash takes
     the planned path when `unhashed >= BATCH_THRESHOLD`. Counterpart of
     coreth_tpu/ops/device.py:PlannedModeKeccak, without the degradation
-    ladder: a device error propagates."""
+    ladder: a device error propagates.
+
+    As there, it is the "batched" seam too (a BatchedModeKeccak on the
+    commit's device: kernel K2 on CUDA), so the planned fallbacks'
+    BatchedHasher and every other consumer of the seam call it as a plain
+    batch keccak, msgs -> digests."""
 
     planned = True
 
@@ -223,3 +230,4 @@ class PlannedMode:
                  device: DeviceLike = None):
         self.commit = commit if commit is not None else \
             default_planned_commit(device)
+        super().__init__(default_batched_keccak(self.commit.device))

@@ -1,8 +1,10 @@
-"""The planned block commit of a state: every dirty storage trie plus the
-account trie in one device program.
+"""The block commit of a state: write the block's changed accounts into
+the account trie and hash it.
 
-Counterpart of the composition in coreth_tpu/state/statedb.py:586-671
-(StateDB._planned_intermediate_root); the StateDB class itself is not
+Counterpart of the compositions in coreth_tpu/state/statedb.py:490-547
+(StateDB.intermediate_root, without its resident branch) and :586-690
+(StateDB._planned_intermediate_root, every dirty storage trie plus the
+account trie in one device program). The StateDB class itself is not
 ported yet, so the caller hands over the block's changed accounts.
 """
 
@@ -12,7 +14,7 @@ from typing import Dict, List, Optional, Tuple
 
 from ..trie import planned as _planned
 from ..trie.encoding import key_to_hex
-from ..trie.hasher import Hasher
+from ..trie.hasher import BATCH_THRESHOLD, Hasher
 from ..trie.node import FullNode, ShortNode
 from ..trie.planned import PlannedGraphBuilder, TooManySegments
 from ..trie.secure import StateTrie
@@ -23,6 +25,40 @@ Changed = Dict[bytes, Tuple[Optional[Account], Optional[StateTrie]]]
 
 def _dirty(root) -> bool:
     return isinstance(root, (ShortNode, FullNode)) and root.flags.hash is None
+
+
+def intermediate_root(account_trie: StateTrie, changed: Changed,
+                      batch_keccak=None, device=None) -> bytes:
+    """Write `changed` (address -> (Account, its storage StateTrie or None);
+    Account None deletes the address) into `account_trie` and return the
+    new state root, dispatching as StateDB.intermediate_root does.
+
+    With a planned marker as `batch_keccak` and at least BATCH_THRESHOLD
+    changed accounts plus pending storage writes, the whole commit is one
+    planned_intermediate_root. Otherwise each storage trie is hashed by its
+    own Trie.hash, in address order, and then the account trie: every trie
+    carrying the "batched" seam (ops/device.get_batch_keccak) and at least
+    BATCH_THRESHOLD unhashed updates is hashed level by level through
+    BatchedHasher, the rest by the recursive CPU Hasher. The caller gives
+    every trie the same batch keccak. `device` is forwarded to
+    planned_intermediate_root, where the marker's own commit decides."""
+    if getattr(batch_keccak, "planned", False):
+        est = len(changed) + sum(tr.trie.unhashed
+                                 for acct, tr in changed.values()
+                                 if acct is not None and tr is not None)
+        if est >= BATCH_THRESHOLD:
+            return planned_intermediate_root(
+                account_trie, changed, planned=batch_keccak.commit,
+                device=device)
+    for addr in sorted(changed):
+        acct, tr = changed[addr]
+        if acct is None:
+            account_trie.delete(addr)
+            continue
+        if tr is not None:
+            acct.root = tr.hash()
+        account_trie.update(addr, acct.encode())
+    return account_trie.hash()
 
 
 def planned_intermediate_root(account_trie: StateTrie, changed: Changed,
@@ -40,10 +76,13 @@ def planned_intermediate_root(account_trie: StateTrie, changed: Changed,
     (add_account_trie) then hash in one PlannedGraphBuilder.run, which
     patches each storage root into its hole on the device. On return every
     Account.root holds its storage root. A graph too large for the
-    executor's segment table is healed and hashed on the CPU and counted in
-    trie.planned.planned_fallbacks; a device error heals the holes on the
-    CPU and propagates. Pass a fresh `builder` to read its plan and
-    digests afterwards."""
+    executor's segment table is counted in trie.planned.planned_fallbacks:
+    each storage trie heals its hole through its own hash(), and the
+    account trie through its own hash() (Trie.hash: re-planned alone, then
+    BatchedHasher if that overflows too, or the CPU Hasher below
+    BATCH_THRESHOLD), as coreth_tpu/state/statedb.py:641-665 does. A device
+    error heals the holes on the recursive CPU Hasher and propagates. Pass
+    a fresh `builder` to read its plan and digests afterwards."""
     builder = builder if builder is not None else PlannedGraphBuilder()
     holes = {}
     patched: List[Tuple[bytes, Account, object, StateTrie]] = []
@@ -70,14 +109,15 @@ def planned_intermediate_root(account_trie: StateTrie, changed: Changed,
     try:
         root = builder.run(planned, device)
     except TooManySegments:
+        # heal each hole with its trie's own hash(), then hash the account
+        # trie through its own Trie.hash, which re-plans it alone and
+        # falls back to BatchedHasher in turn
         _planned.planned_fallbacks += 1
-        _heal_root_holes(account_trie, patched)
-        h, _ = Hasher().hash(inner.root, True)
-        inner.unhashed = 0
-        return bytes(h)
+        _heal_root_holes(account_trie, patched, force_cpu=False)
+        return account_trie.hash()
     except BaseException:
         # never leave zeroed storage-root holes behind a failed commit
-        _heal_root_holes(account_trie, patched)
+        _heal_root_holes(account_trie, patched, force_cpu=True)
         raise
     inner.unhashed = 0
     for _addr, acct, handle, tr in patched:
@@ -86,11 +126,16 @@ def planned_intermediate_root(account_trie: StateTrie, changed: Changed,
     return root
 
 
-def _heal_root_holes(account_trie: StateTrie, patched) -> None:
-    """Replace each zeroed storage-root hole with the root computed by the
-    recursive CPU hasher (never the device, which may be what failed)."""
+def _heal_root_holes(account_trie: StateTrie, patched,
+                     force_cpu: bool) -> None:
+    """Replace each zeroed storage-root hole with its trie's real root.
+    force_cpu takes the recursive CPU Hasher and never the device, which
+    may be what just failed; otherwise each storage trie's own hash()."""
     for addr, acct, _handle, tr in patched:
-        h, _ = Hasher().hash(tr.trie.root, True)
-        tr.trie.unhashed = 0
-        acct.root = bytes(h)
+        if force_cpu:
+            h, _ = Hasher().hash(tr.trie.root, True)
+            tr.trie.unhashed = 0
+            acct.root = bytes(h)
+        else:
+            acct.root = tr.hash()
         account_trie.update(addr, acct.encode())

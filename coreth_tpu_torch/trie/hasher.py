@@ -1,15 +1,24 @@
-"""Trie node hashing: the recursive CPU Hasher and the planned builder's
-RLP helpers. Counterpart of coreth_tpu/trie/hasher.py (Hasher at :106,
-collect_levels_with_paths at :210, _keccak_pad at :321, the RLP writers at
-:447-482). The level-batched and fused hashers are not ported.
+"""Trie node hashing: the recursive CPU Hasher, the level-batched
+BatchedHasher and the planned builder's RLP helpers. Counterpart of
+coreth_tpu/trie/hasher.py (count_keccak_batch at :49, Hasher at :106,
+BatchedHasher at :152, collect_levels_with_paths at :210, new_hasher at
+:238, _keccak_pad at :321, the RLP writers at :447-482). The fused hasher
+is not ported.
 
-Node RLP < 32 bytes is embedded in the parent instead of hashed (coreth
-trie/hasher.go:160-175), and the root is always hashed.
+  Hasher         recursive CPU hasher over the native keccak (small dirty
+                 sets, where a device round trip costs more than it saves)
+  BatchedHasher  groups the dirty subtree by height, leaves first, and
+                 hashes each level's node RLP as one batch through a
+                 batch keccak (on CUDA: BatchedKeccak, kernel K2); the
+                 digests feed the next level's RLP
+
+Both are bit-exact: node RLP < 32 bytes is embedded in the parent instead
+of hashed (coreth trie/hasher.go:160-175), and the root is always hashed.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 from .. import rlp
 from ..native import keccak256 as _cpu_keccak
@@ -19,6 +28,18 @@ from .node import FullNode, HashNode, ShortNode, ValueNode
 # Below this many dirty nodes Trie.hash stays on the CPU hasher (a device
 # round trip costs more); mirrors the reference's >=100-unhashed threshold.
 BATCH_THRESHOLD = 100
+
+# Batches that reached a batch-keccak seam, and their messages (the JAX
+# package's trie/keccak/batches and trie/keccak/batch_msgs counters).
+keccak_batches = 0
+keccak_batch_msgs = 0
+
+
+def count_keccak_batch(n_msgs: int) -> None:
+    """One batch of n_msgs messages hit a batch-keccak seam."""
+    global keccak_batches, keccak_batch_msgs
+    keccak_batches += 1
+    keccak_batch_msgs += n_msgs
 
 
 def node_items(n, child_repr: Callable = None):
@@ -91,6 +112,59 @@ class Hasher:
         orig.flags.hash = bytes(h)
         orig.flags.dirty = True
         return h
+
+
+class BatchedHasher:
+    """Level-synchronised batched hasher for large dirty sets.
+
+    Walk once to group dirty nodes by height (leaves first); per level,
+    build every node's RLP with children resolved to digests (or embedded
+    items), then hash the whole level in one batch_keccak call. The
+    <32-byte embed rule is resolved on the host between levels. Sets
+    flags.hash on every hashed node and leaves flags.dirty as it was."""
+
+    def __init__(self, batch_keccak: Callable[[Sequence[bytes]], List[bytes]]):
+        self._batch = batch_keccak
+
+    def hash_root(self, root) -> HashNode:
+        if not isinstance(root, (ShortNode, FullNode)):
+            raise TypeError("batched hasher needs a Short/Full root")
+        embedded: dict = {}  # id(node) -> its RLP items, inlined in the parent
+
+        def child_repr(c):
+            if not isinstance(c, (ShortNode, FullNode)):
+                return None  # HashNode / ValueNode / None: the default
+            if c.flags.hash is not None:
+                return c.flags.hash
+            items = embedded.get(id(c))
+            if items is None:
+                raise RuntimeError("child hashed out of order")
+            return items
+
+        for level in collect_levels_with_paths(root):
+            pending_nodes = []
+            pending_rlp = []
+            for n, _path in level:
+                items = node_items(n, child_repr)
+                enc = rlp.encode(items)
+                if len(enc) < 32 and n is not root:
+                    embedded[id(n)] = items
+                else:
+                    pending_nodes.append(n)
+                    pending_rlp.append(enc)
+            if pending_rlp:
+                for n, d in zip(pending_nodes, self._batch(pending_rlp)):
+                    n.flags.hash = d
+        return HashNode(root.flags.hash)
+
+
+def new_hasher(dirty_estimate: int = 0, batch_keccak=None):
+    """Factory seam (coreth trie/hasher.go:57 newHasher): a BatchedHasher
+    when the dirty set is large and a batch keccak is given, else the
+    recursive CPU hasher."""
+    if batch_keccak is not None and dirty_estimate >= BATCH_THRESHOLD:
+        return BatchedHasher(batch_keccak)
+    return Hasher()
 
 
 def collect_levels_with_paths(root):

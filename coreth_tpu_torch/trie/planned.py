@@ -369,8 +369,8 @@ class TooManySegments(Exception):
     """Graph shape exceeds the planned executor's segment table."""
 
 
-# Commits that took the CPU Hasher because their graph raised
-# TooManySegments (Trie.hash, state.statedb.planned_intermediate_root).
+# Commits that took the level-batched BatchedHasher because their graph
+# raised TooManySegments (Trie.hash, state.statedb.planned_intermediate_root).
 planned_fallbacks = 0
 
 

@@ -2,9 +2,10 @@
 coreth_tpu/trie/trie.py.
 
 Insert/delete/get with lazy node resolution through a NodeReader, hashing
-through the recursive CPU Hasher or, for large dirty sets under a
-PlannedMode marker, the planned device commit (trie/planned.py), and commit
-into a trienode.NodeSet.
+through the recursive CPU Hasher or, for large dirty sets, the planned
+device commit (trie/planned.py, under a PlannedMode marker) or the
+level-batched BatchedHasher (any other batch keccak), and commit into a
+trienode.NodeSet.
 
 Writes after commit are rejected the same way the reference forbids them
 (trie/trie.go:87 'committed' flag).
@@ -15,7 +16,7 @@ from __future__ import annotations
 from typing import Iterable, Optional, Tuple
 
 from .encoding import key_to_hex, prefix_len
-from .hasher import BATCH_THRESHOLD, Hasher, node_to_bytes
+from .hasher import BATCH_THRESHOLD, BatchedHasher, Hasher, node_to_bytes
 from .node import (
     EMPTY_ROOT,
     FullNode,
@@ -51,6 +52,11 @@ class Trie:
         self.root = None if root == EMPTY_ROOT or root == b"" else HashNode(root)
         self.unhashed = 0
         self.committed = False
+
+    @property
+    def batch_keccak(self):
+        """The batch keccak (or planned marker) this trie hashes with."""
+        return self._batch_keccak
 
     def copy(self) -> "Trie":
         t = Trie.__new__(Trie)
@@ -226,25 +232,30 @@ class Trie:
     # ------------------------------------------------------- hash & commit
 
     def hash(self) -> bytes:
-        """Root hash. With a PlannedMode marker as batch_keccak and at least
-        BATCH_THRESHOLD unhashed updates, the dirty nodes hash in one
-        planned device commit; a graph with more segments than the
-        executor's table goes to the CPU Hasher and is counted in
-        trie.planned.planned_fallbacks. A device error propagates."""
+        """Root hash (coreth_tpu/trie/trie.py:225-258). With at least
+        BATCH_THRESHOLD unhashed updates and a batch keccak: a PlannedMode
+        marker hashes the dirty nodes in one planned device commit, and a
+        graph with more segments than the executor's table goes to the
+        BatchedHasher on the marker instead, counted in
+        trie.planned.planned_fallbacks; any other batch keccak runs the
+        BatchedHasher, one batch per level. Otherwise the recursive CPU
+        Hasher. A device error propagates."""
         if self.root is None:
             return EMPTY_ROOT
         if isinstance(self.root, HashNode):
             return bytes(self.root)
-        if (getattr(self._batch_keccak, "planned", False)
-                and self.unhashed >= BATCH_THRESHOLD):
-            from . import planned
+        bk = self._batch_keccak
+        if bk is not None and self.unhashed >= BATCH_THRESHOLD:
+            if getattr(bk, "planned", False):
+                from . import planned
 
-            try:
-                h = planned.PlannedHasher(
-                    self._batch_keccak.commit).hash_root(self.root)
-            except planned.TooManySegments:
-                planned.planned_fallbacks += 1
-                h, _ = Hasher().hash(self.root, True)
+                try:
+                    h = planned.PlannedHasher(bk.commit).hash_root(self.root)
+                except planned.TooManySegments:
+                    planned.planned_fallbacks += 1
+                    h = BatchedHasher(bk).hash_root(self.root)
+            else:
+                h = BatchedHasher(bk).hash_root(self.root)
         else:
             h, _ = Hasher().hash(self.root, True)
         self.unhashed = 0

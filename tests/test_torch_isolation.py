@@ -73,6 +73,29 @@ got = planned_intermediate_root(acct_trie, changed, planned=commit)
 want = bytes(Hasher().hash(trie_from_items(oracle).root, True)[0])
 assert got == want, (got.hex(), want.hex())
 assert commit.last_dispatches == 1
+
+# the same state through the level-batched ("batched") mode
+from coreth_tpu_torch.ops.device import get_batch_keccak
+from coreth_tpu_torch.state.statedb import intermediate_root
+from coreth_tpu_torch.trie import hasher
+
+bmode = get_batch_keccak("batched", device="cpu")
+rng = random.Random(3)
+acct_trie = StateTrie(batch_keccak=bmode)
+changed = {}
+for i in range(150):
+    addr = rng.randbytes(20)
+    st = None
+    if i < 3:
+        st = StateTrie(batch_keccak=bmode)
+        for k, v in [(rng.randbytes(32), rlp.encode(rng.randbytes(20)))
+                     for _ in range(30)]:
+            st.update(k, v)
+    changed[addr] = (Account(nonce=i, balance=10**18 + i), st)
+before = hasher.keccak_batches
+got = intermediate_root(acct_trie, changed, batch_keccak=bmode, device="cpu")
+assert got == want, (got.hex(), want.hex())
+assert hasher.keccak_batches > before and bmode.batched.launches > 0
 leaked = [m for m in sys.modules if refused(m)]
 assert not leaked, leaked
 print("ISOLATED-OK")
@@ -128,8 +151,20 @@ def test_resolve_without_cuda_raises(monkeypatch):
 def test_entry_points_without_cuda_raise(monkeypatch):
     from coreth_tpu_torch.ops.keccak_planned import PlannedCommit, PlannedMode
 
+    from coreth_tpu_torch.ops.device import get_batch_keccak
+    from coreth_tpu_torch.ops.keccak_torch import BatchedKeccak, \
+        keccak256_batch
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         PlannedCommit()
     with pytest.raises(RuntimeError):
         PlannedMode()
+    with pytest.raises(RuntimeError):
+        BatchedKeccak()
+    with pytest.raises(RuntimeError):
+        keccak256_batch([b"abc"])
+    for mode in ("batched", "planned", "auto"):
+        with pytest.raises(RuntimeError):
+            get_batch_keccak(mode)
+    assert get_batch_keccak("off") is None

@@ -1,15 +1,18 @@
-"""The port's slice end to end at a small size: a genesis state and one
-block of churn committed through the port's planned path on the CPU,
-against the JAX package's own StateDB planned path and its CPU Hasher.
+"""The port's slices end to end at a small size: a genesis state and one
+block of churn committed through the port's planned path and through its
+level-batched ("batched") path on the CPU, against the JAX package's own
+StateDB in the same mode and its CPU Hasher.
 
-~400 accounts, 6 contracts x 40 slots (above BATCH_THRESHOLD), then a
-block of balance churn plus slot writes on top of the hashed state."""
+~400 accounts, 6 contracts x 40 slots, then a block of balance churn plus
+slot writes on top of the hashed state. The commit as a whole is above
+BATCH_THRESHOLD; each storage trie is below it."""
 
 import numpy as np
 import pytest
 
 from coreth_tpu import rlp as jrlp
 from coreth_tpu.ethdb import MemoryDB
+from coreth_tpu.native import keccak256_batch as j_keccak256_batch
 from coreth_tpu.ops.device import PlannedModeKeccak
 from coreth_tpu.ops.keccak_jax import BatchedKeccak
 from coreth_tpu.state.account import EMPTY_CODE_HASH as J_EMPTY_CODE_HASH
@@ -21,10 +24,13 @@ from coreth_tpu.trie.node import EMPTY_ROOT as J_EMPTY_ROOT
 from coreth_tpu.trie.triedb import TrieDatabase
 from coreth_tpu.trie.trie import Trie as JTrie
 from coreth_tpu_torch import native, rlp
+from coreth_tpu_torch.ops import keccak_planned
+from coreth_tpu_torch.ops.device import get_batch_keccak
 from coreth_tpu_torch.ops.keccak_planned import PlannedCommit, PlannedMode
 from coreth_tpu_torch.state.account import EMPTY_CODE_HASH, Account
-from coreth_tpu_torch.state.statedb import planned_intermediate_root
-from coreth_tpu_torch.trie import planned
+from coreth_tpu_torch.state.statedb import intermediate_root, \
+    planned_intermediate_root
+from coreth_tpu_torch.trie import hasher, planned
 from coreth_tpu_torch.trie.node import EMPTY_ROOT
 from coreth_tpu_torch.trie.planned import PlannedGraphBuilder
 from coreth_tpu_torch.trie.secure import StateTrie
@@ -99,10 +105,41 @@ def _jax_cpu_root(state) -> bytes:
     return bytes(JHasher().hash(acct.root, True)[0])
 
 
-def _jax_statedb():
-    marker = PlannedModeKeccak(BatchedKeccak().digests)
+def _jax_statedb(marker=None):
+    """A JAX StateDB whose tries carry `marker` (default: the planned mode).
+    A plain host batch keccak as marker makes every large trie hash through
+    the JAX BatchedHasher, with no XLA compile."""
+    if marker is None:
+        marker = PlannedModeKeccak(BatchedKeccak().digests)
     return StateDB(J_EMPTY_ROOT, Database(TrieDatabase(MemoryDB(),
                                                        batch_keccak=marker)))
+
+
+def _port_objects(state, addrs, mode):
+    """address -> (Account with an empty root, its storage StateTrie)."""
+    objs = {}
+    for a in addrs:
+        s = state[a]
+        st = None
+        if s["slots"]:
+            st = StateTrie(batch_keccak=mode)
+            for k, v in s["slots"].items():
+                st.update(k, _slot_value(v))
+        objs[a] = (Account(s["nonce"], s["balance"], EMPTY_ROOT,
+                           _code_hash(s)), st)
+    return objs
+
+
+def _port_block(objs, state, touched, writes):
+    """Apply the block to the port's objects; returns the changed map."""
+    changed = {}
+    for a in touched:
+        acct, st = objs[a]
+        acct.nonce, acct.balance = state[a]["nonce"], state[a]["balance"]
+        for k, v in writes.get(a, {}).items():
+            st.update(k, _slot_value(v))
+        changed[a] = (acct, st if a in writes else None)
+    return changed
 
 
 def _jax_apply(sdb, state, addrs, slot_writes=None):
@@ -135,16 +172,7 @@ def slice_roots():
     commit = PlannedCommit(device="cpu")
     mode = PlannedMode(commit)
     account_trie = StateTrie(batch_keccak=mode)
-    objs = {}
-    for a in addrs:
-        s = state[a]
-        st = None
-        if s["slots"]:
-            st = StateTrie(batch_keccak=mode)
-            for k, v in s["slots"].items():
-                st.update(k, _slot_value(v))
-        objs[a] = (Account(s["nonce"], s["balance"], EMPTY_ROOT,
-                           _code_hash(s)), st)
+    objs = _port_objects(state, addrs, mode)
     builder = PlannedGraphBuilder()
     out["port_genesis"] = planned_intermediate_root(
         account_trie, objs, planned=commit, builder=builder)
@@ -156,13 +184,7 @@ def slice_roots():
     out["jax_statedb_block"] = sdb.intermediate_root(False)
     out["jax_cpu_block"] = _jax_cpu_root(state)
 
-    changed = {}
-    for a in touched:
-        acct, st = objs[a]
-        acct.nonce, acct.balance = state[a]["nonce"], state[a]["balance"]
-        for k, v in writes.get(a, {}).items():
-            st.update(k, _slot_value(v))
-        changed[a] = (acct, st if a in writes else None)
+    changed = _port_block(objs, state, touched, writes)
     out["port_block"] = planned_intermediate_root(account_trie, changed,
                                                   planned=commit)
     out["block_dispatches"] = commit.last_dispatches
@@ -196,3 +218,88 @@ def test_storage_roots_patched_into_accounts(slice_roots):
     for got, want in slice_roots["storage_roots"]:
         assert got == want != EMPTY_ROOT
     assert EMPTY_CODE_HASH == J_EMPTY_CODE_HASH
+
+
+@pytest.fixture(scope="module")
+def batched_roots(slice_roots):
+    """The same world and block through the port's "batched" mode
+    (intermediate_root on get_batch_keccak("batched", device="cpu"):
+    BatchedHasher over K2's plain version) and through a JAX StateDB whose
+    tries hash with the JAX BatchedHasher on the native host keccak."""
+    rng, addrs, state = _world()
+    out = {"jax_cpu_genesis": slice_roots["jax_cpu_genesis"],
+           "jax_cpu_block": slice_roots["jax_cpu_block"]}
+
+    sdb = _jax_statedb(j_keccak256_batch)
+    _jax_apply(sdb, state, addrs)
+    out["jax_statedb_genesis"] = sdb.intermediate_root(False)
+
+    mode = get_batch_keccak("batched", device="cpu")
+    mode.batched.reset_totals()
+    hasher.keccak_batches = 0
+    account_trie = StateTrie(batch_keccak=mode)
+    objs = _port_objects(state, addrs, mode)
+    out["port_genesis"] = intermediate_root(account_trie, dict(objs), mode,
+                                            device="cpu")
+    out["genesis_batches"] = hasher.keccak_batches
+    out["genesis_launches"] = mode.batched.launches
+
+    touched, writes = _block(rng, addrs, state)
+    _jax_apply(sdb, state, touched, slot_writes=writes)
+    out["jax_statedb_block"] = sdb.intermediate_root(False)
+    changed = _port_block(objs, state, touched, writes)
+    out["port_block"] = intermediate_root(account_trie, changed, mode,
+                                          device="cpu")
+    out["block_batches"] = hasher.keccak_batches - out["genesis_batches"]
+    out["storage_roots"] = [
+        (objs[a][0].root, _jax_storage_root(state[a]["slots"]))
+        for a in addrs[:N_CONTRACTS]]
+    return out
+
+
+def test_batched_genesis_root_matches_jax_statedb_and_cpu_hasher(
+        batched_roots):
+    r = batched_roots
+    assert r["port_genesis"] == r["jax_statedb_genesis"] == \
+        r["jax_cpu_genesis"]
+    # the account trie went level by level through the batch seam
+    assert r["genesis_batches"] >= 3
+    assert r["genesis_launches"] >= r["genesis_batches"]
+
+
+def test_batched_block_root_matches_jax_statedb_and_cpu_hasher(batched_roots):
+    r = batched_roots
+    assert r["port_block"] == r["jax_statedb_block"] == r["jax_cpu_block"]
+    assert r["block_batches"] >= 3
+    for got, want in r["storage_roots"]:
+        assert got == want != EMPTY_ROOT
+
+
+def test_too_many_segments_commit_falls_back_to_batched(monkeypatch,
+                                                        slice_roots):
+    """planned_intermediate_root over a graph larger than the segment table:
+    the holes heal through each storage trie's own hash() and the account
+    trie through its own Trie.hash, whose planned re-plan overflows too and
+    goes to BatchedHasher on its marker (two fallbacks per commit); the
+    roots stay the CPU Hasher's."""
+    monkeypatch.setattr(keccak_planned, "MAX_SEGMENTS", 2)
+    monkeypatch.setattr(planned, "planned_fallbacks", 0)
+    monkeypatch.setattr(hasher, "keccak_batches", 0)
+    rng, addrs, state = _world()
+    commit = PlannedCommit(device="cpu")
+    mode = PlannedMode(commit)
+    account_trie = StateTrie(batch_keccak=mode)
+    objs = _port_objects(state, addrs, mode)
+    assert planned_intermediate_root(account_trie, dict(objs),
+                                     planned=commit) == \
+        slice_roots["jax_cpu_genesis"]
+    assert planned.planned_fallbacks == 2
+    assert commit.last_dispatches == 0
+    assert hasher.keccak_batches >= 3
+    for a in addrs[:N_CONTRACTS]:
+        assert objs[a][0].root == _jax_storage_root(state[a]["slots"])
+    touched, writes = _block(rng, addrs, state)
+    changed = _port_block(objs, state, touched, writes)
+    assert intermediate_root(account_trie, changed, mode) == \
+        slice_roots["jax_cpu_block"]
+    assert planned.planned_fallbacks == 4
