@@ -8,13 +8,19 @@
 
 Phases (each passes or the script exits non-zero):
   1. card: nvidia-smi name and power limit, torch and CUDA versions
-  2. build: the host Keccak (g++), kernels K1 and K2 (nvcc), in parallel
+  2. build: the host Keccak (g++), kernels K1 and K2 (nvcc), in parallel;
+     ptxas registers and spills of each of their four kernels
   3. K1 against its plain torch version over a (P, L) grid, bit for bit,
-     plus the known Keccak vectors
-  4. K2 against its plain torch version over a (B, L) grid with random
-     block counts and edge lanes (nblocks 0 and L + 1: zero digests), plus
-     BatchedKeccak on the card over the known vectors and messages of
-     135-1200 bytes against the host keccak
+     plus the known Keccak vectors, through each variant forced (1: one
+     thread per lane, 2: cooperative) and the launch's own choice; the
+     grid's P includes the sizes either side of K1's kCoopMaxLanes
+  4. K2 the same over a (B, L) grid with random block counts and edge
+     lanes (nblocks 0 and L + 1: zero digests), plus BatchedKeccak on the
+     card over the known vectors and messages of 135-1200 bytes against the
+     host keccak; K2's latency split for both variants
+  4b. the variant sweep: both variants of K1 and K2 at B in SWEEP_B x L in
+     (1, 4) on CUDA events and in the profiler's trace, and the crossover
+     that sets kCoopMaxLanes
   5. planned genesis commit: 1M accounts (1,000 contracts x 100 storage
      slots) composed as StateDB._planned_intermediate_root does and
      committed through K1; the root must equal the CPU Hasher's root of an
@@ -29,7 +35,8 @@ Phases (each passes or the script exits non-zero):
   8. fallback: a small state through the planned marker with MAX_SEGMENTS
      lowered, so that TooManySegments sends it to BatchedHasher on K2
 Before the last line it prints one JSON object describing each kernel
-(launches on its main path, max error, ms, plain ms, bound ms); the last
+(launches on its main path, max error, ms, plain ms, bound ms, and per
+variant its launches and kernel ms in the profiler's trace); the last
 line is {"ok": true, "device": {...}}. Nothing of jax or coreth_tpu is
 imported.
 """
@@ -88,6 +95,19 @@ GRID_L = (1, 2, 3, 4, 5, 9, 17)
 GRID_P = (1, 31, 1024, 1040, 65537)
 # messages straddling the 136-byte rate: 1, 2, 2, 3 and 9 blocks
 BLOCK_EDGE_LENGTHS = (135, 136, 271, 272, 1200)
+# forced one thread per lane, forced cooperative, the launch's own choice
+VARIANTS = (keccak_cuda.THREAD, keccak_cuda.COOP, None)
+# 2048 and 4096 place the crossover between 1024 and 8192
+SWEEP_B = (128, 1024, 2048, 4096, 8192, 65536, 524288)
+SWEEP_L = (1, 4)
+# the profiler's kernel names of each kernel's two variants
+KERNEL_NAMES = {
+    "K1": {keccak_cuda.THREAD: "segment_keccak_kernel",
+           keccak_cuda.COOP: "segment_keccak_coop_kernel"},
+    "K2": {keccak_cuda.THREAD: "keccak_blocks_kernel",
+           keccak_cuda.COOP: "keccak_blocks_coop_kernel"},
+}
+VARIANT_NAME = {keccak_cuda.THREAD: "thread", keccak_cuda.COOP: "coop"}
 
 
 def check(cond: bool, what: str) -> None:
@@ -207,90 +227,152 @@ def phase_build(dev) -> None:
     log(f"build total (parallel): {time.perf_counter() - t0:.2f} s")
     if dev.type == "cuda":
         for name, kernel in (("K1", keccak_cuda.K1), ("K2", keccak_cuda.K2)):
-            for line in kernel.build_log().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"{name} ptxas: {line.strip()}")
+            for fn, (regs, stores, loads) in ptxas_report(
+                    kernel.build_log()).items():
+                log(f"{name} ptxas {fn}: {regs} registers, spill stores "
+                    f"{stores} B, spill loads {loads} B")
+            log(f"{name} kCoopMaxLanes {kernel.coop_max_lanes}")
+
+
+def ptxas_report(build_log: str) -> dict:
+    """{kernel name: (registers, spill store bytes, spill load bytes)} from
+    nvcc's -Xptxas -v output, for the names in KERNEL_NAMES."""
+    names = [n for v in KERNEL_NAMES.values() for n in v.values()]
+    out, current, spill = {}, None, (None, None)
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            # a name's length prefix in the mangled symbol keeps
+            # keccak_blocks_kernel apart from keccak_blocks_coop_kernel
+            current = next((n for n in names if f"{len(n)}{n}" in mangled),
+                           None)
+        elif "spill stores" in line and current:
+            nums = [int(t) for t in line.replace(",", " ").split()
+                    if t.isdigit()]
+            spill = (nums[1], nums[2])  # stack frame, stores, loads
+        elif "Used" in line and "registers" in line and current:
+            regs = int(line.split("Used")[1].split()[0])
+            out[current] = (regs, *spill)
+            current = None
+    return out
+
+
+def grid_sizes(kernel) -> tuple:
+    """GRID_P plus the sizes either side of the kernel's kCoopMaxLanes."""
+    t = kernel.coop_max_lanes
+    return GRID_P if t is None else GRID_P + (t, t + 1)
+
+
+def grid_variants(dev) -> tuple:
+    """Every variant on the card; the CPU rehearsal's plain version is the
+    same whatever the variant, so it runs once."""
+    return VARIANTS if dev.type == "cuda" else (None,)
 
 
 def phase_grid(dev, seed: int) -> int:
-    """K1 == plain on random words; returns the max abs error (0)."""
+    """K1 == plain on random words through every variant; returns the max
+    abs error (0)."""
     rng = np.random.default_rng(seed)
     worst = 0
+    sizes, variants = grid_sizes(keccak_cuda.K1), grid_variants(dev)
     for blocks in GRID_L:
-        for p in GRID_P:
+        for p in sizes:
             w = rng.integers(0, 2**32, size=(p, blocks, 34), dtype=np.uint32)
             x = torch.from_numpy(words_to_int32(w)).to(dev)
-            got = keccak_cuda.segment_keccak(x)
             want = segment_keccak_plain(x)
-            worst = max(worst, max_abs_err(got, want))
-            check(torch.equal(got, want), f"K1 != plain at P={p} L={blocks}")
-    log(f"K1 vs plain: {len(GRID_L) * len(GRID_P)} shapes bit-equal "
-        f"(L in {GRID_L}, P in {GRID_P})")
+            for v in variants:
+                got = keccak_cuda.segment_keccak(x, variant=v)
+                worst = max(worst, max_abs_err(got, want))
+                check(torch.equal(got, want),
+                      f"K1 != plain at P={p} L={blocks} variant {v}")
+    log(f"K1 vs plain: {len(GRID_L) * len(sizes)} shapes x variants "
+        f"{variants} bit-equal (L in {GRID_L}, P in {sizes})")
     msgs = list(KNOWN)
     words, _ = pack_messages(msgs)
     x = torch.from_numpy(words_to_int32(words)).to(dev)
-    digs = digest_words_to_bytes(int32_to_words(keccak_cuda.segment_keccak(x)))
-    for m, d in zip(msgs, digs):
-        check(d.hex() == KNOWN[m], f"K1 known vector keccak({m!r})")
+    for v in variants:
+        digs = digest_words_to_bytes(int32_to_words(
+            keccak_cuda.segment_keccak(x, variant=v)))
+        for m, d in zip(msgs, digs):
+            check(d.hex() == KNOWN[m], f"K1 variant {v} known vector {m!r}")
+    for m in msgs:
         check(keccak256(m).hex() == KNOWN[m], f"host known vector {m!r}")
-    log("K1 and host keccak: known vectors ok")
+    log(f"K1 (variants {variants}) and host keccak: known vectors ok")
     return worst
 
 
 def phase_grid_k2(dev, seed: int) -> int:
-    """K2 == plain on random words and block counts, edge lanes zero; then
-    BatchedKeccak on the device against the host keccak. Returns the max
-    abs error (0)."""
+    """K2 == plain on random words and block counts through every variant,
+    edge lanes zero; then BatchedKeccak on the device, and K2 directly per
+    variant, against the host keccak. Returns the max abs error (0)."""
     rng = np.random.default_rng(seed + 1)
     worst = 0
+    sizes, variants = grid_sizes(keccak_cuda.K2), grid_variants(dev)
     for blocks in GRID_L:
-        for b in GRID_P:
+        for b in sizes:
             w = rng.integers(0, 2**32, size=(b, blocks, 34), dtype=np.uint32)
             nb = rng.integers(1, blocks + 1, b).astype(np.int32)
             if b >= 3:
                 nb[-2:] = (0, blocks + 1)  # never snapshotted: zero digests
             x = torch.from_numpy(words_to_int32(w)).to(dev)
             n = torch.from_numpy(nb).to(dev)
-            got = keccak_cuda.keccak256_blocks(x, n)
             want = keccak256_blocks_plain(x, n)
-            worst = max(worst, max_abs_err(got, want))
-            check(torch.equal(got, want), f"K2 != plain at B={b} L={blocks}")
-            if b >= 3:
-                check(not bool(got[-2:].any()),
-                      f"K2 edge lanes not zero at B={b} L={blocks}")
-    log(f"K2 vs plain: {len(GRID_L) * len(GRID_P)} shapes bit-equal "
-        f"(L in {GRID_L}, B in {GRID_P}, nblocks in [1, L] plus edge lanes "
-        f"0 and L + 1 giving zero digests)")
+            for v in variants:
+                got = keccak_cuda.keccak256_blocks(x, n, variant=v)
+                worst = max(worst, max_abs_err(got, want))
+                check(torch.equal(got, want),
+                      f"K2 != plain at B={b} L={blocks} variant {v}")
+                if b >= 3:
+                    check(not bool(got[-2:].any()), f"K2 edge lanes not "
+                          f"zero at B={b} L={blocks} variant {v}")
+    log(f"K2 vs plain: {len(GRID_L) * len(sizes)} shapes x variants "
+        f"{variants} bit-equal (L in {GRID_L}, B in {sizes}, nblocks in "
+        f"[1, L] plus edge lanes 0 and L + 1 giving zero digests)")
     msgs = list(KNOWN) + [rng.bytes(n) for n in BLOCK_EDGE_LENGTHS]
+    want = [keccak256(m) for m in msgs]
     got = BatchedKeccak(device=dev).digests(msgs)
-    check(got == [keccak256(m) for m in msgs],
-          "BatchedKeccak on the device != host keccak")
+    check(got == want, "BatchedKeccak on the device != host keccak")
     for m, d in zip(KNOWN, got):
         check(d.hex() == KNOWN[m], f"K2 known vector keccak({m!r})")
-    log(f"K2 through BatchedKeccak: known vectors and {BLOCK_EDGE_LENGTHS}"
-        f"-byte messages equal the host keccak")
+    words, nblocks = pack_messages(msgs)
+    x = torch.from_numpy(words_to_int32(words)).to(dev)
+    n = torch.from_numpy(nblocks.astype(np.int32)).to(dev)
+    for v in variants:
+        got = digest_words_to_bytes(int32_to_words(
+            keccak_cuda.keccak256_blocks(x, n, variant=v)))
+        check(got == want, f"K2 variant {v} != host keccak")
+    log(f"K2 through BatchedKeccak and each variant {variants}: known "
+        f"vectors and {BLOCK_EDGE_LENGTHS}-byte messages equal the host "
+        f"keccak")
     if dev.type == "cuda":
-        log(k2_latency_split(dev))
+        for v in (keccak_cuda.THREAD, keccak_cuda.COOP):
+            log(k2_latency_split(dev, v))
+        log(enqueue_breakdown(dev))
     return worst
 
 
-def profiled_device_ms(fn, kernel: str):
-    """Device time of the kernels whose name holds `kernel` while fn()
-    runs, from torch.profiler's CUDA activity (CUPTI); None where the trace
-    shows no device time for them."""
+def profiled_device_ms(fn, *kernels: str) -> list:
+    """Device time of the kernels whose name holds each of `kernels` while
+    fn() runs, from torch.profiler's CUDA activity (CUPTI); None for a name
+    the trace shows no device time for. A name matches itself alone: no
+    kernel name here holds another."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages()
-             if kernel in e.key)
-    return us / 1e3 if us else None
+    events = prof.key_averages()
+    out = []
+    for k in kernels:
+        us = sum(e.device_time_total for e in events if k in e.key)
+        out.append(us / 1e3 if us else None)
+    return out
 
 
-def k2_latency_split(dev, lanes: int = 128, reps: int = 200) -> str:
-    """K2 on one bucket of `lanes` (_pad_batch's floor, 1 of the card's
-    132 SMs) with no block to absorb (nblocks 0: launch, read the counts,
+def k2_latency_split(dev, variant: int, lanes: int = 128,
+                     reps: int = 200) -> str:
+    """K2, forced to `variant`, on one bucket of `lanes` (_pad_batch's
+    floor) with no block to absorb (nblocks 0: launch, read the counts,
     write zero digests), one block (L = 1) and sixteen (L = 16), each
     warmed first. For `reps` back-to-back wrapper calls: the mean per call
     on CUDA events (as check_and_time_k2 times the main path's buckets),
@@ -298,11 +380,12 @@ def k2_latency_split(dev, lanes: int = 128, reps: int = 200) -> str:
     profiler's trace. Where the events read no more than the host enqueue
     time, the card waits on the host."""
     cases = {"no block": (1, 0), "L=1": (1, 1), "L=16": (16, 16)}
+    name_in_trace = KERNEL_NAMES["K2"][variant]
     args = {}
     for name, (blocks, nb) in cases.items():
         args[name] = (
             torch.zeros((lanes, blocks, 34), dtype=torch.int32, device=dev),
-            torch.full((lanes,), nb, dtype=torch.int32, device=dev))
+            torch.full((lanes,), nb, dtype=torch.int32, device=dev), variant)
         for _ in range(10):
             keccak_cuda.keccak256_blocks(*args[name])
     torch.cuda.synchronize()
@@ -322,13 +405,109 @@ def k2_latency_split(dev, lanes: int = 128, reps: int = 200) -> str:
         def run(a=a):
             for _ in range(reps):
                 keccak_cuda.keccak256_blocks(*a)
-        kernel_ms = profiled_device_ms(run, "keccak_blocks_kernel")
+        kernel_ms, = profiled_device_ms(run, name_in_trace)
         kernel = ("not measured (no device time in the trace)"
                   if kernel_ms is None else f"{kernel_ms / reps * 1e3:.3f} us")
         parts.append(f"{name} {event_us:.3f} us per call (events), host "
                      f"enqueue {host_us:.3f} us, kernel {kernel}")
-    return (f"K2 latency split, one {lanes}-lane bucket, {reps} back-to-back "
-            f"calls each: " + "; ".join(parts))
+    return (f"K2 latency split, variant {variant} "
+            f"({VARIANT_NAME[variant]}), one {lanes}-lane bucket, {reps} "
+            f"back-to-back calls each: " + "; ".join(parts))
+
+
+def enqueue_breakdown(dev, lanes: int = 128, reps: int = 1000) -> str:
+    """What one K2 wrapper call with no block to absorb costs the host,
+    part by part, as the mean over `reps` back-to-back calls on the host
+    clock: the input checks, the output allocation, the device and raw
+    stream lookups, the bare ctypes call into the library (argument
+    conversion, cudaLaunchKernel, cudaGetLastError), the whole wrapper,
+    and as a yardstick one PyTorch kernel launch (Tensor.zero_ on the
+    output)."""
+    w = torch.zeros((lanes, 1, 34), dtype=torch.int32, device=dev)
+    n = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+    out = keccak_cuda.keccak256_blocks(w, n)
+    fn, index = keccak_cuda.K2.load(), w.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    ptrs = (w.data_ptr(), n.data_ptr(), out.data_ptr(), lanes, 1,
+            keccak_cuda.THREAD)
+    parts = {
+        "checks": lambda: keccak_cuda._check("keccak256_blocks", w, None),
+        "allocation": lambda: w.new_empty((lanes, 8)),
+        "device and stream": lambda: (
+            torch._C._cuda_getDevice(),
+            torch._C._cuda_getCurrentRawStream(index)),
+        "ctypes launch": lambda: fn(*ptrs, stream),
+        "whole wrapper": lambda: keccak_cuda.keccak256_blocks(w, n),
+        "yardstick Tensor.zero_": lambda: out.zero_(),
+    }
+    times = []
+    for name, call in parts.items():
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        times.append(f"{name} {(time.perf_counter() - t0) / reps * 1e6:.3f}")
+        torch.cuda.synchronize()
+    return (f"K2 host enqueue by part, one {lanes}-lane call with no block, "
+            f"us per call over {reps}: " + ", ".join(times))
+
+
+def phase_sweep(dev, reps: int = 20) -> dict:
+    """Both variants of K1 and K2 at B in SWEEP_B x L in SWEEP_L, every
+    lane absorbing L blocks: mean ms per call on CUDA events and kernel ms
+    per call in the profiler's trace, the two variants' digests equal.
+    Prints each (B, L) and, per kernel and L, the crossover: the largest B
+    at which the cooperative kernel is faster in the trace. Returns
+    {(kernel, L): that B or None}."""
+    t_start = time.perf_counter()
+    calls = {"K1": lambda w, n, v: keccak_cuda.segment_keccak(w, variant=v),
+             "K2": lambda w, n, v: keccak_cuda.keccak256_blocks(w, n,
+                                                               variant=v)}
+    crossover = {}
+    for kname, call in calls.items():
+        for blocks in SWEEP_L:
+            coop_wins = []
+            for b in SWEEP_B:
+                w = torch.randint(-2**31, 2**31, (b, blocks, 34),
+                                  dtype=torch.int32, device=dev)
+                n = torch.full((b,), blocks, dtype=torch.int32, device=dev)
+                outs = [call(w, n, v) for v in KERNEL_NAMES[kname]]
+                check(torch.equal(*outs), f"sweep {kname} B={b} L={blocks}: "
+                      f"the variants disagree")
+                ev = {v: time_ms(call, (w, n, v), reps)
+                      for v in KERNEL_NAMES[kname]}
+
+                def run():
+                    for v in KERNEL_NAMES[kname]:
+                        for _ in range(reps):
+                            call(w, n, v)
+                kern = dict(zip(KERNEL_NAMES[kname], profiled_device_ms(
+                    run, *KERNEL_NAMES[kname].values())))
+                kern = {v: None if ms is None else ms / reps
+                        for v, ms in kern.items()}
+                bound, by = k1_bound_ms([(b, blocks)])
+                log(f"sweep {kname} B={b} L={blocks}: " + ", ".join(
+                    f"{VARIANT_NAME[v]} {ev[v]:.4f} ms events / "
+                    + ("not measured" if kern[v] is None
+                       else f"{kern[v]:.4f} ms kernel")
+                    for v in KERNEL_NAMES[kname])
+                    + f"; bound {bound:.4f} ms ({by})")
+                t, c = (kern[keccak_cuda.THREAD], kern[keccak_cuda.COOP])
+                if t is None or c is None:
+                    t, c = ev[keccak_cuda.THREAD], ev[keccak_cuda.COOP]
+                coop_wins.append(c < t)
+                del w, n, outs
+            last = max((b for b, won in zip(SWEEP_B, coop_wins) if won),
+                       default=None)
+            crossover[(kname, blocks)] = last
+            log(f"sweep crossover {kname} L={blocks}: cooperative faster at "
+                f"B in {[b for b, won in zip(SWEEP_B, coop_wins) if won]}, "
+                f"one thread per lane at "
+                f"{[b for b, won in zip(SWEEP_B, coop_wins) if not won]}")
+    log(f"sweep: {time.perf_counter() - t_start:.1f} s")
+    return crossover
 
 
 class _Recorder:
@@ -408,15 +587,16 @@ class Oracle:
 
 
 def commit(dev, account_trie, changed, label):
-    """One planned-path commit: counts zeroed before, read after."""
-    keccak_cuda.launches = keccak_cuda.blocks_launches = 0
+    """One planned-path commit: counts zeroed before, read after. Returns
+    (root, builder, K1 launches, of them cooperative)."""
+    keccak_cuda.reset_counts()
     planned_mod.planned_fallbacks = 0
     builder = PlannedGraphBuilder()
     t0 = time.perf_counter()
     root = planned_intermediate_root(account_trie, changed, device=dev,
                                      builder=builder)
     wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = keccak_cuda.launches
+    launches, coop = keccak_cuda.launches, keccak_cuda.launches_coop
     fallbacks = planned_mod.planned_fallbacks
     pc = default_planned_commit(dev)
     specs = builder.plan[0]
@@ -427,7 +607,8 @@ def commit(dev, account_trie, changed, label):
           f"{label}: K1 launched {launches} times for {len(specs)} segments")
     log(f"{label}: nodes hashed {builder.n_hashed}, segments {len(specs)} "
         f"(MAX_SEGMENTS headroom {MAX_SEGMENTS - len(specs)}), "
-        f"lanes {sum(s.lanes for s in specs)}, K1 launches {launches}")
+        f"lanes {sum(s.lanes for s in specs)}, K1 launches {launches} "
+        f"(cooperative {coop})")
     dev_ms = ("not measured (cpu)" if pc.last_device_ms is None
               else f"{pc.last_device_ms:.3f} ms (upload "
                    f"{pc.last_upload_ms:.3f} ms)")
@@ -435,13 +616,44 @@ def commit(dev, account_trie, changed, label):
         f"last digest, CUDA events) {dev_ms}, "
         f"h2d {pc.last_h2d_bytes} B in {pc.last_transfers} transfers, "
         f"commit wall {wall_ms:.1f} ms")
-    return root, builder, launches
+    return root, builder, launches, coop
+
+
+def timed_variant(call, args, coop_count: str):
+    """(time_ms of call(*args) over 10 calls, the variant the launches
+    picked on their own), the variant as the wrapper's cooperative count,
+    keccak_cuda.<coop_count>, records it."""
+    before = getattr(keccak_cuda, coop_count)
+    ms = time_ms(call, args, reps=10)
+    coop = getattr(keccak_cuda, coop_count) > before
+    return ms, keccak_cuda.COOP if coop else keccak_cuda.THREAD
+
+
+def kernel_ms_by_variant(kname: str, call, inputs, ran, reps: int) -> dict:
+    """{variant: kernel ms per pass over `inputs`} in the profiler's trace,
+    each input run `reps` times in one session through `call` (the
+    launch's own choice of variant); 0.0 for a variant not in `ran`, None
+    where the trace holds no device time for one that ran."""
+    def run():
+        for args in inputs:
+            for _ in range(reps):
+                call(*args)
+    names = KERNEL_NAMES[kname]
+    got = profiled_device_ms(run, *names.values())
+    return {v: (0.0 if v not in ran else None if ms is None else ms / reps)
+            for v, ms in zip(names, got)}
+
+
+def fmt_ms(ms) -> str:
+    return "not measured (no device time)" if ms is None else f"{ms:.4f} ms"
 
 
 def check_and_time(dev, builder, label):
     """Same plan through the plain version: every digest equal. Then time
-    K1 and the plain version on each segment's words, and a warm re-run
-    of the whole plan through the default commit."""
+    K1 and the plain version on each segment's words (per segment: P, L,
+    the variant the launch picks, ms on events, bound), K1's kernel time in
+    the profiler's trace per variant, and a warm re-run of the whole plan
+    through the default commit."""
     pc = default_planned_commit(dev)
     pc.run(*builder.plan)
     if pc.last_device_ms is not None:
@@ -455,17 +667,36 @@ def check_and_time(dev, builder, label):
     err = 0
     k1_ms = plain_ms = 0.0
     shapes = []
+    by_variant = defaultdict(float)
+    cuda = dev.type == "cuda"
     for x in rec.inputs:
         got = keccak_cuda.segment_keccak(x)
         err = max(err, max_abs_err(got, segment_keccak_plain(x)))
-        k1_ms += time_ms(keccak_cuda.segment_keccak, (x,), reps=10)
+        ms, v = timed_variant(keccak_cuda.segment_keccak, (x,),
+                              "launches_coop")
+        k1_ms += ms
         plain_ms += time_ms(segment_keccak_plain, (x,), reps=1)
-        shapes.append((x.shape[0], x.shape[1]))
+        p, blocks = x.shape[0], x.shape[1]
+        shapes.append((p, blocks))
+        if cuda:
+            by_variant[v] += ms
+            bound, by = k1_bound_ms([(p, blocks)])
+            log(f"{label}: K1 segment (P, L, variant, ms, bound) = ({p}, "
+                f"{blocks}, {v}, {ms:.4f}, {bound:.4f} {by})")
     bound, by = k1_bound_ms(shapes)
     log(f"{label}: every lane digest equal to the plain version "
         f"({dig.shape[0]} lanes); K1 {k1_ms:.4f} ms over {len(shapes)} "
         f"segments, bound {bound:.4f} ms ({by}), plain {plain_ms:.3f} ms")
-    return err, k1_ms, plain_ms, shapes
+    kernel = {}
+    if cuda:
+        kernel = kernel_ms_by_variant(
+            "K1", keccak_cuda.segment_keccak, [(x,) for x in rec.inputs],
+            set(by_variant), reps=10)
+        log(f"{label}: K1 by variant, events / kernel in the profiler's "
+            f"trace (each segment 10 times in one session): " + "; ".join(
+                f"{VARIANT_NAME[v]} {by_variant[v]:.4f} ms / "
+                f"{fmt_ms(kernel[v])}" for v in KERNEL_NAMES["K1"]))
+    return err, k1_ms, plain_ms, shapes, kernel
 
 
 def genesis_tries(world: World, mode):
@@ -490,11 +721,12 @@ def phase_genesis(dev, world: World, oracle_root: bytes):
     log(f"genesis: {len(world.addrs)} accounts, {len(world.storage)} "
         f"contracts x {len(next(iter(world.storage.values())))} slots built "
         f"in {time.perf_counter() - t0:.1f} s")
-    root, builder, launches = commit(dev, account_trie, changed, "genesis")
+    root, builder, launches, coop = commit(dev, account_trie, changed,
+                                           "genesis")
     check(root == oracle_root, f"genesis root {root.hex()} != CPU oracle "
           f"{oracle_root.hex()}")
     log(f"genesis root {root.hex()} == independent CPU Hasher root")
-    return account_trie, changed, root, builder, launches
+    return account_trie, changed, builder, launches, coop
 
 
 class _BlocksRecorder:
@@ -547,12 +779,13 @@ def cuda_mallocs(dev) -> int:
 
 def commit_batched(dev, mode, account_trie, changed, label):
     """One batched-path commit through intermediate_root: counts zeroed
-    before, read after. Returns (root, K2 launches, recorder)."""
+    before, read after. Returns (root, K2 launches, of them cooperative,
+    recorder)."""
     bk = mode.batched
     rec = _BlocksRecorder()
     bk.impl, default_impl = rec, bk.impl
     bk.reset_totals()
-    keccak_cuda.launches = keccak_cuda.blocks_launches = 0
+    keccak_cuda.reset_counts()
     hasher_mod.keccak_batches = hasher_mod.keccak_batch_msgs = 0
     planned_mod.planned_fallbacks = 0
     mallocs = cuda_mallocs(dev)
@@ -566,6 +799,7 @@ def commit_batched(dev, mode, account_trie, changed, label):
         bk.impl = default_impl
     mallocs = cuda_mallocs(dev) - mallocs
     k1, k2 = keccak_cuda.launches, keccak_cuda.blocks_launches
+    k2_coop = keccak_cuda.blocks_launches_coop
     check(k1 == 0, f"{label}: the batched path launched K1 {k1} times")
     check(planned_mod.planned_fallbacks == 0, f"{label}: planned fallback")
     check(bk.calls > 0 and bk.calls == hasher_mod.keccak_batches,
@@ -578,20 +812,25 @@ def commit_batched(dev, mode, account_trie, changed, label):
               else f"{bk.device_ms:.3f} ms")
     log(f"{label}: nodes hashed {hasher_mod.keccak_batch_msgs}, level "
         f"batches {hasher_mod.keccak_batches}, BatchedKeccak calls "
-        f"{bk.calls}, K2 launches {k2}, lanes {bk.lanes} real / "
+        f"{bk.calls}, K2 launches {k2} (cooperative {k2_coop}), lanes "
+        f"{bk.lanes} real / "
         f"{bk.padded_lanes} padded, h2d {bk.h2d_bytes} B, device (uploads to "
         f"digest readbacks, CUDA events) {dev_ms}, commit wall {wall_ms:.1f} "
         f"ms")
     log(f"{label}: during the commit: garbage collector pauses ({pauses}), "
         f"new device segments (cudaMalloc) {mallocs}")
-    return root, k2, rec
+    return root, k2, k2_coop, rec
 
 
-def check_and_time_k2(rec: _BlocksRecorder, label, pad_lanes: int):
+def check_and_time_k2(rec: _BlocksRecorder, label, pad_lanes: int,
+                      profile_reps: int):
     """Every lane K2 hashed on the main path against the plain version on
     the same inputs (concatenated by L: the function is per lane); then K2
-    timed on each recorded input and the plain version on each group.
-    `pad_lanes`: how many of the lanes are _pad_batch's padding."""
+    timed on each recorded input (events, split by the variant the launch
+    picks) and the plain version on each group, and K2's kernel time per
+    variant in the profiler's trace, each input run `profile_reps` times
+    in one session. `pad_lanes`: how many of the lanes are _pad_batch's
+    padding."""
     groups = defaultdict(list)
     for words, nblocks, out in rec.records:
         groups[words.shape[1]].append((words, nblocks, out))
@@ -609,17 +848,24 @@ def check_and_time_k2(rec: _BlocksRecorder, label, pad_lanes: int):
         lanes += words.shape[0]
         plain_ms += time_ms(keccak256_blocks_plain, (words, nblocks), reps=1)
         del words, nblocks, got, want
-    k2_ms = sum(time_ms(keccak_cuda.keccak256_blocks, (w, n), reps=10)
-                for w, n, _ in rec.records)
     inputs = [(w, n) for w, n, _ in rec.records]
-    if inputs[0][0].is_cuda:
-        kernel_ms = profiled_device_ms(
-            lambda: [keccak_cuda.keccak256_blocks(w, n) for w, n in inputs],
-            "keccak_blocks_kernel")
-        log(f"{label}: K2 kernel time in the profiler's trace, one launch "
-            f"per recorded input: " + ("not measured (no device time)"
-                                       if kernel_ms is None
-                                       else f"{kernel_ms:.4f} ms"))
+    cuda = inputs[0][0].is_cuda
+    k2_ms = 0.0
+    by_variant = defaultdict(float)
+    for w, n in inputs:
+        ms, v = timed_variant(keccak_cuda.keccak256_blocks, (w, n),
+                              "blocks_launches_coop")
+        k2_ms += ms
+        by_variant[v] += ms
+    kernel = {}
+    if cuda:
+        kernel = kernel_ms_by_variant("K2", keccak_cuda.keccak256_blocks,
+                                      inputs, set(by_variant),
+                                      reps=profile_reps)
+        log(f"{label}: K2 by variant, events / kernel in the profiler's "
+            f"trace (each input {profile_reps} times in one session): "
+            + "; ".join(f"{VARIANT_NAME[v]} {by_variant[v]:.4f} ms / "
+                        f"{fmt_ms(kernel[v])}" for v in KERNEL_NAMES["K2"]))
     bound, by = k2_bound_ms(inputs)
     real_bound, real_by = k2_bound_ms(inputs, pad_lanes)
     log(f"{label}: every K2 lane digest equal to the plain version "
@@ -627,10 +873,10 @@ def check_and_time_k2(rec: _BlocksRecorder, label, pad_lanes: int):
         f"{sorted(groups)}); K2 {k2_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
         f"{real_bound:.4f} ms ({real_by}) over the {lanes - pad_lanes} real "
         f"lanes alone), plain {plain_ms:.3f} ms (one call per L)")
-    if inputs[0][0].is_cuda:
+    if cuda:
         log(f"{label}: replayed round trips (upload, K2, readback; CUDA "
             f"events) {replay_round_trips(inputs)}")
-    return err, k2_ms, plain_ms, inputs
+    return err, k2_ms, plain_ms, inputs, kernel
 
 
 def replay_round_trips(inputs) -> str:
@@ -667,12 +913,14 @@ def phase_genesis_batched(dev, world: World, oracle_root: bytes):
     account_trie, changed = genesis_tries(world, mode)
     log(f"batched genesis: fresh tries built in "
         f"{time.perf_counter() - t0:.1f} s")
-    root, launches, rec = commit_batched(dev, mode, account_trie, changed,
-                                         "batched genesis")
+    root, launches, coop, rec = commit_batched(dev, mode, account_trie,
+                                               changed, "batched genesis")
     check(root == oracle_root, f"batched genesis root {root.hex()} != CPU "
           f"oracle {oracle_root.hex()}")
+    check(dev.type != "cuda" or coop > 0,
+          "batched genesis: the cooperative K2 kernel never ran")
     log(f"batched genesis root {root.hex()} == independent CPU Hasher root")
-    return mode, account_trie, changed, launches, rec
+    return mode, account_trie, changed, launches, coop, rec
 
 
 def make_block(world: World, n_transfers=700, n_contracts=50, n_writes=20):
@@ -730,7 +978,7 @@ def phase_fallback(dev, seed: int):
     want = Oracle(world).root()
     mode = PlannedMode(device=dev)
     account_trie, changed = genesis_tries(world, mode)
-    keccak_cuda.launches = keccak_cuda.blocks_launches = 0
+    keccak_cuda.reset_counts()
     planned_mod.planned_fallbacks = 0
     keccak_planned.MAX_SEGMENTS = 2
     try:
@@ -747,6 +995,20 @@ def phase_fallback(dev, seed: int):
     check(dev.type != "cuda" or k2 > 0, "fallback: K2 never launched")
     log(f"fallback (3000 accounts, MAX_SEGMENTS 2): root == CPU Hasher root, "
         f"planned_fallbacks {fallbacks}, K2 launches {k2}")
+
+
+def variants_json(launches: int, coop: int, *kernel_ms: dict) -> dict:
+    """Per variant: main-path launches and kernel ms in the profiler's
+    trace summed over the commits (None where a trace held no device time,
+    or on the CPU)."""
+    out = {}
+    for v, n in ((keccak_cuda.THREAD, launches - coop),
+                 (keccak_cuda.COOP, coop)):
+        parts = [k.get(v) for k in kernel_ms]
+        ms = (None if not all(kernel_ms) or None in parts
+              else sum(parts))
+        out[VARIANT_NAME[v]] = {"launches": n, "kernel_ms": ms}
+    return out
 
 
 def main() -> int:
@@ -768,6 +1030,8 @@ def main() -> int:
     phase_build(dev)
     grid_err = phase_grid(dev, args.seed)
     grid2_err = phase_grid_k2(dev, args.seed)
+    if dev.type == "cuda":
+        phase_sweep(dev)
 
     t0 = time.perf_counter()
     world = World(args.accounts, args.contracts, args.slots, args.seed)
@@ -777,16 +1041,17 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s; peak RSS {rss_gib():.1f} GiB")
 
     # planned path (K1)
-    p_trie, p_changed, _root, g_builder, g_launches = phase_genesis(
+    p_trie, p_changed, g_builder, g_launches, g_coop = phase_genesis(
         dev, world, oracle_root)
-    g_err, g_ms, g_plain, g_shapes = check_and_time(dev, g_builder, "genesis")
+    g_err, g_ms, g_plain, g_shapes, g_kernel = check_and_time(
+        dev, g_builder, "genesis")
     del g_builder
     # batched path (K2)
-    mode, b_trie, b_changed, bg_launches, bg_rec = phase_genesis_batched(
-        dev, world, oracle_root)
+    mode, b_trie, b_changed, bg_launches, bg_coop, bg_rec = \
+        phase_genesis_batched(dev, world, oracle_root)
     bg_pad = mode.batched.padded_lanes - mode.batched.lanes
-    bg_err, bg_ms, bg_plain, bg_inputs = check_and_time_k2(
-        bg_rec, "batched genesis", bg_pad)
+    bg_err, bg_ms, bg_plain, bg_inputs, bg_kernel = check_and_time_k2(
+        bg_rec, "batched genesis", bg_pad, profile_reps=1)
     del bg_rec
     log(f"after both genesis commits: peak RSS {rss_gib():.1f} GiB")
 
@@ -798,22 +1063,25 @@ def main() -> int:
     oracle.apply(accounts, writes)
     want = oracle.root()
     log(f"block: CPU oracle {time.perf_counter() - t0:.1f} s")
-    root, b_builder, b_launches = commit(
+    root, b_builder, b_launches, b_coop = commit(
         dev, p_trie, block_changes(world, p_changed, accounts, writes),
         "block")
     check(root == want, f"block root {root.hex()} != CPU oracle {want.hex()}")
+    check(dev.type != "cuda" or b_coop > 0,
+          "block: the cooperative K1 kernel never ran")
     log(f"block root {root.hex()} == independent CPU Hasher root")
-    b_err, b_ms, b_plain, b_shapes = check_and_time(dev, b_builder, "block")
+    b_err, b_ms, b_plain, b_shapes, b_kernel = check_and_time(
+        dev, b_builder, "block")
     del b_builder, p_trie, p_changed
-    root, bb_launches, bb_rec = commit_batched(
+    root, bb_launches, bb_coop, bb_rec = commit_batched(
         dev, mode, b_trie, block_changes(world, b_changed, accounts, writes),
         "batched block")
     check(root == want, f"batched block root {root.hex()} != CPU oracle "
           f"{want.hex()}")
     log(f"batched block root {root.hex()} == independent CPU Hasher root")
     bb_pad = mode.batched.padded_lanes - mode.batched.lanes
-    bb_err, bb_ms, bb_plain, bb_inputs = check_and_time_k2(
-        bb_rec, "batched block", bb_pad)
+    bb_err, bb_ms, bb_plain, bb_inputs, bb_kernel = check_and_time_k2(
+        bb_rec, "batched block", bb_pad, profile_reps=10)
     del bb_rec
 
     phase_fallback(dev, args.seed)
@@ -837,6 +1105,8 @@ def main() -> int:
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": None,
+        "variants": variants_json(g_launches + b_launches, g_coop + b_coop,
+                                  g_kernel, b_kernel),
     }, {
         "name": "keccak_blocks",
         "route": "cuda",
@@ -849,6 +1119,8 @@ def main() -> int:
         "bound_ms": k2_bound,
         "bound_by": k2_by,
         "library_ms": None,
+        "variants": variants_json(bg_launches + bb_launches,
+                                  bg_coop + bb_coop, bg_kernel, bb_kernel),
     }]}), flush=True)
     if dev.type != "cuda":
         return 0  # a rehearsal prints no result line
