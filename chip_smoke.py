@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two commit paths on one H100 and check them.
+"""Drive the PyTorch/CUDA port's three commit paths on one H100 and check them.
 
     python3 chip_smoke.py            # full size: 1,000,000 accounts
     python3 chip_smoke.py --accounts 20000 --contracts 50   # a quick run
@@ -8,8 +8,9 @@
 
 Phases (each passes or the script exits non-zero):
   1. card: nvidia-smi name and power limit, torch and CUDA versions
-  2. build: the host Keccak (g++), kernels K1 and K2 (nvcc), in parallel;
-     ptxas registers and spills of each of their four kernels
+  2. build: the host Keccak and the native planners (g++), kernels K1 and
+     K2 (nvcc), in parallel; ptxas registers and spills of their four
+     kernels
   3. K1 against its plain torch version over a (P, L) grid, bit for bit,
      plus the known Keccak vectors, through each variant forced (1: one
      thread per lane, 2: cooperative) and the launch's own choice; the
@@ -30,13 +31,37 @@ Phases (each passes or the script exits non-zero):
      intermediate_root on get_batch_keccak("batched"): every trie above
      the threshold hashed level by level through K2; the same oracle root,
      and every K2 lane's digest equal to the plain version's
+  6b. resident genesis: two sets of the contracts' storage tries (A's and
+     B's), each hashed in one program (batch_storage_roots), then three
+     native IncrementalTries from the
+     genesis leaves (keccak(address), account RLP): A device-resident
+     (ResidentExecutor on K1, lean rows), B template mode (its executor
+     records every K1 input), C the native host commit; all three roots
+     equal the oracle's. Prints the native plan and export ms, the device
+     window, h2d bytes and transfers, and the device bytes of store and
+     arenas
   7. block: 700 transfers plus 50 contracts x 20 slot writes, made once
-     and applied to both states; both roots checked against the oracle
+     and applied to every state; every root checked against the oracle
+     (A and B through resident_intermediate_root)
+  7b. resident blocks: --blocks (16) further seeded blocks, A pipelined at
+     depth 2 (commit_resident_dispatch), B template through
+     resident_intermediate_root (each with its own storage program), C on
+     the host, each root equal to the
+     oracle's; the middle block is rejected (checkpoint, update, commit,
+     rollback, commit) and its rollback root must equal its parent's. Every
+     recorded K1 input is held against the plain version (with the main
+     path's own output), each launch must have run the variant its shape
+     calls for, and K1 is timed on them
+Every kernel time read from the profiler's trace is checked against the
+number of launches the session made (phases 3-7b): where the trace holds
+another number of records, the time reads "not measured" (None in the
+JSON line).
   8. fallback: a small state through the planned marker with MAX_SEGMENTS
      lowered, so that TooManySegments sends it to BatchedHasher on K2
 Before the last line it prints one JSON object describing each kernel
-(launches on its main path, max error, ms, plain ms, bound ms, and per
-variant its launches and kernel ms in the profiler's trace); the last
+(launches on its main paths, max error, ms, plain ms, bound ms, and per
+variant its launches and kernel ms in the profiler's trace; K1's entry
+sums the planned and the resident paths); the last
 line is {"ok": true, "device": {...}}. Nothing of jax or coreth_tpu is
 imported.
 """
@@ -58,18 +83,21 @@ import torch
 
 from coreth_tpu_torch import rlp
 from coreth_tpu_torch.device import resolve
-from coreth_tpu_torch.native import keccak256, keccak256_batch
+from coreth_tpu_torch.native import keccak256, keccak256_batch, mpt
+from coreth_tpu_torch.native.mpt import IncrementalTrie, plan_from_items
 from coreth_tpu_torch.ops import keccak_cuda, keccak_planned
 from coreth_tpu_torch.ops.device import get_batch_keccak
 from coreth_tpu_torch.ops.keccak_planned import MAX_SEGMENTS, PlannedCommit, \
     PlannedMode, default_planned_commit
+from coreth_tpu_torch.ops.keccak_resident import ResidentExecutor
 from coreth_tpu_torch.ops.keccak_staged import segment_keccak_plain
 from coreth_tpu_torch.ops.keccak_torch import RATE, BatchedKeccak, \
     digest_words_to_bytes, int32_to_words, keccak256_blocks_plain, \
     pack_messages, words_to_int32
 from coreth_tpu_torch.state.account import EMPTY_CODE_HASH, Account
-from coreth_tpu_torch.state.statedb import intermediate_root, \
-    planned_intermediate_root
+from coreth_tpu_torch.state.statedb import batch_storage_roots, \
+    intermediate_root, planned_intermediate_root, resident_intermediate_root, \
+    resident_items
 from coreth_tpu_torch.trie import hasher as hasher_mod
 from coreth_tpu_torch.trie import planned as planned_mod
 from coreth_tpu_torch.trie.hasher import Hasher
@@ -210,7 +238,9 @@ def phase_build(dev) -> None:
         times[name] = time.perf_counter() - t0
 
     from coreth_tpu_torch import native
-    jobs = [("host keccak (g++)", native.load)]
+    jobs = [("host keccak (g++)", native.load),
+            ("native planner (g++)", mpt.load),
+            ("native incremental trie (g++)", mpt.load_inc)]
     if dev.type == "cuda":
         jobs.append(("K1 segment_keccak (nvcc)", keccak_cuda.K1.load))
         jobs.append(("K2 keccak_blocks (nvcc)", keccak_cuda.K2.load))
@@ -351,21 +381,72 @@ def phase_grid_k2(dev, seed: int) -> int:
     return worst
 
 
-def profiled_device_ms(fn, *kernels: str) -> list:
-    """Device time of the kernels whose name holds each of `kernels` while
-    fn() runs, from torch.profiler's CUDA activity (CUPTI); None for a name
-    the trace shows no device time for. A name matches itself alone: no
+LEAD_IN = 512  # launches of each profiled kernel before fn(): the card's
+# traces drop a prefix of a session's kernel records (2 to 249 on an H100)
+LEAD_GAP_S = 0.05  # idle card between the lead-in and fn()
+
+
+def _lead_in(names) -> None:
+    """LEAD_IN launches of each kernel in `names` on a one-lane input."""
+    w = torch.zeros((1, 1, 34), dtype=torch.int32, device="cuda")
+    n = torch.ones(1, dtype=torch.int32, device="cuda")
+    for kname, variants in KERNEL_NAMES.items():
+        for v, name in variants.items():
+            for _ in range(LEAD_IN if name in names else 0):
+                if kname == "K1":
+                    keccak_cuda.segment_keccak(w, variant=v)
+                else:
+                    keccak_cuda.keccak256_blocks(w, n, variant=v)
+
+
+def profiled_device_ms(fn, kernels: dict) -> list:
+    """Device time of the kernels whose name holds each key of `kernels`
+    while fn() runs, from torch.profiler's CUDA activity (CUPTI). The
+    session opens with a lead-in (LEAD_IN launches of each kernel, then
+    LEAD_GAP_S of idle card); the records after that gap are fn()'s. Each
+    value is the number of launches of that kernel fn() makes: a name
+    whose records after the gap are another number, or that shows no
+    device time, reads None, and the shortfall is logged. The garbage
+    collector is off during the session. A name matches itself alone: no
     kernel name here holds another."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    out = []
-    for k in kernels:
-        us = sum(e.device_time_total for e in events if k in e.key)
-        out.append(us / 1e3 if us else None)
+    torch.cuda.synchronize()
+    gc_on = gc.isenabled()
+    gc.disable()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _lead_in(kernels)
+            torch.cuda.synchronize()
+            time.sleep(LEAD_GAP_S)
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        if gc_on:
+            gc.enable()
+    recs = sorted((e for e in prof.events()
+                   if any(k in e.name for k in kernels)),
+                  key=lambda e: e.time_range.start)
+    gap_us = LEAD_GAP_S * 1e6 / 2
+    cut = next((i for i in range(1, len(recs))
+                if recs[i].time_range.start - recs[i - 1].time_range.end
+                >= gap_us), None)
+    n_lead = LEAD_IN * len(kernels)
+    if cut is None:
+        log(f"profiler: no idle gap after the lead-in among {len(recs)} "
+            f"kernel records; not measured")
+        return [None] * len(kernels)
+    out, short = [], []
+    for k, want in kernels.items():
+        got = [e for e in recs[cut:] if k in e.name]
+        us = sum(e.time_range.elapsed_us() for e in got)
+        if len(got) != want:
+            short.append(f"{k} {len(got)} of {want}")
+        out.append(us / 1e3 if us and len(got) == want else None)
+    if short or cut != n_lead:
+        log(f"profiler: the trace holds {cut} of the lead-in's {n_lead} "
+            f"kernel records" + (f"; after it {', '.join(short)}, not "
+                                 f"measured" if short else ""))
     return out
 
 
@@ -405,7 +486,7 @@ def k2_latency_split(dev, variant: int, lanes: int = 128,
         def run(a=a):
             for _ in range(reps):
                 keccak_cuda.keccak256_blocks(*a)
-        kernel_ms, = profiled_device_ms(run, name_in_trace)
+        kernel_ms, = profiled_device_ms(run, {name_in_trace: reps})
         kernel = ("not measured (no device time in the trace)"
                   if kernel_ms is None else f"{kernel_ms / reps * 1e3:.3f} us")
         parts.append(f"{name} {event_us:.3f} us per call (events), host "
@@ -484,7 +565,8 @@ def phase_sweep(dev, reps: int = 20) -> dict:
                         for _ in range(reps):
                             call(w, n, v)
                 kern = dict(zip(KERNEL_NAMES[kname], profiled_device_ms(
-                    run, *KERNEL_NAMES[kname].values())))
+                    run, {name: reps
+                          for name in KERNEL_NAMES[kname].values()})))
                 kern = {v: None if ms is None else ms / reps
                         for v, ms in kern.items()}
                 bound, by = k1_bound_ms([(b, blocks)])
@@ -629,23 +711,27 @@ def timed_variant(call, args, coop_count: str):
     return ms, keccak_cuda.COOP if coop else keccak_cuda.THREAD
 
 
-def kernel_ms_by_variant(kname: str, call, inputs, ran, reps: int) -> dict:
+def kernel_ms_by_variant(kname: str, call, inputs, ran: dict,
+                         reps: int) -> dict:
     """{variant: kernel ms per pass over `inputs`} in the profiler's trace,
     each input run `reps` times in one session through `call` (the
-    launch's own choice of variant); 0.0 for a variant not in `ran`, None
-    where the trace holds no device time for one that ran."""
+    launch's own choice of variant); `ran` is {variant: inputs that launch
+    it}, 0.0 for a variant not in it, None where the trace does not hold
+    exactly reps x ran[variant] records of the variant."""
     def run():
         for args in inputs:
             for _ in range(reps):
                 call(*args)
     names = KERNEL_NAMES[kname]
-    got = profiled_device_ms(run, *names.values())
+    got = profiled_device_ms(run, {name: reps * ran.get(v, 0)
+                                   for v, name in names.items()})
     return {v: (0.0 if v not in ran else None if ms is None else ms / reps)
             for v, ms in zip(names, got)}
 
 
 def fmt_ms(ms) -> str:
-    return "not measured (no device time)" if ms is None else f"{ms:.4f} ms"
+    return ("not measured (records short or no device time)" if ms is None
+            else f"{ms:.4f} ms")
 
 
 def check_and_time(dev, builder, label):
@@ -664,34 +750,64 @@ def check_and_time(dev, builder, label):
         *builder.plan, want_digests=True)
     check(np.array_equal(dig, builder.digests),
           f"{label}: K1 digests != plain digests")
+    log(f"{label}: every lane digest equal to the plain version "
+        f"({dig.shape[0]} lanes)")
+    return time_k1(dev, rec.inputs, label)
+
+
+def time_k1(dev, inputs, label, per_segment: bool = True, outputs=None):
+    """K1 against the plain version on each recorded input (and the main
+    path's own `outputs` of them, when given): per input, or with
+    per_segment=False once per L over the concatenated inputs of that L,
+    the plain version timed on the same calls. Then K1 timed on each input
+    (logged per segment when `per_segment`: P, L, the variant the launch
+    picks, ms on events, bound), and K1's kernel time in the profiler's
+    trace per variant. Returns (max abs error, K1 ms, plain ms, [(P, L)],
+    {variant: kernel ms})."""
     err = 0
     k1_ms = plain_ms = 0.0
     shapes = []
     by_variant = defaultdict(float)
+    n_by_variant = defaultdict(int)
     cuda = dev.type == "cuda"
-    for x in rec.inputs:
-        got = keccak_cuda.segment_keccak(x)
-        err = max(err, max_abs_err(got, segment_keccak_plain(x)))
+    # the plain version per input, or once per L over the inputs of that L
+    # concatenated (the function is per lane)
+    groups = defaultdict(list)
+    for i, x in enumerate(inputs):
+        groups[i if per_segment else x.shape[1]].append(i)
+    for idx in groups.values():
+        x = (inputs[idx[0]] if len(idx) == 1
+             else torch.cat([inputs[i] for i in idx]))
+        want = segment_keccak_plain(x)
+        plain_ms += time_ms(segment_keccak_plain, (x,), reps=1)
+        err = max(err, max_abs_err(keccak_cuda.segment_keccak(x), want))
+        if outputs is not None:
+            got = (outputs[idx[0]] if len(idx) == 1
+                   else torch.cat([outputs[i] for i in idx]))
+            err = max(err, max_abs_err(got, want))
+        del x, want
+    for x in inputs:
         ms, v = timed_variant(keccak_cuda.segment_keccak, (x,),
                               "launches_coop")
         k1_ms += ms
-        plain_ms += time_ms(segment_keccak_plain, (x,), reps=1)
         p, blocks = x.shape[0], x.shape[1]
         shapes.append((p, blocks))
         if cuda:
             by_variant[v] += ms
-            bound, by = k1_bound_ms([(p, blocks)])
-            log(f"{label}: K1 segment (P, L, variant, ms, bound) = ({p}, "
-                f"{blocks}, {v}, {ms:.4f}, {bound:.4f} {by})")
+            n_by_variant[v] += 1
+            if per_segment:
+                bound, by = k1_bound_ms([(p, blocks)])
+                log(f"{label}: K1 segment (P, L, variant, ms, bound) = ({p}, "
+                    f"{blocks}, {v}, {ms:.4f}, {bound:.4f} {by})")
+    check(err == 0, f"{label}: K1 != plain version (max abs err {err})")
     bound, by = k1_bound_ms(shapes)
-    log(f"{label}: every lane digest equal to the plain version "
-        f"({dig.shape[0]} lanes); K1 {k1_ms:.4f} ms over {len(shapes)} "
-        f"segments, bound {bound:.4f} ms ({by}), plain {plain_ms:.3f} ms")
+    log(f"{label}: K1 {k1_ms:.4f} ms over {len(shapes)} segments, bound "
+        f"{bound:.4f} ms ({by}), plain {plain_ms:.3f} ms")
     kernel = {}
     if cuda:
         kernel = kernel_ms_by_variant(
-            "K1", keccak_cuda.segment_keccak, [(x,) for x in rec.inputs],
-            set(by_variant), reps=10)
+            "K1", keccak_cuda.segment_keccak, [(x,) for x in inputs],
+            n_by_variant, reps=10)
         log(f"{label}: K1 by variant, events / kernel in the profiler's "
             f"trace (each segment 10 times in one session): " + "; ".join(
                 f"{VARIANT_NAME[v]} {by_variant[v]:.4f} ms / "
@@ -852,15 +968,17 @@ def check_and_time_k2(rec: _BlocksRecorder, label, pad_lanes: int,
     cuda = inputs[0][0].is_cuda
     k2_ms = 0.0
     by_variant = defaultdict(float)
+    n_by_variant = defaultdict(int)
     for w, n in inputs:
         ms, v = timed_variant(keccak_cuda.keccak256_blocks, (w, n),
                               "blocks_launches_coop")
         k2_ms += ms
         by_variant[v] += ms
+        n_by_variant[v] += 1
     kernel = {}
     if cuda:
         kernel = kernel_ms_by_variant("K2", keccak_cuda.keccak256_blocks,
-                                      inputs, set(by_variant),
+                                      inputs, n_by_variant,
                                       reps=profile_reps)
         log(f"{label}: K2 by variant, events / kernel in the profiler's "
             f"trace (each input {profile_reps} times in one session): "
@@ -997,10 +1115,359 @@ def phase_fallback(dev, seed: int):
         f"planned_fallbacks {fallbacks}, K2 launches {k2}")
 
 
+class _K1Recorder:
+    """seg_impl that launches K1 (keccak_cuda.segment_keccak, which counts
+    the launch) and keeps each input, its output and the variant that ran
+    (None on the CPU)."""
+
+    def __init__(self):
+        self.records = []
+
+    def __call__(self, words):
+        coop = keccak_cuda.launches_coop
+        out = keccak_cuda.segment_keccak(words)
+        ran = None
+        if words.is_cuda:
+            ran = (keccak_cuda.COOP if keccak_cuda.launches_coop > coop
+                   else keccak_cuda.THREAD)
+        self.records.append((words.clone(), out, ran))
+        return out
+
+
+def check_variants(rec: _K1Recorder, label) -> dict:
+    """Each recorded K1 launch ran the variant its lane count calls for
+    (cooperative up to kCoopMaxLanes), so every variant some shape calls
+    for ran. Returns {variant: launches}."""
+    check(len(rec.records) > 0, f"{label}: no K1 launch recorded")
+    limit = keccak_cuda.K1.coop_max_lanes
+    ran = defaultdict(int)
+    for words, _out, v in rec.records:
+        want = (keccak_cuda.COOP if words.shape[0] <= limit
+                else keccak_cuda.THREAD)
+        check(v == want, f"{label}: P={words.shape[0]} ran variant {v}, "
+              f"the shape calls for {want}")
+        ran[v] += 1
+    return dict(ran)
+
+
+class ResidentState:
+    """The resident path's state: three native account tries from the
+    genesis leaves, and two sets of the contracts' storage tries, so that
+    each of A's and B's block commits runs its own storage program.
+
+    A  resident, lean rows on; commits pipelined (depth 2) after block 1;
+       storage tries `storage_a`, which C reads too
+    B  template mode; its executor records every K1 input; `storage_b`
+    C  the native host commit (commit_cpu), the twin."""
+
+    def __init__(self, dev, world: World, oracle: Oracle):
+        self.dev, self.world = dev, world
+        self.storage_a = self._storage_tries(dev, world, oracle, "A")
+        self.storage_b = self._storage_tries(dev, world, oracle, "B")
+        t0 = time.perf_counter()
+        items = [(oracle.keys[i], world.account(i, oracle.root_of(i)).encode())
+                 for i in range(len(world.addrs))]
+        self.a, self.b, self.c = (IncrementalTrie(items) for _ in range(3))
+        del items
+        self.a.set_lean(True)
+        self.rec = _K1Recorder()
+        self.ex_a = ResidentExecutor(device=dev)
+        self.ex_b = ResidentExecutor(seg_impl=self.rec, device=dev)
+        log(f"resident: three native tries of {self.a.num_nodes} nodes "
+            f"built in {time.perf_counter() - t0:.1f} s")
+
+    @staticmethod
+    def _storage_tries(dev, world: World, oracle: Oracle, name: str):
+        """The contracts' storage tries, hashed in one program
+        (batch_storage_roots), every root checked against the oracle's."""
+        mode = PlannedMode(device=dev)
+        storage, changed = {}, {}
+        t0 = time.perf_counter()
+        for c, slots in world.storage.items():
+            st = StateTrie(batch_keccak=mode)
+            for k, v in slots.items():
+                st.update(k, slot_value(v))
+            storage[c] = st
+            changed[world.addrs[c]] = (world.account(c, EMPTY_ROOT), st)
+        n = batch_storage_roots(changed, device=dev)
+        check(n == len(world.storage), f"resident storage {name}: {n} tries "
+              f"hashed")
+        for c in world.storage:
+            check(changed[world.addrs[c]][0].root == oracle.roots[c],
+                  f"resident storage {name}: root of contract {c} != oracle")
+        log(f"resident storage {name}: {n} tries hashed in one program "
+            f"(batch_storage_roots), roots equal the oracle's, "
+            f"{time.perf_counter() - t0:.1f} s")
+        return storage
+
+    def changes(self, accounts, writes, storage):
+        """The block's changed map over `storage` (storage_a or storage_b):
+        fresh Account objects from the world, each written contract's
+        storage trie updated."""
+        changed = {}
+        for i in accounts:
+            st = None
+            if i in writes:
+                st = storage[i]
+                for k, v in writes[i].items():
+                    st.update(k, slot_value(v))
+            changed[self.world.addrs[i]] = (
+                self.world.account(i, EMPTY_ROOT), st)
+        return changed
+
+
+def warm_up_resident(dev) -> None:
+    """One small resident commit on a throwaway trie and executor, so the
+    genesis window does not carry the first launch of each torch kernel
+    the executor uses (their modules load lazily)."""
+    rng = np.random.default_rng(0)
+    items = [(rng.bytes(32), rng.bytes(int(n)))
+             for n in rng.integers(1, 120, 2000)]
+    t = IncrementalTrie(items)
+    t.set_lean(True)
+    ex = ResidentExecutor(device=dev)
+    check(ex.root_bytes(t.commit_resident(ex))
+          == plan_from_items(items).execute_cpu(), "resident warm-up root")
+    t.update([(k, b"w") for k, _ in items[:100]])
+    check(ex.root_bytes(t.commit_resident(ex))
+          == plan_from_items([(k, b"w") for k, _ in items[:100]]
+                             + items[100:]).execute_cpu(),
+          "resident warm-up block root")
+
+
+def window_ms(dev, events, t_read=None):
+    """(upload ms, device ms) of a resident run from its events: from the
+    first upload to the store scatter, or to `t_read` (an event recorded
+    after the root's readback) when given; None on the CPU."""
+    if dev.type != "cuda" or events is None:
+        return None
+    t0, t_up, t_done = events
+    end = t_read if t_read is not None else t_done
+    end.synchronize()
+    return t0.elapsed_time(t_up), t0.elapsed_time(end)
+
+
+def read_event(dev):
+    if dev.type != "cuda":
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def fmt_window(w) -> str:
+    return ("not measured (cpu)" if w is None
+            else f"{w[1]:.3f} ms (upload {w[0]:.3f} ms)")
+
+
+def phase_resident_genesis(dev, world: World, oracle: Oracle,
+                           oracle_root: bytes, planned_plan_ms: float):
+    """Genesis through the resident path: A resident and B template on the
+    card, C on the host, every root equal to the oracle's."""
+    rs = ResidentState(dev, world, oracle)
+    warm_up_resident(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    keccak_cuda.reset_counts()
+    t0 = time.perf_counter()
+    root_a = rs.ex_a.root_bytes(rs.a.commit_resident(rs.ex_a))
+    wall_a = (time.perf_counter() - t0) * 1e3
+    win_a = window_ms(dev, rs.ex_a.last_events, read_event(dev))
+    t0 = time.perf_counter()
+    root_b = rs.b.commit_template(rs.ex_b)
+    wall_b = (time.perf_counter() - t0) * 1e3
+    launches, coop = keccak_cuda.launches, keccak_cuda.launches_coop
+    t0 = time.perf_counter()
+    root_c = rs.c.commit_cpu(threads=8)
+    wall_c = (time.perf_counter() - t0) * 1e3
+    check(root_a == oracle_root, f"resident genesis root {root_a.hex()} != "
+          f"oracle {oracle_root.hex()}")
+    check(root_b == oracle_root, "template genesis root != oracle")
+    check(root_c == oracle_root, "native host genesis root != oracle")
+    check(dev.type != "cuda" or launches == 2 * len(rs.rec.records),
+          f"resident genesis: {launches} K1 launches for "
+          f"{len(rs.rec.records)} segments in each of A and B")
+    ex = rs.ex_a
+    log(f"resident genesis root {root_a.hex()} == oracle (A resident, B "
+        f"template, C native host)")
+    log(f"resident genesis A: native plan {rs.a.last_plan_ms:.1f} ms, export "
+        f"{rs.a.last_export_ms:.1f} ms (PlannedGraphBuilder.build at the same "
+        f"genesis, this run: {planned_plan_ms:.1f} ms); device window (first "
+        f"upload to root readback, CUDA events) {fmt_window(win_a)}; h2d "
+        f"{ex.h2d_bytes} B in {ex.last_transfers} transfers, lean rows "
+        f"{ex.last_lean_rows}; commit wall {wall_a:.1f} ms; store + arenas "
+        f"on the device {ex.device_bytes()} B (store {ex.store.numel() * 4}, "
+        f"arenas " + ", ".join(f"class {c}: {a.numel() * 4}"
+                               for c, a in ex.arenas.items()) + ")")
+    log(f"resident genesis B (template): plan {rs.b.last_plan_ms:.1f} ms, "
+        f"export {rs.b.last_export_ms:.1f} ms, absorb "
+        f"{rs.b.last_absorb_ms:.1f} ms, h2d {rs.ex_b.h2d_bytes} B, commit "
+        f"wall {wall_b:.1f} ms; C (native host, 8 threads): plan "
+        f"{rs.c.last_plan_ms:.1f} ms, hash {rs.c.last_host_hash_ms:.1f} ms, "
+        f"commit wall {wall_c:.1f} ms")
+    peak = ("not measured (cpu)" if dev.type != "cuda" else
+            f"{torch.cuda.max_memory_allocated(dev)} B")
+    log(f"resident genesis: K1 launches {launches} (cooperative {coop}) over "
+        f"A and B, {len(rs.rec.records)} segments each; peak device memory "
+        f"allocated during A's and B's commits {peak}")
+    return rs, launches, coop
+
+
+def rejected_items(world: World, oracle: Oracle, rng, n_old=300, n_new=50):
+    """A block that will be rejected: random account values on existing
+    keys and new keys, kept apart from the world and the oracle."""
+    picks = rng.choice(np.arange(len(world.storage), len(world.addrs)),
+                       n_old, replace=False)
+    items = [(oracle.keys[int(i)],
+              Account(nonce=int(rng.integers(1, 1 << 20)),
+                      balance=int(rng.integers(1, 1 << 62))).encode())
+             for i in picks]
+    items += [(rng.bytes(32), Account(nonce=1).encode())
+              for _ in range(n_new)]
+    return items
+
+
+def phase_resident_blocks(dev, world: World, oracle: Oracle,
+                          rs: ResidentState, block1, want1: bytes,
+                          n_blocks: int, rejected_at: int):
+    """Block 1 (the block the other paths committed) through
+    resident_intermediate_root on A and B, then `n_blocks` further seeded
+    blocks with A pipelined at depth 2, B in template mode through
+    resident_intermediate_root and C on the host; block `rejected_at` is
+    rejected (checkpoint, update, commit, rollback, commit) and its
+    rollback root must equal its parent's. Every root equals the Python
+    oracle's and C's."""
+    keccak_cuda.reset_counts()
+    rec_before = len(rs.rec.records)
+    accounts, writes = block1
+    changed = rs.changes(accounts, writes, rs.storage_a)
+    t0 = time.perf_counter()
+    root_a = resident_intermediate_root(rs.a, rs.ex_a, changed, device=dev)
+    wall = (time.perf_counter() - t0) * 1e3
+    win = window_ms(dev, rs.ex_a.last_events, read_event(dev))
+    t0 = time.perf_counter()
+    root_b = resident_intermediate_root(
+        rs.b, rs.ex_b, rs.changes(accounts, writes, rs.storage_b),
+        template=True, device=dev)
+    wall_b = (time.perf_counter() - t0) * 1e3
+    rs.c.update(resident_items(changed, device=dev))
+    root_c = rs.c.commit_cpu(threads=8)
+    check(root_a == root_b == root_c == want1,
+          f"resident block 1: {root_a.hex()} / {root_b.hex()} / "
+          f"{root_c.hex()} != oracle {want1.hex()}")
+    log(f"resident block 1 root == oracle (A, B, C); A: plan "
+        f"{rs.a.last_plan_ms:.2f} ms, export {rs.a.last_export_ms:.2f} ms, "
+        f"device window (to root readback) {fmt_window(win)}, h2d "
+        f"{rs.ex_a.h2d_bytes} B in {rs.ex_a.last_transfers} transfers, "
+        f"lean rows {rs.ex_a.last_lean_rows}, commit wall (storage program "
+        f"included) {wall:.1f} ms; B (template, its own storage program) "
+        f"commit wall {wall_b:.1f} ms")
+
+    rs.ex_a.pipeline_depth = 2
+    rng = np.random.default_rng(world.rng.integers(1 << 31))
+    pending = []  # (resolve, events, expected root or None, label)
+    windows, h2d, plan_ms, export_ms, b_ms, c_ms = [], [], [], [], [], []
+    items_ms = []  # A's resident_items: storage program and account RLP
+    enqueue_ms = []  # dispatch's host time past the plan and the export
+    parent = want1
+    t_blocks = time.perf_counter()
+
+    def drain(keep):
+        while len(pending) > keep:
+            resolve, events, want, label = pending.pop(0)
+            got = resolve()
+            if want is not None:
+                check(got == want, f"{label}: pipelined resident root "
+                      f"{got.hex()} != {want.hex()}")
+            w = window_ms(dev, events)
+            if w is not None:
+                windows.append(w)
+
+    def dispatch(want, label):
+        t0 = time.perf_counter()
+        resolve = rs.a.commit_resident_dispatch(rs.ex_a)
+        wall = (time.perf_counter() - t0) * 1e3
+        pending.append((resolve, rs.ex_a.last_events, want, label))
+        h2d.append(rs.ex_a.h2d_bytes)
+        plan_ms.append(rs.a.last_plan_ms)
+        export_ms.append(rs.a.last_export_ms)
+        enqueue_ms.append(wall - rs.a.last_plan_ms - rs.a.last_export_ms)
+        drain(2)
+
+    for blk in range(2, n_blocks + 2):
+        label = f"resident block {blk}"
+        if blk == rejected_at:
+            items = rejected_items(world, oracle, rng)
+            for t in (rs.a, rs.b, rs.c):
+                t.checkpoint()
+                t.update(items)
+            dispatch(None, label + " (rejected)")
+            bad_b = rs.b.commit_template(rs.ex_b)
+            bad_c = rs.c.commit_cpu(threads=8)
+            check(bad_b == bad_c != parent, f"{label}: rejected roots "
+                  f"{bad_b.hex()} / {bad_c.hex()}")
+            for t in (rs.a, rs.b, rs.c):
+                t.rollback()
+            dispatch(parent, label + " rolled back")
+            drain(0)
+            check(rs.b.commit_template(rs.ex_b) == parent,
+                  f"{label}: template rollback root != parent")
+            check(rs.c.commit_cpu(threads=8) == parent,
+                  f"{label}: host rollback root != parent")
+            log(f"{label}: rejected root {bad_c.hex()} (A, B, C equal); "
+                f"after rollback every root == the parent's {parent.hex()}")
+            continue
+        accounts, writes = make_block(world)
+        oracle.apply(accounts, writes)
+        want = oracle.root()
+        changed = rs.changes(accounts, writes, rs.storage_a)
+        t0 = time.perf_counter()
+        items = resident_items(changed, device=dev)
+        items_ms.append((time.perf_counter() - t0) * 1e3)
+        rs.a.update(items)
+        dispatch(want, label)
+        changed_b = rs.changes(accounts, writes, rs.storage_b)
+        t0 = time.perf_counter()
+        root_b = resident_intermediate_root(rs.b, rs.ex_b, changed_b,
+                                            template=True, device=dev)
+        b_ms.append((time.perf_counter() - t0) * 1e3)
+        rs.c.update(resident_items(changed, device=dev))
+        t0 = time.perf_counter()
+        root_c = rs.c.commit_cpu(threads=8)
+        c_ms.append((time.perf_counter() - t0) * 1e3)
+        check(root_b == root_c == want, f"{label}: template {root_b.hex()} "
+              f"/ host {root_c.hex()} != oracle {want.hex()}")
+        parent = want
+    drain(0)
+    launches, coop = keccak_cuda.launches, keccak_cuda.launches_coop
+    check(dev.type != "cuda" or launches > 0, "resident blocks: no K1 launch")
+    log(f"resident blocks 2-{n_blocks + 1}: every root == the Python oracle "
+        f"and C (A pipelined at depth 2, B template, block {rejected_at} "
+        f"rejected); {time.perf_counter() - t_blocks:.1f} s")
+
+    def stats(xs, unit="ms"):
+        if not xs:
+            return "not measured"
+        return (f"mean {sum(xs) / len(xs):.3f} {unit}, min {min(xs):.3f}, "
+                f"max {max(xs):.3f}")
+    log(f"resident blocks, A per commit: storage program and account RLP "
+        f"(resident_items) {stats(items_ms)}; native plan {stats(plan_ms)}; "
+        f"export {stats(export_ms)}; h2d {stats(h2d, 'B')}; device window "
+        f"(first upload to store scatter, CUDA events) "
+        f"{stats([w[1] for w in windows])}, of which upload "
+        f"{stats([w[0] for w in windows])}; host time to stage and enqueue "
+        f"the commit (dispatch less plan and export) {stats(enqueue_ms)}")
+    log(f"resident blocks: B (template, its own storage program included) "
+        f"commit wall {stats(b_ms)}; C (native host) commit {stats(c_ms)}")
+    log(f"resident blocks: K1 launches {launches} (cooperative {coop}) over A "
+        f"and B; store + arenas on the device {rs.ex_a.device_bytes()} B")
+    return launches, coop, rec_before
+
+
 def variants_json(launches: int, coop: int, *kernel_ms: dict) -> dict:
     """Per variant: main-path launches and kernel ms in the profiler's
-    trace summed over the commits (None where a trace held no device time,
-    or on the CPU)."""
+    trace summed over the commits (None where a trace held no device time
+    or another number of records than launches, or on the CPU)."""
     out = {}
     for v, n in ((keccak_cuda.THREAD, launches - coop),
                  (keccak_cuda.COOP, coop)):
@@ -1017,6 +1484,8 @@ def main() -> int:
     ap.add_argument("--contracts", type=int, default=1_000)
     ap.add_argument("--slots", type=int, default=100)
     ap.add_argument("--seed", type=int, default=20)
+    ap.add_argument("--blocks", type=int, default=16,
+                    help="resident blocks after the first, one rejected")
     ap.add_argument("--device", default="cuda",
                     help="'cpu' rehearses with the plain versions")
     args = ap.parse_args()
@@ -1045,6 +1514,7 @@ def main() -> int:
         dev, world, oracle_root)
     g_err, g_ms, g_plain, g_shapes, g_kernel = check_and_time(
         dev, g_builder, "genesis")
+    g_plan_ms = g_builder.plan_ms
     del g_builder
     # batched path (K2)
     mode, b_trie, b_changed, bg_launches, bg_coop, bg_rec = \
@@ -1053,7 +1523,10 @@ def main() -> int:
     bg_err, bg_ms, bg_plain, bg_inputs, bg_kernel = check_and_time_k2(
         bg_rec, "batched genesis", bg_pad, profile_reps=1)
     del bg_rec
-    log(f"after both genesis commits: peak RSS {rss_gib():.1f} GiB")
+    # resident path (K1): native tries, the account trie on the device
+    rs, rg_launches, rg_coop = phase_resident_genesis(
+        dev, world, oracle, oracle_root, g_plan_ms)
+    log(f"after the three genesis commits: peak RSS {rss_gib():.1f} GiB")
 
     # one block, made once, applied to the oracle and to both states
     accounts, writes = make_block(world)
@@ -1084,9 +1557,33 @@ def main() -> int:
         bb_rec, "batched block", bb_pad, profile_reps=10)
     del bb_rec
 
+    rb_launches, rb_coop, n_genesis = phase_resident_blocks(
+        dev, world, oracle, rs, (accounts, writes), want, args.blocks,
+        rejected_at=2 + args.blocks // 2)
+    if dev.type == "cuda":
+        ran = check_variants(rs.rec, "resident")
+        log(f"resident: every K1 launch ran the variant its shape calls for "
+            f"({', '.join(f'{VARIANT_NAME[v]} {n}' for v, n in ran.items())})")
+    records, rs.rec.records = rs.rec.records, []
+    rg_err, rg_ms, rg_plain, rg_shapes, rg_kernel = time_k1(
+        dev, [r[0] for r in records[:n_genesis]], "resident genesis",
+        outputs=[r[1] for r in records[:n_genesis]])
+    rb_err, rb_ms, rb_plain, rb_shapes, rb_kernel = time_k1(
+        dev, [r[0] for r in records[n_genesis:]], "resident blocks",
+        per_segment=False, outputs=[r[1] for r in records[n_genesis:]])
+    del records, rs
+
     phase_fallback(dev, args.seed)
 
-    k1_bound, k1_by = k1_bound_ms(g_shapes + b_shapes)
+    k1_shapes = g_shapes + b_shapes + rg_shapes + rb_shapes
+    k1_bound, k1_by = k1_bound_ms(k1_shapes)
+    rk_bound, rk_by = k1_bound_ms(rg_shapes + rb_shapes)
+    log(f"K1 bound over the resident inputs {rk_bound:.4f} ms ({rk_by}; "
+        f"genesis {k1_bound_ms(rg_shapes)[0]:.4f} ms, blocks "
+        f"{k1_bound_ms(rb_shapes)[0]:.4f} ms); K1 events {rg_ms:.4f} / "
+        f"{rb_ms:.4f} ms")
+    k1_launches = g_launches + b_launches + rg_launches + rb_launches
+    k1_coop = g_coop + b_coop + rg_coop + rb_coop
     k2_bound, k2_by = k2_bound_ms(bg_inputs + bb_inputs)
     k2_real, _ = k2_bound_ms(bg_inputs + bb_inputs, bg_pad + bb_pad)
     log(f"K2 bound over both commits {k2_bound:.4f} ms ({k2_by}), over "
@@ -1098,15 +1595,15 @@ def main() -> int:
         "route": "cuda",
         "source": "coreth_tpu_torch/ops/csrc/segment_keccak.cu",
         "replaces": "coreth_tpu/ops/keccak_pallas.py:211",
-        "launches": g_launches + b_launches,
-        "max_abs_err": max(grid_err, g_err, b_err),
-        "ms": g_ms + b_ms,
-        "plain_ms": g_plain + b_plain,
+        "launches": k1_launches,
+        "max_abs_err": max(grid_err, g_err, b_err, rg_err, rb_err),
+        "ms": g_ms + b_ms + rg_ms + rb_ms,
+        "plain_ms": g_plain + b_plain + rg_plain + rb_plain,
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": None,
-        "variants": variants_json(g_launches + b_launches, g_coop + b_coop,
-                                  g_kernel, b_kernel),
+        "variants": variants_json(k1_launches, k1_coop, g_kernel, b_kernel,
+                                  rg_kernel, rb_kernel),
     }, {
         "name": "keccak_blocks",
         "route": "cuda",

@@ -1,9 +1,11 @@
-"""Native (C++) host Keccak-256, loaded over ctypes.
+"""Native (C++) host Keccak-256, loaded over ctypes, and the worker
+fan-out policy of the native commit planners (native/mpt.py).
 
-Counterpart of coreth_tpu/native/__init__.py:44-106 (keccak only). Built
-with g++ into coreth_tpu_torch/_build/ at first use. A failed build raises:
-the secure-key hashing and the CPU oracle at a million accounts need the
-native hash, and pure Python is about 1000x slower.
+Counterpart of coreth_tpu/native/__init__.py (default_cpu_threads at :27,
+the keccak loader at :44-106). Built with g++ into coreth_tpu_torch/_build/
+at first use. A failed build raises: the secure-key hashing and the CPU
+oracle at a million accounts need the native hash, and pure Python is
+about 1000x slower.
 """
 
 from __future__ import annotations
@@ -21,6 +23,22 @@ CXX_FLAGS = ["g++", "-O3", "-march=native", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
+
+
+def default_cpu_threads() -> int:
+    """Worker fan-out for the native commit pipeline: the
+    CORETH_TPU_CPU_THREADS env override, else min(16, cpu_count), the
+    reference's 16-goroutine cap (trie/hasher.go:124-139). The same policy
+    as mpt_pool.h's C-side default."""
+    raw = os.environ.get("CORETH_TPU_CPU_THREADS", "")
+    if raw:
+        try:
+            v = int(raw)
+            if v > 0:
+                return v
+        except ValueError:
+            pass
+    return min(16, os.cpu_count() or 1)
 
 
 def load() -> ctypes.CDLL:

@@ -37,15 +37,16 @@ from .keccak_torch import MASK32, WORDS_PER_BLOCK, default_batched_keccak, \
 MAX_SEGMENTS = 64
 
 
-def _strip_contributions(dig: torch.Tensor, child_row: torch.Tensor,
-                         shift: torch.Tensor) -> torch.Tensor:
-    """[P] child rows (+1-offset, 0 = zero sentinel) and byte shifts 0..3
-    -> int64[P, 9] contribution strips with values in [0, 2**32).
+def _strips(d: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """[P, 8] digest words (u32 bits, int32 or int64) and byte shifts 0..3
+    -> int64[P, 9] contribution strips with values in [0, 2**32): the
+    digest's bytes moved to byte `shift` of a 9-word window, all other
+    bytes zero. Counterpart of coreth_tpu/ops/keccak_resident.py:_strips.
 
     Values are non-negative int64 below 2**32, so `>>` is a logical shift
     and a shift by 32 (byte shift 0) yields 0, which JAX spells as
     minimum(rsh, 31) plus a where."""
-    d = dig[child_row.long()].long() & MASK32            # [P, 8]
+    d = d.long() & MASK32
     z = torch.zeros((d.shape[0], 1), dtype=torch.int64, device=d.device)
     dpad = torch.cat([z, d, z], dim=1)                   # dpad[:, j] == D[j-1]
     lsh = (8 * shift.long())[:, None]
@@ -53,6 +54,13 @@ def _strip_contributions(dig: torch.Tensor, child_row: torch.Tensor,
     lo = dpad[:, :9] >> rsh
     hi = (dpad[:, 1:] << lsh) & MASK32
     return lo | hi
+
+
+def _strip_contributions(dig: torch.Tensor, child_row: torch.Tensor,
+                         shift: torch.Tensor) -> torch.Tensor:
+    """[P] child rows (+1-offset, 0 = zero sentinel) and byte shifts 0..3
+    -> the int64[P, 9] strips of those rows of dig (_strips)."""
+    return _strips(dig[child_row.long()], shift)
 
 
 def _apply_patches(flat64: torch.Tensor, dig: torch.Tensor,

@@ -2,7 +2,9 @@
 the account trie and hash it.
 
 Counterpart of the compositions in coreth_tpu/state/statedb.py:490-547
-(StateDB.intermediate_root, without its resident branch) and :586-690
+(StateDB.intermediate_root: the default dispatch in `intermediate_root`,
+its resident branch in `resident_intermediate_root`), :549-584
+(StateDB._batch_storage_roots: `batch_storage_roots`) and :586-690
 (StateDB._planned_intermediate_root, every dirty storage trie plus the
 account trie in one device program). The StateDB class itself is not
 ported yet, so the caller hands over the block's changed accounts.
@@ -12,6 +14,8 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
+from ..device import resolve
+from ..native import keccak256
 from ..trie import planned as _planned
 from ..trie.encoding import key_to_hex
 from ..trie.hasher import BATCH_THRESHOLD, Hasher
@@ -139,3 +143,71 @@ def _heal_root_holes(account_trie: StateTrie, patched,
         else:
             acct.root = tr.hash()
         account_trie.update(addr, acct.encode())
+
+
+def batch_storage_roots(changed: Changed, planned=None, device=None) -> int:
+    """One planned program over every dirty storage trie in `changed` and
+    no account trie (StateDB._batch_storage_roots): on success each trie's
+    nodes carry their hashes and its Account.root is the trie's root, so a
+    later tr.hash() is a cache hit. `planned` is the PlannedCommit to run
+    (else the default one of `device`: None is CUDA). A graph too large for
+    the segment table (TooManySegments) leaves every trie untouched for its
+    own hash(); there are no holes to heal. Returns the tries hashed."""
+    builder = PlannedGraphBuilder()
+    pending = []
+    for addr in sorted(changed):
+        acct, tr = changed[addr]
+        if acct is not None and tr is not None and _dirty(tr.trie.root):
+            pending.append((acct, builder.add_trie(tr.trie.root), tr))
+    if not pending:
+        return 0
+    try:
+        builder.run(planned, device)
+    except TooManySegments:
+        return 0
+    for acct, handle, tr in pending:
+        acct.root = builder.digest(handle)
+        tr.trie.unhashed = 0
+    return len(pending)
+
+
+def resident_items(changed: Changed, planned=None, device=None) -> list:
+    """The account trie's updates for `changed`, as the resident branch of
+    StateDB.intermediate_root writes them: the storage roots first (in one
+    batch_storage_roots program when the pending storage writes reach
+    BATCH_THRESHOLD, else each trie's own hash()), then (keccak(address),
+    account RLP) per address in address order, an empty value deleting."""
+    est = sum(tr.trie.unhashed for acct, tr in changed.values()
+              if acct is not None and tr is not None)
+    if est >= BATCH_THRESHOLD:
+        batch_storage_roots(changed, planned, device)
+    items = []
+    for addr in sorted(changed):
+        acct, tr = changed[addr]
+        if acct is None:
+            items.append((keccak256(addr), b""))
+            continue
+        if tr is not None:
+            acct.root = tr.hash()
+        items.append((keccak256(addr), acct.encode()))
+    return items
+
+
+def resident_intermediate_root(inc_trie, executor, changed: Changed, *,
+                               template: bool = False, device=None) -> bytes:
+    """The resident branch of StateDB.intermediate_root: the block's
+    storage roots (resident_items), then each changed account written into
+    the native account trie `inc_trie` (native.mpt.IncrementalTrie), then
+    one device-resident commit through `executor`
+    (ops.keccak_resident.ResidentExecutor): commit_resident, or
+    commit_template when `template`. Returns the 32-byte state root.
+
+    `device` (None is CUDA, and raises without it) runs the storage
+    program and must be the executor's device."""
+    dev = resolve(device)
+    if executor.device != dev:
+        raise ValueError(f"executor runs on {executor.device}, not {dev}")
+    inc_trie.update(resident_items(changed, device=dev))
+    if template:
+        return inc_trie.commit_template(executor)
+    return executor.root_bytes(inc_trie.commit_resident(executor))

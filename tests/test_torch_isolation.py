@@ -96,6 +96,20 @@ before = hasher.keccak_batches
 got = intermediate_root(acct_trie, changed, batch_keccak=bmode, device="cpu")
 assert got == want, (got.hex(), want.hex())
 assert hasher.keccak_batches > before and bmode.batched.launches > 0
+
+# the native incremental trie: one resident commit and one commit_device
+from coreth_tpu_torch.native.mpt import IncrementalTrie, plan_from_items
+from coreth_tpu_torch.ops.keccak_resident import ResidentExecutor
+
+items = [(rng.randbytes(32), rng.randbytes(rng.randint(1, 90)))
+         for _ in range(300)]
+want = plan_from_items(items).execute_cpu()
+res = IncrementalTrie(items)
+res.set_lean(True)
+ex = ResidentExecutor(device="cpu")
+assert ex.root_bytes(res.commit_resident(ex)) == want
+host = IncrementalTrie(items)
+assert host.commit_device(device="cpu") == want == host.commit_cpu()
 leaked = [m for m in sys.modules if refused(m)]
 assert not leaked, leaked
 print("ISOLATED-OK")
@@ -168,3 +182,36 @@ def test_entry_points_without_cuda_raise(monkeypatch):
         with pytest.raises(RuntimeError):
             get_batch_keccak(mode)
     assert get_batch_keccak("off") is None
+
+
+def test_resident_entry_points_without_cuda_raise(monkeypatch):
+    """The resident executor, commit_device and the resident block commit
+    default to CUDA and raise without it; none falls to the CPU."""
+    from coreth_tpu_torch.native.mpt import IncrementalTrie
+    from coreth_tpu_torch.ops.keccak_resident import ResidentExecutor
+    from coreth_tpu_torch.state.account import Account
+    from coreth_tpu_torch.trie.secure import StateTrie
+    from coreth_tpu_torch.state.statedb import batch_storage_roots, \
+        resident_intermediate_root
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ResidentExecutor()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ResidentExecutor(pipeline_depth=2)
+    t = IncrementalTrie([(b"\x01" * 32, b"v" * 40), (b"\x02" * 32, b"w")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t.commit_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resident_intermediate_root(t, None, {})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resident_intermediate_root(IncrementalTrie(), None, {})
+    # nothing was hashed on the way: the trie is still dirty and unpinned
+    assert t.commit_cpu() == IncrementalTrie(
+        [(b"\x01" * 32, b"v" * 40), (b"\x02" * 32, b"w")]).commit_cpu()
+    st = StateTrie()
+    for i in range(120):
+        st.update(bytes([i]) * 32, b"\x01" * 20)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        batch_storage_roots({b"\x03" * 20: (Account(), st)})
+    assert st.trie.unhashed == 120  # left to the trie's own hash()
