@@ -22,11 +22,15 @@ Phases (each passes or the script exits non-zero):
   4b. the variant sweep: both variants of K1 and K2 at B in SWEEP_B x L in
      (1, 4) on CUDA events and in the profiler's trace, and the crossover
      that sets kCoopMaxLanes
-  5. planned genesis commit: 1M accounts (1,000 contracts x 100 storage
-     slots) composed as StateDB._planned_intermediate_root does and
-     committed through K1; the root must equal the CPU Hasher's root of an
-     independent trie built from the same items, and the same plan run
-     through the plain version must give every lane's digest
+  5. planned genesis: the 1M-account world (1,000 contracts x 100 storage
+     slots, with code) as a Genesis alloc, Genesis.commit into a MemoryDB
+     through a TrieDatabase on get_batch_keccak("planned"): every storage
+     trie and the account trie in one K1 program; the root must equal the
+     CPU Hasher's root of an independent trie built from the same items,
+     and the same plan run through the plain version must give every
+     lane's digest. Prints the wall split (alloc writes, finalise,
+     intermediate_root, trie commit into NodeSets, TrieDatabase.update and
+     .commit) and what the MemoryDB holds
   6. batched genesis commit: the same items in fresh tries committed by
      intermediate_root on get_batch_keccak("batched"): every trie above
      the threshold hashed level by level through K2; the same oracle root,
@@ -41,8 +45,12 @@ Phases (each passes or the script exits non-zero):
      window, h2d bytes and transfers, and the device bytes of store and
      arenas
   7. block: 700 transfers plus 50 contracts x 20 slot writes, made once
-     and applied to every state; every root checked against the oracle
-     (A and B through resident_intermediate_root)
+     and applied to every state: on the planned state as StateDB
+     operations and StateDB.commit, then TrieDatabase.commit, and a fresh
+     TrieDatabase and StateDB over the same MemoryDB read back every
+     account the block touched, 1,000 others and every slot written; on
+     the batched state through intermediate_root; A and B through
+     resident_intermediate_root. Every root checked against the oracle
   7b. resident blocks: --blocks (16) further seeded blocks, A pipelined at
      depth 2 (commit_resident_dispatch), B template through
      resident_intermediate_root (each with its own storage program), C on
@@ -56,8 +64,9 @@ Every kernel time read from the profiler's trace is checked against the
 number of launches the session made (phases 3-7b): where the trace holds
 another number of records, the time reads "not measured" (None in the
 JSON line).
-  8. fallback: a small state through the planned marker with MAX_SEGMENTS
-     lowered, so that TooManySegments sends it to BatchedHasher on K2
+  8. fallback: Genesis.commit of a small state on the planned marker with
+     MAX_SEGMENTS lowered, so that TooManySegments sends it to
+     BatchedHasher on K2
 Before the last line it prints one JSON object describing each kernel
 (launches on its main paths, max error, ms, plain ms, bound ms, and per
 variant its launches and kernel ms in the profiler's trace; K1's entry
@@ -81,8 +90,10 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from coreth_tpu_torch import rlp
+from coreth_tpu_torch import params, rlp
+from coreth_tpu_torch.core.genesis import Genesis, GenesisAccount
 from coreth_tpu_torch.device import resolve
+from coreth_tpu_torch.ethdb import MemoryDB
 from coreth_tpu_torch.native import keccak256, keccak256_batch, mpt
 from coreth_tpu_torch.native.mpt import IncrementalTrie, plan_from_items
 from coreth_tpu_torch.ops import keccak_cuda, keccak_planned
@@ -94,10 +105,11 @@ from coreth_tpu_torch.ops.keccak_staged import segment_keccak_plain
 from coreth_tpu_torch.ops.keccak_torch import RATE, BatchedKeccak, \
     digest_words_to_bytes, int32_to_words, keccak256_blocks_plain, \
     pack_messages, words_to_int32
-from coreth_tpu_torch.state.account import EMPTY_CODE_HASH, Account
-from coreth_tpu_torch.state.statedb import batch_storage_roots, \
-    intermediate_root, planned_intermediate_root, resident_intermediate_root, \
-    resident_items
+from coreth_tpu_torch.state.account import EMPTY_CODE_HASH, Account, \
+    normalize_state_key
+from coreth_tpu_torch.state.database import Database
+from coreth_tpu_torch.state.statedb import StateDB, batch_storage_roots, \
+    intermediate_root, resident_intermediate_root, resident_items
 from coreth_tpu_torch.trie import hasher as hasher_mod
 from coreth_tpu_torch.trie import planned as planned_mod
 from coreth_tpu_torch.trie.hasher import Hasher
@@ -105,6 +117,7 @@ from coreth_tpu_torch.trie.node import EMPTY_ROOT
 from coreth_tpu_torch.trie.planned import PlannedGraphBuilder
 from coreth_tpu_torch.trie.secure import StateTrie
 from coreth_tpu_torch.trie.trie import trie_from_items
+from coreth_tpu_torch.trie.triedb import TrieDatabase
 
 # Bound model for K1 and K2 (csrc/segment_keccak.cu header): 32-bit integer
 # ALU operations per 136-byte block absorbed, with LOP3 folding, and the
@@ -145,6 +158,11 @@ def check(cond: bool, what: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def mark(t_start: float, phase: str) -> None:
+    """The run's elapsed seconds as `phase` starts."""
+    log(f"-- t = {time.perf_counter() - t_start:.1f} s: {phase}")
 
 
 def k1_bound_ms(shapes):
@@ -616,13 +634,18 @@ class World:
         self.balance = [int.from_bytes(bal[10 * i:10 * i + 10], "big") % 10**24
                         for i in range(n_accounts)]
         self.code_hash = [EMPTY_CODE_HASH] * n_accounts
-        self.storage = {}  # account index -> {slot key: 32-byte value}
+        self.code = {}  # account index -> contract code
+        # account index -> {slot key: 32-byte value}; keys as StateDB keeps
+        # them (normalize_state_key)
+        self.storage = {}
         for c in range(n_contracts):
-            self.code_hash[c] = keccak256(rng.bytes(64))
+            self.code[c] = rng.bytes(64)
+            self.code_hash[c] = keccak256(self.code[c])
             keys = rng.bytes(32 * n_slots)
             vals = rng.bytes(32 * n_slots)
             self.storage[c] = {
-                keys[32 * s:32 * s + 32]: b"\x01" + vals[32 * s + 1:32 * s + 32]
+                normalize_state_key(keys[32 * s:32 * s + 32]):
+                    b"\x01" + vals[32 * s + 1:32 * s + 32]
                 for s in range(n_slots)}
         self.rng = rng
 
@@ -668,18 +691,60 @@ class Oracle:
         return bytes(Hasher().hash(self.trie.root, True)[0])
 
 
-def commit(dev, account_trie, changed, label):
-    """One planned-path commit: counts zeroed before, read after. Returns
-    (root, builder, K1 launches, of them cooperative)."""
-    keccak_cuda.reset_counts()
-    planned_mod.planned_fallbacks = 0
-    builder = PlannedGraphBuilder()
-    t0 = time.perf_counter()
-    root = planned_intermediate_root(account_trie, changed, device=dev,
-                                     builder=builder)
-    wall_ms = (time.perf_counter() - t0) * 1e3
+class _Timed:
+    """Wall ms of each wrapped method, summed over its calls (nested calls
+    count in both), and every PlannedGraphBuilder that ran, while open."""
+
+    METHODS = ((Genesis, "to_block"), (StateDB, "commit"),
+               (StateDB, "intermediate_root"), (StateDB, "finalise"),
+               (TrieDatabase, "update"), (TrieDatabase, "commit"))
+
+    def __init__(self):
+        self.ms = defaultdict(float)
+        self.builders = []
+        self._saved = []
+
+    def _wrap(self, cls, name):
+        orig = getattr(cls, name)
+        label = f"{cls.__name__}.{name}"
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig(*a, **kw)
+            finally:
+                self.ms[label] += (time.perf_counter() - t0) * 1e3
+        self._saved.append((cls, name, orig))
+        setattr(cls, name, timed)
+
+    def __enter__(self):
+        for cls, name in self.METHODS:
+            self._wrap(cls, name)
+        run = PlannedGraphBuilder.run
+        builders = self.builders
+
+        def recorded(b, *a, **kw):
+            builders.append(b)
+            return run(b, *a, **kw)
+        self._saved.append((PlannedGraphBuilder, "run", run))
+        PlannedGraphBuilder.run = recorded
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, orig in reversed(self._saved):
+            setattr(cls, name, orig)
+
+
+def planned_commit_report(dev, timed: _Timed, label):
+    """Checks and logs of one planned StateDB commit, its counts zeroed
+    before it: one PlannedGraphBuilder run, no fallback, no K2, K1 at
+    least once a segment. Returns (builder, K1 launches, of them
+    cooperative)."""
     launches, coop = keccak_cuda.launches, keccak_cuda.launches_coop
     fallbacks = planned_mod.planned_fallbacks
+    check(len(timed.builders) == 1,
+          f"{label}: {len(timed.builders)} planned programs, not one")
+    builder = timed.builders[0]
     pc = default_planned_commit(dev)
     specs = builder.plan[0]
     check(fallbacks == 0, f"{label}: planned_fallbacks == {fallbacks}")
@@ -696,9 +761,41 @@ def commit(dev, account_trie, changed, label):
                    f"{pc.last_upload_ms:.3f} ms)")
     log(f"{label}: host plan {builder.plan_ms:.1f} ms, device (upload to "
         f"last digest, CUDA events) {dev_ms}, "
-        f"h2d {pc.last_h2d_bytes} B in {pc.last_transfers} transfers, "
-        f"commit wall {wall_ms:.1f} ms")
-    return root, builder, launches, coop
+        f"h2d {pc.last_h2d_bytes} B in {pc.last_transfers} transfers")
+    return builder, launches, coop
+
+
+def wall_split(timed: _Timed) -> str:
+    """The commit wall split by the wrapped methods (ms)."""
+    ms = timed.ms
+    ir = ms["StateDB.intermediate_root"]
+    parts = []
+    if "Genesis.to_block" in ms:
+        parts.append(("alloc writes (to_block less StateDB.commit)",
+                      ms["Genesis.to_block"] - ms["StateDB.commit"]))
+    parts += [("finalise", ms["StateDB.finalise"]),
+              ("intermediate_root less finalise",
+               ir - ms["StateDB.finalise"]),
+              ("trie commit into NodeSets",
+               ms["StateDB.commit"] - ir - ms["TrieDatabase.update"]),
+              ("TrieDatabase.update", ms["TrieDatabase.update"]),
+              ("TrieDatabase.commit", ms["TrieDatabase.commit"])]
+    return ", ".join(f"{name} {v:.1f}" for name, v in parts)
+
+
+def store_report(diskdb) -> str:
+    """Entries and bytes (key + value) in the MemoryDB, trie nodes (32-byte
+    keys) apart, and the time to read them all back in key order."""
+    t0 = time.perf_counter()
+    n = nbytes = nodes = node_bytes = 0
+    for k, v in diskdb.iterate():
+        n += 1
+        nbytes += len(k) + len(v)
+        if len(k) == 32:
+            nodes += 1
+            node_bytes += len(k) + len(v)
+    return (f"{n} entries, {nbytes} B; trie nodes {nodes}, {node_bytes} B "
+            f"(iterated in {(time.perf_counter() - t0) * 1e3:.1f} ms)")
 
 
 def timed_variant(call, args, coop_count: str):
@@ -831,18 +928,116 @@ def genesis_tries(world: World, mode):
     return account_trie, changed
 
 
+def genesis_alloc(world: World) -> Genesis:
+    """The world as a Genesis alloc under TEST_CHAIN_CONFIG."""
+    return Genesis(config=params.TEST_CHAIN_CONFIG, alloc={
+        addr: GenesisAccount(balance=world.balance[i], nonce=world.nonce[i],
+                             code=world.code.get(i, b""),
+                             storage=world.storage.get(i, {}))
+        for i, addr in enumerate(world.addrs)})
+
+
 def phase_genesis(dev, world: World, oracle_root: bytes):
+    """Genesis.commit of the world on the planned marker: every storage
+    trie and the account trie in one K1 program, persisted into a
+    MemoryDB. Returns (MemoryDB, TrieDatabase, genesis block, builder, K1
+    launches, of them cooperative)."""
     t0 = time.perf_counter()
-    account_trie, changed = genesis_tries(world, PlannedMode(device=dev))
+    gen = genesis_alloc(world)
     log(f"genesis: {len(world.addrs)} accounts, {len(world.storage)} "
-        f"contracts x {len(next(iter(world.storage.values())))} slots built "
-        f"in {time.perf_counter() - t0:.1f} s")
-    root, builder, launches, coop = commit(dev, account_trie, changed,
-                                           "genesis")
-    check(root == oracle_root, f"genesis root {root.hex()} != CPU oracle "
-          f"{oracle_root.hex()}")
-    log(f"genesis root {root.hex()} == independent CPU Hasher root")
-    return account_trie, changed, builder, launches, coop
+        f"contracts x {len(next(iter(world.storage.values())))} slots as a "
+        f"Genesis alloc in {time.perf_counter() - t0:.1f} s")
+    diskdb = MemoryDB()
+    tdb = TrieDatabase(diskdb, batch_keccak=get_batch_keccak("planned", dev))
+    keccak_cuda.reset_counts()
+    planned_mod.planned_fallbacks = 0
+    with _Timed() as timed, _GcPauses() as pauses:
+        t0 = time.perf_counter()
+        block = gen.commit(diskdb, Database(tdb))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del gen
+    builder, launches, coop = planned_commit_report(dev, timed, "genesis")
+    check(block.root == oracle_root, f"genesis root {block.root.hex()} != "
+          f"CPU oracle {oracle_root.hex()}")
+    log(f"genesis root {block.root.hex()} == independent CPU Hasher root; "
+        f"block {block.hash().hex()}")
+    log(f"genesis: Genesis.commit wall {wall_ms:.1f} ms: {wall_split(timed)}"
+        f" ms; garbage collector pauses ({pauses})")
+    log(f"genesis: persisted {store_report(diskdb)}; dirty nodes left "
+        f"{tdb.dirty_size} B")
+    return diskdb, tdb, block, builder, launches, coop
+
+
+def phase_block(dev, world: World, diskdb, tdb, parent, block, want,
+                seed):
+    """The block as StateDB operations on the planned marker over the
+    genesis state (each transfer and each contract's writes a transaction,
+    finalise(True) after it), StateDB.commit, TrieDatabase.commit; then a
+    fresh TrieDatabase and StateDB over the same MemoryDB read back every
+    account the block touched, 1,000 seeded others and every slot written:
+    the acknowledged writes. Returns (builder, K1 launches, cooperative)."""
+    accounts, writes, transfers = block
+    addrs = world.addrs
+    keccak_cuda.reset_counts()
+    planned_mod.planned_fallbacks = 0
+    t0 = time.perf_counter()
+    sdb = StateDB(parent, Database(tdb))
+    for s, r, value, topup in transfers:
+        if topup:
+            sdb.add_balance(addrs[s], topup)
+        sdb.set_nonce(addrs[s], sdb.get_nonce(addrs[s]) + 1)
+        sdb.sub_balance(addrs[s], value + TRANSFER_FEE)
+        sdb.add_balance(addrs[r], value)
+        sdb.finalise(True)
+    for c, w in writes.items():
+        for k, v in w.items():
+            sdb.set_state(addrs[c], k, v)
+        sdb.finalise(True)
+    ops_ms = (time.perf_counter() - t0) * 1e3
+    with _Timed() as timed:
+        root = sdb.commit(True)
+        tdb.commit(root)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    builder, launches, coop = planned_commit_report(dev, timed, "block")
+    check(root == want, f"block root {root.hex()} != CPU oracle {want.hex()}")
+    check(dev.type != "cuda" or coop > 0,
+          "block: the cooperative K1 kernel never ran")
+    log(f"block root {root.hex()} == independent CPU Hasher root")
+    log(f"block: wall {wall_ms:.1f} ms: StateDB operations ("
+        f"{len(transfers) + len(writes)} transactions) {ops_ms:.1f}, "
+        f"StateDB.commit "
+        f"{timed.ms['StateDB.commit']:.1f} ({wall_split(timed)}) ms; dirty "
+        f"nodes left {tdb.dirty_size} B")
+
+    # read back through a fresh TrieDatabase: the acknowledged writes
+    t0 = time.perf_counter()
+    back = StateDB(root, Database(TrieDatabase(diskdb)))
+    rng = np.random.default_rng(seed)
+    others = sorted(set(int(i) for i in rng.choice(len(addrs), 1000,
+                                                   replace=False))
+                    - set(accounts))
+    slots = 0
+    for i in list(accounts) + others:
+        a = addrs[i]
+        got = (back.get_nonce(a), back.get_balance(a), back.get_code_hash(a))
+        check(got == (world.nonce[i], world.balance[i], world.code_hash[i]),
+              f"read-back of account {i}: {got}")
+        if i in world.code:
+            check(back.get_code(a) == world.code[i],
+                  f"read-back of account {i}: code")
+        keys = list(writes.get(i, {}))
+        if i in world.storage and i not in writes:
+            keys = list(world.storage[i])[:3]
+        for k in keys:
+            check(back.get_state(a, k) == world.storage[i][k],
+                  f"read-back of account {i}: slot {k.hex()}")
+            slots += 1
+    log(f"block: read back through a fresh TrieDatabase {len(accounts)} "
+        f"accounts the block touched, {len(others)} others and {slots} slots"
+        f" ({sum(len(w) for w in writes.values())} written by the block), "
+        f"all equal to the world's, in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    return builder, launches, coop
 
 
 class _BlocksRecorder:
@@ -1041,21 +1236,31 @@ def phase_genesis_batched(dev, world: World, oracle_root: bytes):
     return mode, account_trie, changed, launches, coop, rec
 
 
+TRANSFER_FEE = 21000 * 25 * 10**9
+
+
 def make_block(world: World, n_transfers=700, n_contracts=50, n_writes=20):
+    """A seeded block, applied to `world`: `n_transfers` transfers between
+    plain accounts, then `n_writes` slot writes (half new) in each of
+    `n_contracts` contracts. Returns (sorted account indices touched,
+    {contract: {key: value}}, [(sender, receiver, value, top-up)])."""
     rng = world.rng
     n = len(world.addrs)
     plain_pool = np.arange(len(world.storage), n)
     touched = set()
+    transfers = []
     for _ in range(n_transfers):
         s, r = (int(v) for v in rng.choice(plain_pool, 2, replace=False))
         value = int(rng.integers(1, 10**12))
-        fee = 21000 * 25 * 10**9
-        if world.balance[s] < value + fee:
-            world.balance[s] += 10**20
+        topup = 0
+        if world.balance[s] < value + TRANSFER_FEE:
+            topup = 10**20
+        world.balance[s] += topup
         world.nonce[s] += 1
-        world.balance[s] -= value + fee
+        world.balance[s] -= value + TRANSFER_FEE
         world.balance[r] += value
         touched.update((s, r))
+        transfers.append((s, r, value, topup))
     writes = {}
     n_contracts = min(n_contracts, len(world.storage))
     for c in (int(v) for v in rng.choice(sorted(world.storage), n_contracts,
@@ -1066,11 +1271,11 @@ def make_block(world: World, n_transfers=700, n_contracts=50, n_writes=20):
                             replace=False):
             w[old[int(k)]] = b"\x02" + rng.bytes(31)
         for _ in range(n_writes - n_writes // 2):
-            w[rng.bytes(32)] = b"\x03" + rng.bytes(31)
+            w[normalize_state_key(rng.bytes(32))] = b"\x03" + rng.bytes(31)
         world.storage[c].update(w)
         writes[c] = w
         touched.add(c)
-    return sorted(touched), writes
+    return sorted(touched), writes, transfers
 
 
 def block_changes(world, changed_genesis, accounts, writes):
@@ -1090,18 +1295,18 @@ def block_changes(world, changed_genesis, accounts, writes):
 
 
 def phase_fallback(dev, seed: int):
-    """A small state through the planned marker with the segment table cut
-    to 2: TooManySegments sends the account trie to BatchedHasher on K2."""
+    """Genesis.commit of a small state on the planned marker with the
+    segment table cut to 2: TooManySegments sends it to BatchedHasher on
+    K2."""
     world = World(3000, 5, 20, seed + 2)
     want = Oracle(world).root()
-    mode = PlannedMode(device=dev)
-    account_trie, changed = genesis_tries(world, mode)
+    disk = MemoryDB()
+    tdb = TrieDatabase(disk, batch_keccak=get_batch_keccak("planned", dev))
     keccak_cuda.reset_counts()
     planned_mod.planned_fallbacks = 0
     keccak_planned.MAX_SEGMENTS = 2
     try:
-        root = intermediate_root(account_trie, changed, batch_keccak=mode,
-                                 device=dev)
+        root = genesis_alloc(world).commit(disk, Database(tdb)).root
     finally:
         keccak_planned.MAX_SEGMENTS = MAX_SEGMENTS
     fallbacks, k2 = planned_mod.planned_fallbacks, keccak_cuda.blocks_launches
@@ -1111,8 +1316,8 @@ def phase_fallback(dev, seed: int):
     check(fallbacks == 2, f"fallback: planned_fallbacks == {fallbacks}")
     check(keccak_cuda.launches == 0, "fallback: K1 launched")
     check(dev.type != "cuda" or k2 > 0, "fallback: K2 never launched")
-    log(f"fallback (3000 accounts, MAX_SEGMENTS 2): root == CPU Hasher root, "
-        f"planned_fallbacks {fallbacks}, K2 launches {k2}")
+    log(f"fallback (Genesis.commit, 3000 accounts, MAX_SEGMENTS 2): root == "
+        f"CPU Hasher root, planned_fallbacks {fallbacks}, K2 launches {k2}")
 
 
 class _K1Recorder:
@@ -1417,7 +1622,7 @@ def phase_resident_blocks(dev, world: World, oracle: Oracle,
             log(f"{label}: rejected root {bad_c.hex()} (A, B, C equal); "
                 f"after rollback every root == the parent's {parent.hex()}")
             continue
-        accounts, writes = make_block(world)
+        accounts, writes, _ = make_block(world)
         oracle.apply(accounts, writes)
         want = oracle.root()
         changed = rs.changes(accounts, writes, rs.storage_a)
@@ -1502,6 +1707,7 @@ def main() -> int:
     if dev.type == "cuda":
         phase_sweep(dev)
 
+    mark(t_start, "world and CPU oracle")
     t0 = time.perf_counter()
     world = World(args.accounts, args.contracts, args.slots, args.seed)
     oracle = Oracle(world)
@@ -1509,14 +1715,16 @@ def main() -> int:
     log(f"genesis: CPU oracle (independent tries) "
         f"{time.perf_counter() - t0:.1f} s; peak RSS {rss_gib():.1f} GiB")
 
-    # planned path (K1)
-    p_trie, p_changed, g_builder, g_launches, g_coop = phase_genesis(
+    # planned path (K1): Genesis.commit and StateDB.commit
+    mark(t_start, "planned genesis")
+    diskdb, tdb, gen_block, g_builder, g_launches, g_coop = phase_genesis(
         dev, world, oracle_root)
     g_err, g_ms, g_plain, g_shapes, g_kernel = check_and_time(
         dev, g_builder, "genesis")
     g_plan_ms = g_builder.plan_ms
     del g_builder
     # batched path (K2)
+    mark(t_start, "batched genesis")
     mode, b_trie, b_changed, bg_launches, bg_coop, bg_rec = \
         phase_genesis_batched(dev, world, oracle_root)
     bg_pad = mode.batched.padded_lanes - mode.batched.lanes
@@ -1524,28 +1732,26 @@ def main() -> int:
         bg_rec, "batched genesis", bg_pad, profile_reps=1)
     del bg_rec
     # resident path (K1): native tries, the account trie on the device
+    mark(t_start, "resident genesis")
     rs, rg_launches, rg_coop = phase_resident_genesis(
         dev, world, oracle, oracle_root, g_plan_ms)
     log(f"after the three genesis commits: peak RSS {rss_gib():.1f} GiB")
 
-    # one block, made once, applied to the oracle and to both states
-    accounts, writes = make_block(world)
+    # one block, made once, applied to the oracle and to every state
+    mark(t_start, "block")
+    accounts, writes, transfers = make_block(world)
     log(f"block: {len(accounts)} account updates, {len(writes)} contracts, "
         f"{sum(len(w) for w in writes.values())} slot writes")
     t0 = time.perf_counter()
     oracle.apply(accounts, writes)
     want = oracle.root()
     log(f"block: CPU oracle {time.perf_counter() - t0:.1f} s")
-    root, b_builder, b_launches, b_coop = commit(
-        dev, p_trie, block_changes(world, p_changed, accounts, writes),
-        "block")
-    check(root == want, f"block root {root.hex()} != CPU oracle {want.hex()}")
-    check(dev.type != "cuda" or b_coop > 0,
-          "block: the cooperative K1 kernel never ran")
-    log(f"block root {root.hex()} == independent CPU Hasher root")
+    b_builder, b_launches, b_coop = phase_block(
+        dev, world, diskdb, tdb, gen_block.root,
+        (accounts, writes, transfers), want, args.seed + 1)
     b_err, b_ms, b_plain, b_shapes, b_kernel = check_and_time(
         dev, b_builder, "block")
-    del b_builder, p_trie, p_changed
+    del b_builder, diskdb, tdb
     root, bb_launches, bb_coop, bb_rec = commit_batched(
         dev, mode, b_trie, block_changes(world, b_changed, accounts, writes),
         "batched block")
@@ -1557,6 +1763,7 @@ def main() -> int:
         bb_rec, "batched block", bb_pad, profile_reps=10)
     del bb_rec
 
+    mark(t_start, "resident blocks")
     rb_launches, rb_coop, n_genesis = phase_resident_blocks(
         dev, world, oracle, rs, (accounts, writes), want, args.blocks,
         rejected_at=2 + args.blocks // 2)
@@ -1573,6 +1780,7 @@ def main() -> int:
         per_segment=False, outputs=[r[1] for r in records[n_genesis:]])
     del records, rs
 
+    mark(t_start, "fallback")
     phase_fallback(dev, args.seed)
 
     k1_shapes = g_shapes + b_shapes + rg_shapes + rb_shapes

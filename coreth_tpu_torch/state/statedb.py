@@ -1,19 +1,35 @@
-"""The block commit of a state: write the block's changed accounts into
-the account trie and hash it.
+"""Journaled mutable world state (semantics of coreth core/state/statedb.go);
+counterpart of coreth_tpu/state/statedb.py:44-830, with the revert
+closures of :857-916.
 
-Counterpart of the compositions in coreth_tpu/state/statedb.py:490-547
-(StateDB.intermediate_root: the default dispatch in `intermediate_root`,
-its resident branch in `resident_intermediate_root`), :549-584
-(StateDB._batch_storage_roots: `batch_storage_roots`) and :586-690
-(StateDB._planned_intermediate_root, every dirty storage trie plus the
-account trie in one device program). The StateDB class itself is not
-ported yet, so the caller hands over the block's changed accounts.
+Execution mutates StateObjects through a journal (snapshot/revert); at tx
+end finalise moves dirty state to pending; intermediate_root flushes
+pending storage into tries and returns the root; commit persists every
+dirty node into the TrieDatabase as NodeSets (storage tries, code, account
+trie, TrieDatabase.update). The tries hash with the TrieDatabase's batch
+keccak: the planned marker (every dirty storage trie and the account trie
+in one device program, kernel K1 on CUDA), the batched marker (each trie
+level by level through BatchedHasher, kernel K2 on CUDA), or None (the
+recursive CPU Hasher).
+
+The block commit itself is composed once, by the module functions below
+over a `changed` map (address -> (Account, its storage StateTrie or None);
+Account None deletes the address): intermediate_root dispatches,
+planned_intermediate_root is StateDB._planned_intermediate_root, and
+batch_storage_roots, resident_items and resident_intermediate_root make
+the resident branch (:504-521) for callers that hold native tries.
+
+Not ported, each with its ROADMAP "Still to port" item: the snapshot tree
+and its slim codec, the prefetcher, the bintrie shadow, metrics and spans
+(item 10); fold_tx_writes (3b, with the parallel executor); the resident
+branches of intermediate_root and commit (item 4).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Set, Tuple
 
+from ..core import rawdb
 from ..device import resolve
 from ..native import keccak256
 from ..trie import planned as _planned
@@ -22,7 +38,13 @@ from ..trie.hasher import BATCH_THRESHOLD, Hasher
 from ..trie.node import FullNode, ShortNode
 from ..trie.planned import PlannedGraphBuilder, TooManySegments
 from ..trie.secure import StateTrie
-from .account import Account
+from ..trie.trienode import MergedNodeSet
+from .access_list import AccessList
+from .account import Account, normalize_state_key
+from .database import Database
+from .journal import Journal
+from .log import Log
+from .state_object import ZERO32, StateObject
 
 Changed = Dict[bytes, Tuple[Optional[Account], Optional[StateTrie]]]
 
@@ -32,24 +54,29 @@ def _dirty(root) -> bool:
 
 
 def intermediate_root(account_trie: StateTrie, changed: Changed,
-                      batch_keccak=None, device=None) -> bytes:
+                      batch_keccak=None, device=None,
+                      est: Optional[int] = None) -> bytes:
     """Write `changed` (address -> (Account, its storage StateTrie or None);
     Account None deletes the address) into `account_trie` and return the
     new state root, dispatching as StateDB.intermediate_root does.
 
-    With a planned marker as `batch_keccak` and at least BATCH_THRESHOLD
-    changed accounts plus pending storage writes, the whole commit is one
-    planned_intermediate_root. Otherwise each storage trie is hashed by its
-    own Trie.hash, in address order, and then the account trie: every trie
-    carrying the "batched" seam (ops/device.get_batch_keccak) and at least
-    BATCH_THRESHOLD unhashed updates is hashed level by level through
-    BatchedHasher, the rest by the recursive CPU Hasher. The caller gives
-    every trie the same batch keccak. `device` is forwarded to
-    planned_intermediate_root, where the marker's own commit decides."""
+    With a planned marker as `batch_keccak` and an estimate `est` of at
+    least BATCH_THRESHOLD, the whole commit is one
+    planned_intermediate_root. StateDB passes its pending accounts plus
+    their pending storage writes; None counts the changed accounts plus
+    the storage tries' unhashed updates. Otherwise each storage trie is
+    hashed by its own Trie.hash, in address order, and then the account
+    trie: every trie carrying the "batched" seam
+    (ops/device.get_batch_keccak) and at least BATCH_THRESHOLD unhashed
+    updates is hashed level by level through BatchedHasher, the rest by
+    the recursive CPU Hasher. The caller gives every trie the same batch
+    keccak. `device` is forwarded to planned_intermediate_root, where the
+    marker's own commit decides."""
     if getattr(batch_keccak, "planned", False):
-        est = len(changed) + sum(tr.trie.unhashed
-                                 for acct, tr in changed.values()
-                                 if acct is not None and tr is not None)
+        if est is None:
+            est = len(changed) + sum(tr.trie.unhashed
+                                     for acct, tr in changed.values()
+                                     if acct is not None and tr is not None)
         if est >= BATCH_THRESHOLD:
             return planned_intermediate_root(
                 account_trie, changed, planned=batch_keccak.commit,
@@ -108,6 +135,8 @@ def planned_intermediate_root(account_trie: StateTrie, changed: Changed,
 
     inner = account_trie.trie
     if not _dirty(inner.root):
+        # nothing to plan: heal any hole and hash as Trie.hash does
+        _heal_root_holes(account_trie, patched, force_cpu=False)
         return account_trie.hash()
     builder.add_account_trie(inner.root, holes)
     try:
@@ -211,3 +240,430 @@ def resident_intermediate_root(inc_trie, executor, changed: Changed, *,
     if template:
         return inc_trie.commit_template(executor)
     return executor.root_bytes(inc_trie.commit_resident(executor))
+
+
+class StateDB:
+    """The journaled state over one root of a state Database. Its tries
+    hash with the batch keccak of the Database's TrieDatabase (module
+    docstring). `snaps`, the reference's flat snapshot tree, is not
+    ported and raises."""
+
+    def __init__(self, root: bytes, db: Database, snaps=None):
+        if snaps is not None:
+            raise NotImplementedError(
+                "the snapshot tree is not ported (ROADMAP 'Still to port', "
+                "item 10)")
+        self.db = db
+        self.original_root = root
+        self.trie = db.open_trie(root)
+        self.journal = Journal()
+
+        self._objects: Dict[bytes, StateObject] = {}
+        self._objects_pending: Set[bytes] = set()
+        self._objects_dirty: Set[bytes] = set()
+
+        self.refund = 0
+        self.this_tx_hash = b"\x00" * 32
+        self.tx_index = 0
+        self.logs: Dict[bytes, List[Log]] = {}
+        self.log_size = 0
+        self.preimages: Dict[bytes, bytes] = {}
+
+        self.access_list = AccessList()
+        self.transient: Dict[Tuple[bytes, bytes], bytes] = {}
+
+    # ------------------------------------------------------------ object mgmt
+
+    def _get_state_object(self, addr: bytes) -> Optional[StateObject]:
+        obj = self._get_deleted_state_object(addr)
+        if obj is not None and obj.deleted:
+            return None
+        return obj
+
+    def _get_deleted_state_object(self, addr: bytes) -> Optional[StateObject]:
+        """Like _get_state_object but returns deleted-marked objects too
+        (getDeletedStateObject, statedb.go), so that recreate-after-suicide
+        journals a reset, not a create."""
+        obj = self._objects.get(addr)
+        if obj is not None:
+            return obj
+        return self._load_state_object(addr)
+
+    def _load_state_object(self, addr: bytes) -> Optional[StateObject]:
+        blob = self.trie.get(addr)
+        if not blob:
+            return None
+        obj = StateObject(self, addr, Account.decode(blob))
+        self._objects[addr] = obj
+        return obj
+
+    def _get_or_new(self, addr: bytes) -> StateObject:
+        obj = self._get_state_object(addr)
+        if obj is None:
+            obj, _ = self._create_object(addr)
+        return obj
+
+    def _create_object(self, addr: bytes):
+        prev = self._get_deleted_state_object(addr)
+        obj = StateObject(self, addr, None)
+        if prev is None:
+            self.journal.append(_revert_create(addr), addr)
+        else:
+            self.journal.append(_revert_reset(addr, prev), addr)
+        self._objects[addr] = obj
+        return obj, prev
+
+    def create_account(self, addr: bytes) -> None:
+        """EIP-684/CREATE semantics: new object, balance carried over."""
+        new, prev = self._create_object(addr)
+        if prev is not None:
+            new.set_balance(prev.data.balance)
+
+    def exist(self, addr: bytes) -> bool:
+        return self._get_state_object(addr) is not None
+
+    def empty(self, addr: bytes) -> bool:
+        obj = self._get_state_object(addr)
+        return obj is None or obj.empty
+
+    # ---------------------------------------------------------------- reads
+
+    def get_balance(self, addr: bytes) -> int:
+        obj = self._get_state_object(addr)
+        return obj.data.balance if obj else 0
+
+    def get_balance_multicoin(self, addr: bytes, coin_id: bytes) -> int:
+        obj = self._get_state_object(addr)
+        return obj.balance_multicoin(coin_id) if obj else 0
+
+    def get_nonce(self, addr: bytes) -> int:
+        obj = self._get_state_object(addr)
+        return obj.data.nonce if obj else 0
+
+    def get_code(self, addr: bytes) -> bytes:
+        obj = self._get_state_object(addr)
+        return obj.get_code() if obj else b""
+
+    def get_code_size(self, addr: bytes) -> int:
+        return len(self.get_code(addr))
+
+    def get_code_hash(self, addr: bytes) -> bytes:
+        obj = self._get_state_object(addr)
+        return obj.data.code_hash if obj else b"\x00" * 32
+
+    def get_state(self, addr: bytes, key: bytes) -> bytes:
+        obj = self._get_state_object(addr)
+        if obj is None:
+            return ZERO32
+        return obj.get_state(normalize_state_key(key))
+
+    def get_committed_state(self, addr: bytes, key: bytes) -> bytes:
+        obj = self._get_state_object(addr)
+        if obj is None:
+            return ZERO32
+        return obj.get_committed_state(normalize_state_key(key))
+
+    def has_suicided(self, addr: bytes) -> bool:
+        obj = self._get_state_object(addr)
+        return obj.suicided if obj else False
+
+    # --------------------------------------------------------------- writes
+
+    def add_balance(self, addr: bytes, amount: int) -> None:
+        self._get_or_new(addr).add_balance(amount)
+
+    def sub_balance(self, addr: bytes, amount: int) -> None:
+        self._get_or_new(addr).sub_balance(amount)
+
+    def set_balance(self, addr: bytes, amount: int) -> None:
+        self._get_or_new(addr).set_balance(amount)
+
+    def add_balance_multicoin(self, addr: bytes, coin_id: bytes, amount: int) -> None:
+        self._get_or_new(addr).add_balance_multicoin(coin_id, amount)
+
+    def sub_balance_multicoin(self, addr: bytes, coin_id: bytes, amount: int) -> None:
+        self._get_or_new(addr).sub_balance_multicoin(coin_id, amount)
+
+    def set_nonce(self, addr: bytes, nonce: int) -> None:
+        self._get_or_new(addr).set_nonce(nonce)
+
+    def set_code(self, addr: bytes, code: bytes) -> None:
+        self._get_or_new(addr).set_code(keccak256(code), code)
+
+    def set_state(self, addr: bytes, key: bytes, value: bytes) -> None:
+        self._get_or_new(addr).set_state(normalize_state_key(key), value)
+
+    def suicide(self, addr: bytes) -> bool:
+        obj = self._get_state_object(addr)
+        if obj is None:
+            return False
+        self.journal.append(
+            _revert_suicide(addr, obj.suicided, obj.data.balance), addr
+        )
+        obj.mark_suicided()
+        obj.data.balance = 0
+        return True
+
+    # ---------------------------------------------------- transient (1153)
+
+    def get_transient_state(self, addr: bytes, key: bytes) -> bytes:
+        return self.transient.get((addr, key), ZERO32)
+
+    def set_transient_state(self, addr: bytes, key: bytes, value: bytes) -> None:
+        prev = self.get_transient_state(addr, key)
+        if prev == value:
+            return
+        self.journal.append(_revert_transient(addr, key, prev))
+        self.transient[(addr, key)] = value
+
+    # -------------------------------------------------------------- refunds
+
+    def get_refund(self) -> int:
+        return self.refund
+
+    def add_refund(self, gas: int) -> None:
+        prev = self.refund
+        self.journal.append(_revert_refund(prev))
+        self.refund += gas
+
+    def sub_refund(self, gas: int) -> None:
+        prev = self.refund
+        if gas > self.refund:
+            raise ValueError(f"refund counter below zero ({self.refund} < {gas})")
+        self.journal.append(_revert_refund(prev))
+        self.refund -= gas
+
+    # ----------------------------------------------------------------- logs
+
+    def add_log(self, log: Log) -> None:
+        self.journal.append(_revert_log(self.this_tx_hash))
+        log.tx_hash = self.this_tx_hash
+        log.tx_index = self.tx_index
+        log.index = self.log_size
+        self.logs.setdefault(self.this_tx_hash, []).append(log)
+        self.log_size += 1
+
+    def get_logs(self, tx_hash: bytes, block_number: int, block_hash: bytes):
+        logs = self.logs.get(tx_hash, [])
+        for l in logs:
+            l.block_number = block_number
+            l.block_hash = block_hash
+        return logs
+
+    def add_preimage(self, hash_: bytes, preimage: bytes) -> None:
+        if hash_ not in self.preimages:
+            self.journal.append(_revert_preimage(hash_))
+            self.preimages[hash_] = preimage
+
+    # ------------------------------------------------------ tx context setup
+
+    def set_tx_context(self, tx_hash: bytes, tx_index: int) -> None:
+        self.this_tx_hash = tx_hash
+        self.tx_index = tx_index
+
+    def prepare(self, rules, sender, coinbase, dst, precompiles, tx_access_list):
+        """EIP-2929/2930/3651 warm-up (statedb.go Prepare)."""
+        if getattr(rules, "is_berlin", True):
+            self.access_list = AccessList()
+            self.access_list.add_address(sender)
+            if dst is not None:
+                self.access_list.add_address(dst)
+            for addr in precompiles:
+                self.access_list.add_address(addr)
+            if tx_access_list:
+                for addr, keys in tx_access_list:
+                    self.access_list.add_address(addr)
+                    for k in keys:
+                        self.access_list.add_slot(addr, k)
+            if getattr(rules, "is_shanghai", False) or getattr(rules, "is_d_upgrade", False):
+                self.access_list.add_address(coinbase)
+        self.transient = {}
+
+    def address_in_access_list(self, addr: bytes) -> bool:
+        return self.access_list.contains_address(addr)
+
+    def slot_in_access_list(self, addr: bytes, slot: bytes):
+        return self.access_list.contains(addr, slot)
+
+    def add_address_to_access_list(self, addr: bytes) -> None:
+        if self.access_list.add_address(addr):
+            self.journal.append(_revert_access_address(addr))
+
+    def add_slot_to_access_list(self, addr: bytes, slot: bytes) -> None:
+        addr_added, slot_added = self.access_list.add_slot(addr, slot)
+        if addr_added:
+            self.journal.append(_revert_access_address(addr))
+        if slot_added:
+            self.journal.append(_revert_access_slot(addr, slot))
+
+    # ----------------------------------------------------- snapshot machinery
+
+    def snapshot(self) -> int:
+        return self.journal.length()
+
+    def revert_to_snapshot(self, snap_id: int) -> None:
+        self.journal.revert(self, snap_id)
+
+    # --------------------------------------------------- finalise/root/commit
+
+    def finalise(self, delete_empty: bool) -> None:
+        """Tx-end pass (statedb.go:903): fold journal dirties into pending."""
+        for addr in list(self.journal.dirties):
+            obj = self._objects.get(addr)
+            if obj is None:
+                continue
+            if obj.suicided or (delete_empty and obj.empty):
+                obj.deleted = True
+            else:
+                obj.finalise()
+            self._objects_pending.add(addr)
+            self._objects_dirty.add(addr)
+        self.journal = Journal()
+        self.refund = 0
+
+    def _pending_changes(self) -> Changed:
+        """The pending objects as a `changed` map, in address order, each
+        live object's pending storage flushed into its storage trie."""
+        changed: Changed = {}
+        for addr in sorted(self._objects_pending):
+            obj = self._objects[addr]
+            changed[addr] = ((None, None) if obj.deleted
+                             else (obj.data, obj.update_trie()))
+        return changed
+
+    def intermediate_root(self, delete_empty: bool) -> bytes:
+        """Hash the state trie after flushing pending (statedb.go:952).
+
+        Under the planned marker, with at least BATCH_THRESHOLD pending
+        accounts plus their pending storage writes, every dirty storage
+        trie and the account trie hash in one device program (the
+        module's planned_intermediate_root, which is the reference's
+        _planned_intermediate_root with its TooManySegments heal);
+        otherwise each trie's own Trie.hash. The module's
+        intermediate_root makes that choice."""
+        self.finalise(delete_empty)
+        est = len(self._objects_pending) + sum(
+            len(self._objects[a].pending_storage)
+            for a in self._objects_pending
+            if not self._objects[a].deleted
+        )
+        changed = self._pending_changes()
+        self._objects_pending = set()
+        return intermediate_root(self.trie, changed,
+                                 self.db.triedb.batch_keccak, est=est)
+
+    def commit(self, delete_empty: bool = False) -> bytes:
+        """Commit to the TrieDatabase (statedb.go:1040-1160).
+
+        Order: storage tries → code → account trie → TrieDB.Update.
+        Returns the new state root."""
+        self.intermediate_root(delete_empty)
+        merged = MergedNodeSet()
+        for addr in sorted(self._objects_dirty):
+            obj = self._objects[addr]
+            if obj.deleted:
+                continue
+            if obj.dirty_code:
+                rawdb.write_code(self.db.diskdb, obj.data.code_hash, obj.code)
+                obj.dirty_code = False
+            nodeset = obj.commit_trie()
+            if nodeset is not None:
+                nodeset.owner = obj.addr_hash
+                merged.merge(nodeset)
+        root, acct_set = self.trie.commit(collect_leaf=True)
+        if acct_set is not None:
+            merged.merge(acct_set)
+        self._objects_dirty = set()
+        if root != self.original_root and merged.sets:
+            self.db.triedb.update(root, self.original_root, merged)
+        # subsequent commits diff against the new root (geth statedb.Commit);
+        # our Trie freezes after commit, so reopen it from the forest
+        self.original_root = root
+        self.trie = self.db.open_trie(root)
+        return root
+
+    def copy(self) -> "StateDB":
+        s = StateDB.__new__(StateDB)
+        s.db = self.db
+        s.original_root = self.original_root
+        s.trie = self.trie.copy()
+        s.journal = Journal()
+        s._objects = {a: o.copy(s) for a, o in self._objects.items()}
+        # fold in-flight journal dirties into the copy's pending/dirty sets:
+        # the copy has an empty journal, so without this a mid-tx copy would
+        # lose the current tx's mutations at root computation (geth Copy)
+        s._objects_pending = set(self._objects_pending) | set(self.journal.dirties)
+        s._objects_dirty = set(self._objects_dirty) | set(self.journal.dirties)
+        s.refund = self.refund
+        s.this_tx_hash = self.this_tx_hash
+        s.tx_index = self.tx_index
+        s.logs = {h: list(ls) for h, ls in self.logs.items()}
+        s.log_size = self.log_size
+        s.preimages = dict(self.preimages)
+        s.access_list = self.access_list.copy()
+        s.transient = dict(self.transient)
+        return s
+
+
+# --- journal closures for StateDB-level state -------------------------------
+
+def _revert_create(addr):
+    def rev(db):
+        db._objects.pop(addr, None)
+    return rev
+
+
+def _revert_reset(addr, prev):
+    def rev(db):
+        db._objects[addr] = prev
+    return rev
+
+
+def _revert_suicide(addr, prev_suicided, prev_balance):
+    def rev(db):
+        obj = db._objects.get(addr)
+        if obj is not None:
+            obj.suicided = prev_suicided
+            obj.data.balance = prev_balance
+    return rev
+
+
+def _revert_transient(addr, key, prev):
+    def rev(db):
+        db.transient[(addr, key)] = prev
+    return rev
+
+
+def _revert_refund(prev):
+    def rev(db):
+        db.refund = prev
+    return rev
+
+
+def _revert_log(tx_hash):
+    def rev(db):
+        logs = db.logs.get(tx_hash)
+        if logs:
+            logs.pop()
+            if not logs:
+                del db.logs[tx_hash]
+        db.log_size -= 1
+    return rev
+
+
+def _revert_preimage(hash_):
+    def rev(db):
+        db.preimages.pop(hash_, None)
+    return rev
+
+
+def _revert_access_address(addr):
+    def rev(db):
+        db.access_list.delete_address(addr)
+    return rev
+
+
+def _revert_access_slot(addr, slot):
+    def rev(db):
+        db.access_list.delete_slot(addr, slot)
+    return rev

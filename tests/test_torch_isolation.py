@@ -110,6 +110,40 @@ ex = ResidentExecutor(device="cpu")
 assert ex.root_bytes(res.commit_resident(ex)) == want
 host = IncrementalTrie(items)
 assert host.commit_device(device="cpu") == want == host.commit_cpu()
+
+# the state layer: a genesis and one block through StateDB on each marker,
+# persisted, then read back through a fresh TrieDatabase
+from coreth_tpu_torch import params
+from coreth_tpu_torch.core.genesis import Genesis, GenesisAccount
+from coreth_tpu_torch.ethdb import MemoryDB
+from coreth_tpu_torch.state.database import Database
+from coreth_tpu_torch.state.statedb import StateDB
+from coreth_tpu_torch.trie.triedb import TrieDatabase
+
+alloc = {rng.randbytes(20): GenesisAccount(
+    balance=10**18 + i, nonce=i, code=b"\x60\x00" if i < 3 else b"",
+    storage={rng.randbytes(32): rng.randbytes(32) for _ in range(4 * (i < 3))})
+    for i in range(120)}
+roots = set()
+for mode in ("off", "batched", "planned"):
+    disk = MemoryDB()
+    tdb = TrieDatabase(disk, batch_keccak=get_batch_keccak(mode, device="cpu"))
+    block = Genesis(config=params.TEST_CHAIN_CONFIG, alloc=alloc).commit(
+        disk, Database(tdb))
+    sdb = StateDB(block.root, Database(tdb))
+    for i, addr in enumerate(alloc):
+        sdb.add_balance(addr, i + 1)
+        sdb.set_state(addr, b"\x02" * 32, b"\x03" * 32)
+    root = sdb.commit(True)
+    tdb.commit(root)
+    back = StateDB(root, Database(TrieDatabase(disk)))
+    for i, (addr, acct) in enumerate(alloc.items()):
+        assert back.get_balance(addr) == acct.balance + i + 1
+        assert back.get_state(addr, b"\x02" * 32) == b"\x03" * 32
+        for k, v in acct.storage.items():
+            assert back.get_state(addr, k) == v
+    roots.add((block.hash(), root))
+assert len(roots) == 1, roots
 leaked = [m for m in sys.modules if refused(m)]
 assert not leaked, leaked
 print("ISOLATED-OK")
