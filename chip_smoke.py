@@ -35,42 +35,51 @@ Phases (each passes or the script exits non-zero):
      intermediate_root on get_batch_keccak("batched"): every trie above
      the threshold hashed level by level through K2; the same oracle root,
      and every K2 lane's digest equal to the plain version's
-  6b. resident genesis: two sets of the contracts' storage tries (A's and
-     B's), each hashed in one program (batch_storage_roots), then three
-     native IncrementalTries from the
-     genesis leaves (keccak(address), account RLP): A device-resident
-     (ResidentExecutor on K1, lean rows), B template mode (its executor
-     records every K1 input), C the native host commit; all three roots
-     equal the oracle's. Prints the native plan and export ms, the device
-     window, h2d bytes and transfers, and the device bytes of store and
-     arenas
   7. block: 700 transfers plus 50 contracts x 20 slot writes, made once
      and applied to every state: on the planned state as StateDB
      operations and StateDB.commit, then TrieDatabase.commit, and a fresh
      TrieDatabase and StateDB over the same MemoryDB read back every
      account the block touched, 1,000 others and every slot written; on
-     the batched state through intermediate_root; A and B through
-     resident_intermediate_root. Every root checked against the oracle
-  7b. resident blocks: --blocks (16) further seeded blocks, A pipelined at
-     depth 2 (commit_resident_dispatch), B template through
-     resident_intermediate_root (each with its own storage program), C on
-     the host, each root equal to the
-     oracle's; the middle block is rejected (checkpoint, update, commit,
-     rollback, commit) and its rollback root must equal its parent's. Every
-     recorded K1 input is held against the plain version (with the main
-     path's own output), each launch must have run the variant its shape
-     calls for, and K1 is timed on them
+     the batched state through intermediate_root. Every root checked
+     against the oracle
+  8. the mirrors (the resident path, K1): one ordered leaf scan
+     (trie/iterator.iterate_leaves) of the planned genesis' persisted
+     account trie boots three ResidentAccountMirrors, each installed on a
+     Database over the genesis store with the planned marker (its storage
+     programs record every K1 input): A resident (lean rows, pipeline depth
+     2, watchdog on), B template residency (watchdog on), C the native
+     host twin; each genesis root equals the oracle's. Then block 1 (the
+     block of phase 7) and --blocks (16) seeded blocks as StateDB
+     operations on a StateDB over each mirror and StateDB.commit(
+     block_hash=, parent_block_hash=), accepted two blocks behind through
+     each mirror's ResidentTrieWriter; A's MirrorStateTrie carries the
+     oracle's root as expected_root from block 2, so its commits pipeline;
+     a sibling of the middle block is verified on all three and rejected
+     through reject_trie. Every root equals the oracle's. A's writer
+     exports at commit_interval 8 and at shutdown; a fresh TrieDatabase
+     over the store then reads back every account the last block touched,
+     999 others and every slot the blocks wrote. A.spot_check() passes, A
+     and B end on the device, and no device wedge, takeover, fallback or
+     pipeline divergence is counted. Spans are on for the blocks: the
+     resident/commit and state/hash_plan/storage spans are read back.
+     Every K1 input of A's and B's executors and of the storage programs
+     is held against the plain version and timed
+  9. watchdog drill: a 2,000-key mirror whose executor hangs once: the
+     commit raises DeviceWedgedError with the applied stack unchanged and
+     nothing on the host; the drill then asks for the host
+     (take_over_host), and every root equals its host twin's: exactly one
+     wedge and one takeover counted
 Every kernel time read from the profiler's trace is checked against the
-number of launches the session made (phases 3-7b): where the trace holds
+number of launches the session made (phases 3-8): where the trace holds
 another number of records, the time reads "not measured" (None in the
 JSON line).
-  8. fallback: Genesis.commit of a small state on the planned marker with
+  10. fallback: Genesis.commit of a small state on the planned marker with
      MAX_SEGMENTS lowered, so that TooManySegments sends it to
      BatchedHasher on K2
 Before the last line it prints one JSON object describing each kernel
 (launches on its main paths, max error, ms, plain ms, bound ms, and per
 variant its launches and kernel ms in the profiler's trace; K1's entry
-sums the planned and the resident paths); the last
+sums the planned path and the mirrors); the last
 line is {"ok": true, "device": {...}}. Nothing of jax or coreth_tpu is
 imported.
 """
@@ -92,14 +101,17 @@ import torch
 
 from coreth_tpu_torch import params, rlp
 from coreth_tpu_torch.core.genesis import Genesis, GenesisAccount
+from coreth_tpu_torch.core.state_manager import ResidentTrieWriter
 from coreth_tpu_torch.device import resolve
 from coreth_tpu_torch.ethdb import MemoryDB
 from coreth_tpu_torch.native import keccak256, keccak256_batch, mpt
-from coreth_tpu_torch.native.mpt import IncrementalTrie, plan_from_items
+from coreth_tpu_torch.native.mpt import DeviceWedgedError, IncrementalTrie, \
+    plan_from_items
 from coreth_tpu_torch.ops import keccak_cuda, keccak_planned
 from coreth_tpu_torch.ops.device import get_batch_keccak
 from coreth_tpu_torch.ops.keccak_planned import MAX_SEGMENTS, PlannedCommit, \
     PlannedMode, default_planned_commit
+from coreth_tpu_torch.metrics import default_registry, spans
 from coreth_tpu_torch.ops.keccak_resident import ResidentExecutor
 from coreth_tpu_torch.ops.keccak_staged import segment_keccak_plain
 from coreth_tpu_torch.ops.keccak_torch import RATE, BatchedKeccak, \
@@ -108,13 +120,14 @@ from coreth_tpu_torch.ops.keccak_torch import RATE, BatchedKeccak, \
 from coreth_tpu_torch.state.account import EMPTY_CODE_HASH, Account, \
     normalize_state_key
 from coreth_tpu_torch.state.database import Database
-from coreth_tpu_torch.state.statedb import StateDB, batch_storage_roots, \
-    intermediate_root, resident_intermediate_root, resident_items
+from coreth_tpu_torch.state.statedb import StateDB, intermediate_root
 from coreth_tpu_torch.trie import hasher as hasher_mod
 from coreth_tpu_torch.trie import planned as planned_mod
 from coreth_tpu_torch.trie.hasher import Hasher
+from coreth_tpu_torch.trie.iterator import iterate_leaves
 from coreth_tpu_torch.trie.node import EMPTY_ROOT
 from coreth_tpu_torch.trie.planned import PlannedGraphBuilder
+from coreth_tpu_torch.trie.resident_mirror import ResidentAccountMirror
 from coreth_tpu_torch.trie.secure import StateTrie
 from coreth_tpu_torch.trie.trie import trie_from_items
 from coreth_tpu_torch.trie.triedb import TrieDatabase
@@ -977,22 +990,11 @@ def phase_block(dev, world: World, diskdb, tdb, parent, block, want,
     account the block touched, 1,000 seeded others and every slot written:
     the acknowledged writes. Returns (builder, K1 launches, cooperative)."""
     accounts, writes, transfers = block
-    addrs = world.addrs
     keccak_cuda.reset_counts()
     planned_mod.planned_fallbacks = 0
     t0 = time.perf_counter()
     sdb = StateDB(parent, Database(tdb))
-    for s, r, value, topup in transfers:
-        if topup:
-            sdb.add_balance(addrs[s], topup)
-        sdb.set_nonce(addrs[s], sdb.get_nonce(addrs[s]) + 1)
-        sdb.sub_balance(addrs[s], value + TRANSFER_FEE)
-        sdb.add_balance(addrs[r], value)
-        sdb.finalise(True)
-    for c, w in writes.items():
-        for k, v in w.items():
-            sdb.set_state(addrs[c], k, v)
-        sdb.finalise(True)
+    apply_block(sdb, world.addrs, transfers, writes)
     ops_ms = (time.perf_counter() - t0) * 1e3
     with _Timed() as timed:
         root = sdb.commit(True)
@@ -1008,35 +1010,7 @@ def phase_block(dev, world: World, diskdb, tdb, parent, block, want,
         f"StateDB.commit "
         f"{timed.ms['StateDB.commit']:.1f} ({wall_split(timed)}) ms; dirty "
         f"nodes left {tdb.dirty_size} B")
-
-    # read back through a fresh TrieDatabase: the acknowledged writes
-    t0 = time.perf_counter()
-    back = StateDB(root, Database(TrieDatabase(diskdb)))
-    rng = np.random.default_rng(seed)
-    others = sorted(set(int(i) for i in rng.choice(len(addrs), 1000,
-                                                   replace=False))
-                    - set(accounts))
-    slots = 0
-    for i in list(accounts) + others:
-        a = addrs[i]
-        got = (back.get_nonce(a), back.get_balance(a), back.get_code_hash(a))
-        check(got == (world.nonce[i], world.balance[i], world.code_hash[i]),
-              f"read-back of account {i}: {got}")
-        if i in world.code:
-            check(back.get_code(a) == world.code[i],
-                  f"read-back of account {i}: code")
-        keys = list(writes.get(i, {}))
-        if i in world.storage and i not in writes:
-            keys = list(world.storage[i])[:3]
-        for k in keys:
-            check(back.get_state(a, k) == world.storage[i][k],
-                  f"read-back of account {i}: slot {k.hex()}")
-            slots += 1
-    log(f"block: read back through a fresh TrieDatabase {len(accounts)} "
-        f"accounts the block touched, {len(others)} others and {slots} slots"
-        f" ({sum(len(w) for w in writes.values())} written by the block), "
-        f"all equal to the world's, in "
-        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    read_back(world, diskdb, root, accounts, writes, seed, "block")
     return builder, launches, coop
 
 
@@ -1355,72 +1329,6 @@ def check_variants(rec: _K1Recorder, label) -> dict:
     return dict(ran)
 
 
-class ResidentState:
-    """The resident path's state: three native account tries from the
-    genesis leaves, and two sets of the contracts' storage tries, so that
-    each of A's and B's block commits runs its own storage program.
-
-    A  resident, lean rows on; commits pipelined (depth 2) after block 1;
-       storage tries `storage_a`, which C reads too
-    B  template mode; its executor records every K1 input; `storage_b`
-    C  the native host commit (commit_cpu), the twin."""
-
-    def __init__(self, dev, world: World, oracle: Oracle):
-        self.dev, self.world = dev, world
-        self.storage_a = self._storage_tries(dev, world, oracle, "A")
-        self.storage_b = self._storage_tries(dev, world, oracle, "B")
-        t0 = time.perf_counter()
-        items = [(oracle.keys[i], world.account(i, oracle.root_of(i)).encode())
-                 for i in range(len(world.addrs))]
-        self.a, self.b, self.c = (IncrementalTrie(items) for _ in range(3))
-        del items
-        self.a.set_lean(True)
-        self.rec = _K1Recorder()
-        self.ex_a = ResidentExecutor(device=dev)
-        self.ex_b = ResidentExecutor(seg_impl=self.rec, device=dev)
-        log(f"resident: three native tries of {self.a.num_nodes} nodes "
-            f"built in {time.perf_counter() - t0:.1f} s")
-
-    @staticmethod
-    def _storage_tries(dev, world: World, oracle: Oracle, name: str):
-        """The contracts' storage tries, hashed in one program
-        (batch_storage_roots), every root checked against the oracle's."""
-        mode = PlannedMode(device=dev)
-        storage, changed = {}, {}
-        t0 = time.perf_counter()
-        for c, slots in world.storage.items():
-            st = StateTrie(batch_keccak=mode)
-            for k, v in slots.items():
-                st.update(k, slot_value(v))
-            storage[c] = st
-            changed[world.addrs[c]] = (world.account(c, EMPTY_ROOT), st)
-        n = batch_storage_roots(changed, device=dev)
-        check(n == len(world.storage), f"resident storage {name}: {n} tries "
-              f"hashed")
-        for c in world.storage:
-            check(changed[world.addrs[c]][0].root == oracle.roots[c],
-                  f"resident storage {name}: root of contract {c} != oracle")
-        log(f"resident storage {name}: {n} tries hashed in one program "
-            f"(batch_storage_roots), roots equal the oracle's, "
-            f"{time.perf_counter() - t0:.1f} s")
-        return storage
-
-    def changes(self, accounts, writes, storage):
-        """The block's changed map over `storage` (storage_a or storage_b):
-        fresh Account objects from the world, each written contract's
-        storage trie updated."""
-        changed = {}
-        for i in accounts:
-            st = None
-            if i in writes:
-                st = storage[i]
-                for k, v in writes[i].items():
-                    st.update(k, slot_value(v))
-            changed[self.world.addrs[i]] = (
-                self.world.account(i, EMPTY_ROOT), st)
-        return changed
-
-
 def warm_up_resident(dev) -> None:
     """One small resident commit on a throwaway trie and executor, so the
     genesis window does not carry the first launch of each torch kernel
@@ -1452,221 +1360,433 @@ def window_ms(dev, events, t_read=None):
     return t0.elapsed_time(t_up), t0.elapsed_time(end)
 
 
-def read_event(dev):
-    if dev.type != "cuda":
-        return None
-    ev = torch.cuda.Event(enable_timing=True)
-    ev.record()
-    return ev
-
-
 def fmt_window(w) -> str:
     return ("not measured (cpu)" if w is None
             else f"{w[1]:.3f} ms (upload {w[0]:.3f} ms)")
 
 
-def phase_resident_genesis(dev, world: World, oracle: Oracle,
-                           oracle_root: bytes, planned_plan_ms: float):
-    """Genesis through the resident path: A resident and B template on the
-    card, C on the host, every root equal to the oracle's."""
-    rs = ResidentState(dev, world, oracle)
+def stats(xs, unit="ms") -> str:
+    if not xs:
+        return "not measured"
+    return (f"median {float(np.median(xs)):.3f} {unit}, mean "
+            f"{sum(xs) / len(xs):.3f}, min {min(xs):.3f}, max {max(xs):.3f} "
+            f"(n={len(xs)})")
+
+
+LOUD = ("state/resident/device_wedges", "state/resident/device_takeovers",
+        "state/resident/fallbacks", "state/resident/pipeline_divergences")
+
+
+def loud_counts() -> dict:
+    return {name: default_registry.counter(name).count() for name in LOUD}
+
+
+def apply_block(sdb: StateDB, addrs, transfers, writes) -> None:
+    """A block's transactions as StateDB operations: each transfer (top-up,
+    nonce, value and fee) and each contract's slot writes a transaction,
+    finalise(True) after each."""
+    for s, r, value, topup in transfers:
+        if topup:
+            sdb.add_balance(addrs[s], topup)
+        sdb.set_nonce(addrs[s], sdb.get_nonce(addrs[s]) + 1)
+        sdb.sub_balance(addrs[s], value + TRANSFER_FEE)
+        sdb.add_balance(addrs[r], value)
+        sdb.finalise(True)
+    for c, w in writes.items():
+        for k, v in w.items():
+            sdb.set_state(addrs[c], k, v)
+        sdb.finalise(True)
+
+
+def read_back(world: World, diskdb, root, accounts, slot_keys, seed,
+              label) -> None:
+    """Through a fresh TrieDatabase and StateDB over `diskdb` at `root`:
+    every account in `accounts`, 1,000 seeded others less those, and for
+    each contract among them or in `slot_keys` (contract -> keys) its keys
+    there, else three of its genesis slots, must equal the world's values:
+    the acknowledged writes."""
+    addrs = world.addrs
+    t0 = time.perf_counter()
+    back = StateDB(root, Database(TrieDatabase(diskdb)))
+    rng = np.random.default_rng(seed)
+    others = sorted(set(int(i) for i in rng.choice(len(addrs), 1000,
+                                                   replace=False))
+                    - set(accounts))
+    slots = 0
+    for i in list(accounts) + others:
+        a = addrs[i]
+        got = (back.get_nonce(a), back.get_balance(a), back.get_code_hash(a))
+        check(got == (world.nonce[i], world.balance[i], world.code_hash[i]),
+              f"{label}: read-back of account {i}: {got}")
+        if i in world.code:
+            check(back.get_code(a) == world.code[i],
+                  f"{label}: read-back of account {i}: code")
+    for c in sorted((set(accounts) | set(others) | set(slot_keys))
+                    & set(world.storage)):
+        keys = sorted(slot_keys.get(c, ())) or list(world.storage[c])[:3]
+        for k in keys:
+            check(back.get_state(addrs[c], k) == world.storage[c][k],
+                  f"{label}: read-back of contract {c}: slot {k.hex()}")
+            slots += 1
+    log(f"{label}: read back through a fresh TrieDatabase {len(accounts)} "
+        f"accounts the block touched, {len(others)} others and {slots} slots"
+        f" ({sum(len(k) for k in slot_keys.values())} written), all equal "
+        f"to the world's, in {(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+
+class _Blk:
+    """What a ResidentTrieWriter reads of a block: number, root, hash."""
+
+    def __init__(self, number, root, h):
+        self.number, self.root, self._h = number, root, h
+
+    def hash(self):
+        return self._h
+
+
+def block_hash(n: int) -> bytes:
+    return keccak256(b"mirror block %d" % n)
+
+
+class MirrorRun:
+    """The mirror phase's three mirrors, booted from one leaf scan of the
+    planned genesis' persisted account trie, each installed on its own
+    Database over one TrieDatabase on the planned marker (the storage
+    programs, which record every K1 input) over the genesis store.
+
+    A  resident, lean rows, pipeline_depth 2 (blocks after the first carry
+       the oracle's root as MirrorStateTrie.expected_root), watchdog on;
+       its writer exports at commit_interval 8 and at shutdown
+    B  template residency, watchdog on
+    C  the native host twin (prefer_host=True)
+    A's and B's executors record every K1 input (_K1Recorder)."""
+
+    NAMES = ("C", "B", "A")  # C first: its root is the one A pipelines on
+    INTERVAL = 8
+
+    def __init__(self, dev, diskdb, items, timeout):
+        self.dev = dev
+        self.rec = {"A": _K1Recorder(), "B": _K1Recorder(),
+                    "storage": _K1Recorder()}
+        self.tdb = TrieDatabase(diskdb, batch_keccak=PlannedMode(
+            PlannedCommit(seg_impl=self.rec["storage"], device=dev)))
+        kwargs = {
+            "A": dict(executor=ResidentExecutor(seg_impl=self.rec["A"],
+                                                device=dev),
+                      lean_rows=True, pipeline_depth=2,
+                      device_timeout=timeout),
+            "B": dict(executor=ResidentExecutor(seg_impl=self.rec["B"],
+                                                device=dev),
+                      template_residency=True, device_timeout=timeout),
+            "C": dict(prefer_host=True),
+        }
+        self.m, self.db, self.writer, self.genesis = {}, {}, {}, {}
+        for name in ("A", "B", "C"):
+            t0 = time.perf_counter()
+            m = ResidentAccountMirror(items, device=dev, **kwargs[name])
+            wall = (time.perf_counter() - t0) * 1e3
+            self.m[name] = m
+            db = Database(self.tdb)
+            db.mirror = m
+            self.db[name] = db
+            self.writer[name] = ResidentTrieWriter(
+                self.tdb, m, commit_interval=self.INTERVAL if name == "A"
+                else 0)
+            win = (window_ms(dev, m.ex.last_events)
+                   if m.ex is not None else None)
+            self.genesis[name] = (m.root_of(m.GENESIS), wall, win,
+                                  m.trie.last_plan_ms, m.trie.last_export_ms)
+        self.exports = []  # (nodes, ms) of A's exports
+        export = self.m["A"].export_to
+
+        def timed_export(*a, **kw):
+            t0 = time.perf_counter()
+            n = export(*a, **kw)
+            self.exports.append((n, (time.perf_counter() - t0) * 1e3))
+            return n
+        self.m["A"].export_to = timed_export
+        self.ms = defaultdict(lambda: defaultdict(list))
+        self.events, self.h2d = [], []
+
+    def commit(self, name, parent_root, parent_h, h, number, ops,
+               expected=None):
+        """One block on one mirror: a StateDB at parent_root on the
+        mirror, `ops` applied, StateDB.commit(block_hash=h,
+        parent_block_hash=parent_h), the writer's insert_trie. Returns the
+        root (A's is the expected root while it is in flight)."""
+        ms = self.ms[name]
+        t0 = time.perf_counter()
+        sdb = StateDB(parent_root, self.db[name])
+        check(getattr(sdb.trie, "resident", False),
+              f"mirror {name}: StateDB at {parent_root.hex()} is not on the "
+              f"mirror")
+        ops(sdb)
+        t1 = time.perf_counter()
+        sdb.trie.expected_root = expected
+        root = sdb.commit(True, block_hash=h, parent_block_hash=parent_h)
+        t2 = time.perf_counter()
+        self.writer[name].insert_trie(_Blk(number, root, h))
+        ms["ops"].append((t1 - t0) * 1e3)
+        ms["commit"].append((t2 - t1) * 1e3)
+        ms["writer"].append((time.perf_counter() - t2) * 1e3)
+        if name == "A":
+            self.events.append(self.m["A"].ex.last_events)
+            self.h2d.append(self.m["A"].ex.h2d_bytes)
+        return root
+
+    def accept(self, number, root, h):
+        for name in self.NAMES:
+            t0 = time.perf_counter()
+            self.writer[name].accept_trie(_Blk(number, root, h))
+            self.ms[name]["writer"].append((time.perf_counter() - t0) * 1e3)
+
+    def reject(self, number, root, h):
+        for name in self.NAMES:
+            self.writer[name].reject_trie(_Blk(number, root, h))
+
+
+def sibling_ops(world: World, rng, n_old=300, n_new=50):
+    """A sibling block's StateDB operations: new balances and nonces on
+    `n_old` plain accounts and `n_new` new accounts, kept apart from the
+    world and the oracle (the block is rejected)."""
+    picks = [int(i) for i in rng.choice(
+        np.arange(len(world.storage), len(world.addrs)), n_old,
+        replace=False)]
+    vals = [(int(rng.integers(1, 1 << 62)), int(rng.integers(1, 1 << 20)))
+            for _ in picks]
+    new = [rng.bytes(20) for _ in range(n_new)]
+
+    def ops(sdb):
+        for i, (bal, nonce) in zip(picks, vals):
+            sdb.set_balance(world.addrs[i], bal)
+            sdb.set_nonce(world.addrs[i], nonce)
+        for a in new:
+            sdb.add_balance(a, 1)
+        sdb.finalise(True)
+    return ops
+
+
+def phase_mirror(dev, world: World, oracle: Oracle, diskdb, gen_block,
+                 block1, want1, n_blocks, rejected_at, seed):
+    """The mirror phase (module docstring, phase 9). Returns (MirrorRun, K1
+    launches, of them cooperative, the recorders' genesis record counts)."""
+    t0 = time.perf_counter()
+    items = list(iterate_leaves(TrieDatabase(diskdb).open_trie(
+        gen_block.root)))
+    log(f"mirror boot: one ordered leaf scan (iterate_leaves) of the planned "
+        f"genesis' persisted account trie: {len(items)} items in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    check(len(items) == len(world.addrs),
+          f"mirror boot: {len(items)} leaves for {len(world.addrs)} accounts")
     warm_up_resident(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     keccak_cuda.reset_counts()
-    t0 = time.perf_counter()
-    root_a = rs.ex_a.root_bytes(rs.a.commit_resident(rs.ex_a))
-    wall_a = (time.perf_counter() - t0) * 1e3
-    win_a = window_ms(dev, rs.ex_a.last_events, read_event(dev))
-    t0 = time.perf_counter()
-    root_b = rs.b.commit_template(rs.ex_b)
-    wall_b = (time.perf_counter() - t0) * 1e3
+    planned_mod.planned_fallbacks = 0
+    loud = loud_counts()
+    t_phase = time.perf_counter()
+    run = MirrorRun(dev, diskdb, items, timeout=60.0)
+    del items
+    n_genesis = {k: len(r.records) for k, r in run.rec.items()}
+    for name in ("A", "B", "C"):
+        root, wall, win, plan, export = run.genesis[name]
+        check(root == gen_block.root, f"mirror {name}: genesis root "
+              f"{root.hex()} != oracle {gen_block.root.hex()}")
+        log(f"mirror {name} genesis: root == oracle; construction and genesis "
+            f"commit wall {wall:.1f} ms (native plan {plan:.1f} ms, export "
+            f"{export:.1f} ms), device window (first upload to store scatter, "
+            f"CUDA events) {fmt_window(win)}")
+    ex = run.m["A"].ex
+    log(f"mirror A genesis: h2d {ex.h2d_bytes} B, lean rows "
+        f"{ex.last_lean_rows}; store + arenas on the device "
+        f"{ex.device_bytes()} B")
+
+    addrs = world.addrs
+    parent_root, parent_h, number = gen_block.root, gen_block.hash(), 0
+    written = defaultdict(set)  # contract -> slot keys the blocks wrote
+    pending = []  # (number, root, hash) verified, not yet accepted
+    lag = 2  # blocks verified ahead of the accepted one
+    last_touched = ()
+    rng = np.random.default_rng(seed)
+    spans.tracer.clear()
+    spans.set_enabled(True)
+    with _GcPauses() as pauses:
+        for number in range(1, n_blocks + 2):
+            h = block_hash(number)
+            if number == 1:
+                accounts, writes, transfers = block1
+                want = want1
+            else:
+                accounts, writes, transfers = make_block(world)
+                oracle.apply(accounts, writes)
+                want = oracle.root()
+
+            def ops(sdb, transfers=transfers, writes=writes):
+                apply_block(sdb, addrs, transfers, writes)
+            for name in run.NAMES:
+                expected = want if name == "A" and number > 1 else None
+                root = run.commit(name, parent_root, parent_h, h, number, ops,
+                                  expected)
+                check(root == want, f"mirror {name} block {number}: root "
+                      f"{root.hex()} != oracle {want.hex()}")
+            if number == rejected_at:
+                sib_h = keccak256(b"sibling %d" % number)
+                sib_ops = sibling_ops(world, rng)
+                roots = {name: run.commit(name, parent_root, parent_h, sib_h,
+                                          number, sib_ops)
+                         for name in run.NAMES}
+                check(len(set(roots.values())) == 1
+                      and roots["C"] not in (parent_root, want),
+                      f"mirror sibling {number}: roots {roots}")
+                run.reject(number, roots["C"], sib_h)
+                log(f"mirror block {number}: sibling verified on A, B and C "
+                    f"(root {roots['C'].hex()}, equal) and rejected through "
+                    f"ResidentTrieWriter.reject_trie")
+            for c, w in writes.items():
+                written[c].update(w)
+            last_touched = accounts
+            pending.append((number, want, h))
+            while len(pending) > lag:
+                run.accept(*pending.pop(0))
+            parent_root, parent_h = want, h
+        for p in pending:
+            run.accept(*p)
+        t0 = time.perf_counter()
+        run.writer["A"].shutdown()
+        shutdown_ms = (time.perf_counter() - t0) * 1e3
+    phase_s = time.perf_counter() - t_phase
+    spans.set_enabled(False)
+    span_ms = defaultdict(list)
+    for sp in spans.tracer.snapshot(clear=True):
+        where = " (host)" if sp.attrs.get("host_mode") else ""
+        span_ms[sp.name + where].append(sp.duration() * 1e3)
+    check(span_ms["resident/commit"] and span_ms["state/hash_plan/storage"],
+          f"mirror: spans recorded {sorted(span_ms)}")
     launches, coop = keccak_cuda.launches, keccak_cuda.launches_coop
-    t0 = time.perf_counter()
-    root_c = rs.c.commit_cpu(threads=8)
-    wall_c = (time.perf_counter() - t0) * 1e3
-    check(root_a == oracle_root, f"resident genesis root {root_a.hex()} != "
-          f"oracle {oracle_root.hex()}")
-    check(root_b == oracle_root, "template genesis root != oracle")
-    check(root_c == oracle_root, "native host genesis root != oracle")
-    check(dev.type != "cuda" or launches == 2 * len(rs.rec.records),
-          f"resident genesis: {launches} K1 launches for "
-          f"{len(rs.rec.records)} segments in each of A and B")
-    ex = rs.ex_a
-    log(f"resident genesis root {root_a.hex()} == oracle (A resident, B "
-        f"template, C native host)")
-    log(f"resident genesis A: native plan {rs.a.last_plan_ms:.1f} ms, export "
-        f"{rs.a.last_export_ms:.1f} ms (PlannedGraphBuilder.build at the same "
-        f"genesis, this run: {planned_plan_ms:.1f} ms); device window (first "
-        f"upload to root readback, CUDA events) {fmt_window(win_a)}; h2d "
-        f"{ex.h2d_bytes} B in {ex.last_transfers} transfers, lean rows "
-        f"{ex.last_lean_rows}; commit wall {wall_a:.1f} ms; store + arenas "
-        f"on the device {ex.device_bytes()} B (store {ex.store.numel() * 4}, "
-        f"arenas " + ", ".join(f"class {c}: {a.numel() * 4}"
-                               for c, a in ex.arenas.items()) + ")")
-    log(f"resident genesis B (template): plan {rs.b.last_plan_ms:.1f} ms, "
-        f"export {rs.b.last_export_ms:.1f} ms, absorb "
-        f"{rs.b.last_absorb_ms:.1f} ms, h2d {rs.ex_b.h2d_bytes} B, commit "
-        f"wall {wall_b:.1f} ms; C (native host, 8 threads): plan "
-        f"{rs.c.last_plan_ms:.1f} ms, hash {rs.c.last_host_hash_ms:.1f} ms, "
-        f"commit wall {wall_c:.1f} ms")
-    peak = ("not measured (cpu)" if dev.type != "cuda" else
-            f"{torch.cuda.max_memory_allocated(dev)} B")
-    log(f"resident genesis: K1 launches {launches} (cooperative {coop}) over "
-        f"A and B, {len(rs.rec.records)} segments each; peak device memory "
-        f"allocated during A's and B's commits {peak}")
-    return rs, launches, coop
-
-
-def rejected_items(world: World, oracle: Oracle, rng, n_old=300, n_new=50):
-    """A block that will be rejected: random account values on existing
-    keys and new keys, kept apart from the world and the oracle."""
-    picks = rng.choice(np.arange(len(world.storage), len(world.addrs)),
-                       n_old, replace=False)
-    items = [(oracle.keys[int(i)],
-              Account(nonce=int(rng.integers(1, 1 << 20)),
-                      balance=int(rng.integers(1, 1 << 62))).encode())
-             for i in picks]
-    items += [(rng.bytes(32), Account(nonce=1).encode())
-              for _ in range(n_new)]
-    return items
-
-
-def phase_resident_blocks(dev, world: World, oracle: Oracle,
-                          rs: ResidentState, block1, want1: bytes,
-                          n_blocks: int, rejected_at: int):
-    """Block 1 (the block the other paths committed) through
-    resident_intermediate_root on A and B, then `n_blocks` further seeded
-    blocks with A pipelined at depth 2, B in template mode through
-    resident_intermediate_root and C on the host; block `rejected_at` is
-    rejected (checkpoint, update, commit, rollback, commit) and its
-    rollback root must equal its parent's. Every root equals the Python
-    oracle's and C's."""
-    keccak_cuda.reset_counts()
-    rec_before = len(rs.rec.records)
-    accounts, writes = block1
-    changed = rs.changes(accounts, writes, rs.storage_a)
-    t0 = time.perf_counter()
-    root_a = resident_intermediate_root(rs.a, rs.ex_a, changed, device=dev)
-    wall = (time.perf_counter() - t0) * 1e3
-    win = window_ms(dev, rs.ex_a.last_events, read_event(dev))
-    t0 = time.perf_counter()
-    root_b = resident_intermediate_root(
-        rs.b, rs.ex_b, rs.changes(accounts, writes, rs.storage_b),
-        template=True, device=dev)
-    wall_b = (time.perf_counter() - t0) * 1e3
-    rs.c.update(resident_items(changed, device=dev))
-    root_c = rs.c.commit_cpu(threads=8)
-    check(root_a == root_b == root_c == want1,
-          f"resident block 1: {root_a.hex()} / {root_b.hex()} / "
-          f"{root_c.hex()} != oracle {want1.hex()}")
-    log(f"resident block 1 root == oracle (A, B, C); A: plan "
-        f"{rs.a.last_plan_ms:.2f} ms, export {rs.a.last_export_ms:.2f} ms, "
-        f"device window (to root readback) {fmt_window(win)}, h2d "
-        f"{rs.ex_a.h2d_bytes} B in {rs.ex_a.last_transfers} transfers, "
-        f"lean rows {rs.ex_a.last_lean_rows}, commit wall (storage program "
-        f"included) {wall:.1f} ms; B (template, its own storage program) "
-        f"commit wall {wall_b:.1f} ms")
-
-    rs.ex_a.pipeline_depth = 2
-    rng = np.random.default_rng(world.rng.integers(1 << 31))
-    pending = []  # (resolve, events, expected root or None, label)
-    windows, h2d, plan_ms, export_ms, b_ms, c_ms = [], [], [], [], [], []
-    items_ms = []  # A's resident_items: storage program and account RLP
-    enqueue_ms = []  # dispatch's host time past the plan and the export
-    parent = want1
-    t_blocks = time.perf_counter()
-
-    def drain(keep):
-        while len(pending) > keep:
-            resolve, events, want, label = pending.pop(0)
-            got = resolve()
-            if want is not None:
-                check(got == want, f"{label}: pipelined resident root "
-                      f"{got.hex()} != {want.hex()}")
-            w = window_ms(dev, events)
-            if w is not None:
-                windows.append(w)
-
-    def dispatch(want, label):
-        t0 = time.perf_counter()
-        resolve = rs.a.commit_resident_dispatch(rs.ex_a)
-        wall = (time.perf_counter() - t0) * 1e3
-        pending.append((resolve, rs.ex_a.last_events, want, label))
-        h2d.append(rs.ex_a.h2d_bytes)
-        plan_ms.append(rs.a.last_plan_ms)
-        export_ms.append(rs.a.last_export_ms)
-        enqueue_ms.append(wall - rs.a.last_plan_ms - rs.a.last_export_ms)
-        drain(2)
-
-    for blk in range(2, n_blocks + 2):
-        label = f"resident block {blk}"
-        if blk == rejected_at:
-            items = rejected_items(world, oracle, rng)
-            for t in (rs.a, rs.b, rs.c):
-                t.checkpoint()
-                t.update(items)
-            dispatch(None, label + " (rejected)")
-            bad_b = rs.b.commit_template(rs.ex_b)
-            bad_c = rs.c.commit_cpu(threads=8)
-            check(bad_b == bad_c != parent, f"{label}: rejected roots "
-                  f"{bad_b.hex()} / {bad_c.hex()}")
-            for t in (rs.a, rs.b, rs.c):
-                t.rollback()
-            dispatch(parent, label + " rolled back")
-            drain(0)
-            check(rs.b.commit_template(rs.ex_b) == parent,
-                  f"{label}: template rollback root != parent")
-            check(rs.c.commit_cpu(threads=8) == parent,
-                  f"{label}: host rollback root != parent")
-            log(f"{label}: rejected root {bad_c.hex()} (A, B, C equal); "
-                f"after rollback every root == the parent's {parent.hex()}")
-            continue
-        accounts, writes, _ = make_block(world)
-        oracle.apply(accounts, writes)
-        want = oracle.root()
-        changed = rs.changes(accounts, writes, rs.storage_a)
-        t0 = time.perf_counter()
-        items = resident_items(changed, device=dev)
-        items_ms.append((time.perf_counter() - t0) * 1e3)
-        rs.a.update(items)
-        dispatch(want, label)
-        changed_b = rs.changes(accounts, writes, rs.storage_b)
-        t0 = time.perf_counter()
-        root_b = resident_intermediate_root(rs.b, rs.ex_b, changed_b,
-                                            template=True, device=dev)
-        b_ms.append((time.perf_counter() - t0) * 1e3)
-        rs.c.update(resident_items(changed, device=dev))
-        t0 = time.perf_counter()
-        root_c = rs.c.commit_cpu(threads=8)
-        c_ms.append((time.perf_counter() - t0) * 1e3)
-        check(root_b == root_c == want, f"{label}: template {root_b.hex()} "
-              f"/ host {root_c.hex()} != oracle {want.hex()}")
-        parent = want
-    drain(0)
-    launches, coop = keccak_cuda.launches, keccak_cuda.launches_coop
-    check(dev.type != "cuda" or launches > 0, "resident blocks: no K1 launch")
-    log(f"resident blocks 2-{n_blocks + 1}: every root == the Python oracle "
-        f"and C (A pipelined at depth 2, B template, block {rejected_at} "
-        f"rejected); {time.perf_counter() - t_blocks:.1f} s")
-
-    def stats(xs, unit="ms"):
-        if not xs:
-            return "not measured"
-        return (f"mean {sum(xs) / len(xs):.3f} {unit}, min {min(xs):.3f}, "
-                f"max {max(xs):.3f}")
-    log(f"resident blocks, A per commit: storage program and account RLP "
-        f"(resident_items) {stats(items_ms)}; native plan {stats(plan_ms)}; "
-        f"export {stats(export_ms)}; h2d {stats(h2d, 'B')}; device window "
+    counts = {k: len(r.records) for k, r in run.rec.items()}
+    check(dev.type != "cuda" or launches == sum(counts.values()),
+          f"mirror: {launches} K1 launches, {counts} recorded")
+    check(planned_mod.planned_fallbacks == 0, "mirror: planned fallback")
+    want_exports = (n_blocks + 1) // run.INTERVAL + 1  # intervals, shutdown
+    check(len(run.exports) == want_exports,
+          f"mirror A: {len(run.exports)} exports, not {want_exports}")
+    log(f"mirror blocks 1-{n_blocks + 1}: every root of A, B and C == the "
+        f"oracle's (A pipelined at depth 2 from block 2, accepted {lag} "
+        f"blocks behind; B template; C native host; a sibling at block "
+        f"{rejected_at} rejected); phase {phase_s:.1f} s")
+    log(f"mirror: garbage collector pauses during the blocks ({pauses})")
+    log("mirror spans (host wall, serial commits only: A's pipelined "
+        "dispatches open none): " + "; ".join(
+            f"{name} {stats(ms)}" for name, ms in sorted(span_ms.items())))
+    for name in run.NAMES:
+        ms = run.ms[name]
+        log(f"mirror {name} per block: StateDB operations {stats(ms['ops'])}; "
+            f"StateDB.commit {stats(ms['commit'])}; ResidentTrieWriter "
+            f"(insert, accept, reject) {stats(ms['writer'])}")
+    windows = [w for w in (window_ms(dev, e) for e in run.events[1:])
+               if w is not None]
+    log(f"mirror A per commit: h2d {stats(run.h2d, 'B')}; device window "
         f"(first upload to store scatter, CUDA events) "
         f"{stats([w[1] for w in windows])}, of which upload "
-        f"{stats([w[0] for w in windows])}; host time to stage and enqueue "
-        f"the commit (dispatch less plan and export) {stats(enqueue_ms)}")
-    log(f"resident blocks: B (template, its own storage program included) "
-        f"commit wall {stats(b_ms)}; C (native host) commit {stats(c_ms)}")
-    log(f"resident blocks: K1 launches {launches} (cooperative {coop}) over A "
-        f"and B; store + arenas on the device {rs.ex_a.device_bytes()} B")
-    return launches, coop, rec_before
+        f"{stats([w[0] for w in windows])}; last_overlap_fraction "
+        f"{run.m['A'].last_overlap_fraction:.4f}")
+    log(f"mirror A exports (commit_interval {run.INTERVAL}, then shutdown "
+        f"{shutdown_ms:.1f} ms): " + "; ".join(
+            f"{n} nodes in {ms:.1f} ms" for n, ms in run.exports))
+    read_back(world, diskdb, parent_root, last_touched, written, seed + 7,
+              "mirror A export")
+    t0 = time.perf_counter()
+    check(run.m["A"].spot_check(), "mirror A: spot_check failed")
+    log(f"mirror A: spot_check passed in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    for name in ("A", "B"):
+        check(not run.m[name].host_mode, f"mirror {name} ended in host mode")
+    now = loud_counts()
+    for name in LOUD:
+        check(now[name] == loud[name], f"mirror: {name} counted "
+              f"{now[name] - loud[name]}")
+    peak = ("not measured (cpu)" if dev.type != "cuda" else
+            f"{torch.cuda.max_memory_allocated(dev)} B")
+    log(f"mirror: K1 launches {launches} (cooperative {coop}): A's executor "
+        f"{counts['A']}, B's {counts['B']}, the storage programs "
+        f"{counts['storage']}; no wedge, takeover, fallback or divergence "
+        f"counted; peak device memory allocated {peak}")
+    return run, launches, coop, n_genesis
+
+
+class _Wedgeable:
+    """A ResidentExecutor stand-in for the watchdog drill: forwards to a
+    real executor, and once armed its next run waits on an event that the
+    drill sets only after the watchdog has given up."""
+
+    def __init__(self, ex):
+        self._ex = ex
+        self.armed = False
+        self.release = threading.Event()
+
+    def run(self, export):
+        if self.armed:
+            self.armed = False
+            self.release.wait()
+        return self._ex.run(export)
+
+    def __getattr__(self, name):
+        return getattr(self._ex, name)
+
+
+def phase_watchdog_drill(dev, seed: int, timeout: float = 2.0) -> None:
+    """A 2,000-key mirror on the device whose executor hangs once: the
+    watchdog gives up after `timeout` and the commit raises
+    DeviceWedgedError, the applied stack unchanged and nothing moved to the
+    host. The drill then asks for the host (take_over_host), and that block
+    and the rest verify with the host twin's roots: one wedge and one
+    takeover counted. The released worker then finishes its run on the
+    device from its own thread."""
+    rng = np.random.default_rng(seed)
+    items = [(rng.bytes(32), rng.bytes(int(n)))
+             for n in rng.integers(1, 120, 2000)]
+    wedge = _Wedgeable(ResidentExecutor(device=dev))
+    d = ResidentAccountMirror(items, executor=wedge, device_timeout=timeout)
+    twin = ResidentAccountMirror(items, prefer_host=True)
+    before = loud_counts()
+    parent = d.GENESIS
+    t0 = time.perf_counter()
+    for i in range(4):
+        h = bytes([i + 1]) * 32
+        batch = [(k, rng.bytes(40)) for k, _ in items[50 * i:50 * i + 50]]
+        want = twin.verify(parent, h, batch)
+        if i == 1:
+            wedge.armed = True
+            try:
+                d.verify(parent, h, batch)
+                raised = False
+            except DeviceWedgedError:
+                raised = True
+            check(raised and d.head == parent and d.root_of(h) is None
+                  and not d.host_mode,
+                  f"watchdog drill: raised {raised}, head moved "
+                  f"{d.head != parent}, host_mode {d.host_mode}")
+            d.take_over_host("watchdog drill")
+        check(d.verify(parent, h, batch) == want,
+              f"watchdog drill block {i}: root != the host twin's")
+        d.accept(h)
+        twin.accept(h)
+        parent = h
+    wall = (time.perf_counter() - t0) * 1e3
+    wedge.release.set()
+    for t in threading.enumerate():
+        if t.name.startswith("wd-"):
+            t.join(60)
+            check(not t.is_alive(), f"watchdog drill: {t.name} still runs")
+    now = loud_counts()
+    counted = {name: now[name] - before[name] for name in LOUD}
+    check(counted == {LOUD[0]: 1, LOUD[1]: 1, LOUD[2]: 0, LOUD[3]: 0}
+          and d.host_mode, f"watchdog drill: counted {counted}, host_mode "
+          f"{d.host_mode}")
+    log(f"watchdog drill: one hang of {timeout:g} s on the executor's run: "
+        f"DeviceWedgedError with the stack unchanged, then take_over_host "
+        f"(1 wedge, 1 takeover counted), 4 roots == the host twin's "
+        f"({wall:.1f} ms)")
 
 
 def variants_json(launches: int, coop: int, *kernel_ms: dict) -> dict:
@@ -1721,7 +1841,6 @@ def main() -> int:
         dev, world, oracle_root)
     g_err, g_ms, g_plain, g_shapes, g_kernel = check_and_time(
         dev, g_builder, "genesis")
-    g_plan_ms = g_builder.plan_ms
     del g_builder
     # batched path (K2)
     mark(t_start, "batched genesis")
@@ -1731,11 +1850,7 @@ def main() -> int:
     bg_err, bg_ms, bg_plain, bg_inputs, bg_kernel = check_and_time_k2(
         bg_rec, "batched genesis", bg_pad, profile_reps=1)
     del bg_rec
-    # resident path (K1): native tries, the account trie on the device
-    mark(t_start, "resident genesis")
-    rs, rg_launches, rg_coop = phase_resident_genesis(
-        dev, world, oracle, oracle_root, g_plan_ms)
-    log(f"after the three genesis commits: peak RSS {rss_gib():.1f} GiB")
+    log(f"after the two genesis commits: peak RSS {rss_gib():.1f} GiB")
 
     # one block, made once, applied to the oracle and to every state
     mark(t_start, "block")
@@ -1751,7 +1866,7 @@ def main() -> int:
         (accounts, writes, transfers), want, args.seed + 1)
     b_err, b_ms, b_plain, b_shapes, b_kernel = check_and_time(
         dev, b_builder, "block")
-    del b_builder, diskdb, tdb
+    del b_builder, tdb  # the genesis store stays: the mirrors boot from it
     root, bb_launches, bb_coop, bb_rec = commit_batched(
         dev, mode, b_trie, block_changes(world, b_changed, accounts, writes),
         "batched block")
@@ -1763,22 +1878,34 @@ def main() -> int:
         bb_rec, "batched block", bb_pad, profile_reps=10)
     del bb_rec
 
-    mark(t_start, "resident blocks")
-    rb_launches, rb_coop, n_genesis = phase_resident_blocks(
-        dev, world, oracle, rs, (accounts, writes), want, args.blocks,
-        rejected_at=2 + args.blocks // 2)
+    # resident path (K1): the mirrors inside StateDB
+    mark(t_start, "mirror")
+    run, m_launches, m_coop, n_genesis = phase_mirror(
+        dev, world, oracle, diskdb, gen_block, (accounts, writes, transfers),
+        want, args.blocks, rejected_at=2 + args.blocks // 2,
+        seed=args.seed + 3)
+    del diskdb
+    log(f"after the mirror phase: peak RSS {rss_gib():.1f} GiB")
+    phase_watchdog_drill(dev, args.seed + 4)
+    ran = defaultdict(int)
     if dev.type == "cuda":
-        ran = check_variants(rs.rec, "resident")
-        log(f"resident: every K1 launch ran the variant its shape calls for "
+        for rec in run.rec.values():
+            for v, n in check_variants(rec, "mirror").items():
+                ran[v] += n
+        log(f"mirror: every K1 launch ran the variant its shape calls for "
             f"({', '.join(f'{VARIANT_NAME[v]} {n}' for v, n in ran.items())})")
-    records, rs.rec.records = rs.rec.records, []
+    genesis_rec, block_rec = [], []
+    for name, rec in run.rec.items():
+        genesis_rec += rec.records[:n_genesis[name]]
+        block_rec += rec.records[n_genesis[name]:]
+    del run
     rg_err, rg_ms, rg_plain, rg_shapes, rg_kernel = time_k1(
-        dev, [r[0] for r in records[:n_genesis]], "resident genesis",
-        outputs=[r[1] for r in records[:n_genesis]])
+        dev, [r[0] for r in genesis_rec], "mirror genesis",
+        outputs=[r[1] for r in genesis_rec])
     rb_err, rb_ms, rb_plain, rb_shapes, rb_kernel = time_k1(
-        dev, [r[0] for r in records[n_genesis:]], "resident blocks",
-        per_segment=False, outputs=[r[1] for r in records[n_genesis:]])
-    del records, rs
+        dev, [r[0] for r in block_rec], "mirror blocks", per_segment=False,
+        outputs=[r[1] for r in block_rec])
+    del genesis_rec, block_rec
 
     mark(t_start, "fallback")
     phase_fallback(dev, args.seed)
@@ -1786,12 +1913,12 @@ def main() -> int:
     k1_shapes = g_shapes + b_shapes + rg_shapes + rb_shapes
     k1_bound, k1_by = k1_bound_ms(k1_shapes)
     rk_bound, rk_by = k1_bound_ms(rg_shapes + rb_shapes)
-    log(f"K1 bound over the resident inputs {rk_bound:.4f} ms ({rk_by}; "
+    log(f"K1 bound over the mirror's inputs {rk_bound:.4f} ms ({rk_by}; "
         f"genesis {k1_bound_ms(rg_shapes)[0]:.4f} ms, blocks "
         f"{k1_bound_ms(rb_shapes)[0]:.4f} ms); K1 events {rg_ms:.4f} / "
         f"{rb_ms:.4f} ms")
-    k1_launches = g_launches + b_launches + rg_launches + rb_launches
-    k1_coop = g_coop + b_coop + rg_coop + rb_coop
+    k1_launches = g_launches + b_launches + m_launches
+    k1_coop = g_coop + b_coop + m_coop
     k2_bound, k2_by = k2_bound_ms(bg_inputs + bb_inputs)
     k2_real, _ = k2_bound_ms(bg_inputs + bb_inputs, bg_pad + bb_pad)
     log(f"K2 bound over both commits {k2_bound:.4f} ms ({k2_by}), over "

@@ -12,19 +12,24 @@ only the dirty subtree each time. Its commits run on the host
 (`commit_cpu`), through PlannedCommit with the digests read back into the
 native cache (`commit_device`), or device-resident through
 ops/keccak_resident.ResidentExecutor (`commit_resident`, `commit_template`,
-`commit_resident_dispatch`), where digests and node rows stay on the card
-from commit to commit.
+`commit_resident_dispatch`, `commit_resident_timed`), where digests and
+node rows stay on the card from commit to commit.
+
+The device half of a resident commit may run under a watchdog
+(`timeout=`, `_run_with_watchdog`): a device that does not answer in time
+raises DeviceWedgedError, which the resident mirror (trie/resident_mirror.py)
+passes to its caller; a caller that asks for the host moves the trie there
+with `rehash_host`. Only executor and device work runs on the watchdog's
+worker thread; every native-trie mutation stays on the calling thread, so
+an abandoned worker never races that rehash.
 
 Both libraries are built with g++ into coreth_tpu_torch/_build/ at first
 use; a failed build raises. Not ported here: `CommitPlan.execute_device`
-and `execute_staged` (the legacy fused and staged executors), the
-per-shard template absorb, the "resident/before_absorb" failpoint
-(ROADMAP "Still to port", items 7, 6 and 8), and the device watchdog with
-its host takeover (`DeviceWedgedError`, `_run_with_watchdog`, the
-`timeout=` arguments, `commit_resident_timed`, `rehash_host`), which only
-the chain's resident mirror calls (ROADMAP item 4). The reference's phase timers
-are plain attributes: `last_plan_ms`, `last_export_ms`,
-`last_host_hash_ms` and `last_absorb_ms` of the last commit.
+and `execute_staged` (the legacy fused and staged executors) and the
+per-shard template absorb (ROADMAP "Still to port", items 7 and 6). The
+reference's phase timers are plain attributes: `last_plan_ms`,
+`last_export_ms`, `last_host_hash_ms` and `last_absorb_ms` of the last
+commit.
 
 Reference seams: trie/hasher.go:195-201 (hashData), trie/trie.go:573-626
 (Hash/Commit walk), core/state/statedb.go:952 (IntermediateRoot drain).
@@ -41,7 +46,16 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 from . import CXX_FLAGS, default_cpu_threads  # noqa: F401  (one policy)
+from ..fault import failpoint
+from ..fault import register as _register_failpoint
 from ._build import build_and_load
+
+FP_BEFORE_ABSORB = _register_failpoint(
+    "resident/before_absorb",
+    "fires inside the device-sync half of a resident commit, just before "
+    "its digests are absorbed/synchronized: `hang` wedges a pipelined "
+    "drain mid-window (the watchdog then raises, and a take_over_host "
+    "must reproduce every in-flight root bit-exactly)")
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _lock = threading.Lock()
@@ -107,7 +121,8 @@ _INC_API = [
     ("mpt_inc_res_lean", None, [_P, _u8p, _i32p, _i32p]),
     *[(name, None, [_P]) for name in (
         "mpt_inc_res_mark_clean", "mpt_inc_res_reset", "mpt_inc_checkpoint",
-        "mpt_inc_discard_checkpoint", "mpt_inc_free")],
+        "mpt_inc_discard_checkpoint", "mpt_inc_mark_all_dirty",
+        "mpt_inc_free")],
     ("mpt_inc_flush_oldest", None, [_P, _U64]),
     ("mpt_inc_root", None, [_P, _u8p]),
     ("mpt_inc_get", _I64, [_P, _u8p, _u8p, _I64]),
@@ -293,6 +308,44 @@ def items_to_arrays(items: Sequence[Tuple[bytes, bytes]]):
 def plan_from_items(items: Sequence[Tuple[bytes, bytes]]) -> CommitPlan:
     """plan_commit over items_to_arrays(items)."""
     return plan_commit(*items_to_arrays(items))
+
+
+class DeviceWedgedError(RuntimeError):
+    """The device did not answer within the watchdog budget. A caller may
+    move the trie to the host (IncrementalTrie.rehash_host); nothing here
+    does so by itself."""
+
+
+def _run_with_watchdog(fn, timeout: float, what: str):
+    """Run fn() on a daemon worker; DeviceWedgedError on timeout. The
+    abandoned worker may finish later, so fn must touch only device and
+    executor state, never shared host structures (the native trie)."""
+    box: dict = {}
+    done = threading.Event()
+
+    def work():
+        try:
+            box["val"] = fn()
+        except BaseException as e:  # noqa: BLE001 — crosses threads
+            box["err"] = e
+        finally:
+            done.set()
+
+    t = threading.Thread(target=work, daemon=True, name=f"wd-{what}")
+    t.start()
+    if not done.wait(timeout):
+        raise DeviceWedgedError(
+            f"{what} produced nothing within {timeout:g}s")
+    if "err" in box:
+        raise box["err"]
+    return box["val"]
+
+
+def _guarded(fn, timeout: Optional[float], what: str):
+    """fn() on this thread when timeout is None, else under the watchdog."""
+    if timeout is None:
+        return fn()
+    return _run_with_watchdog(fn, timeout, what)
 
 
 EMPTY_ROOT = bytes.fromhex(
@@ -550,34 +603,79 @@ class IncrementalTrie:
         self._lib.mpt_inc_res_mark_clean(self._h)
         return root
 
-    def commit_resident_dispatch(self, executor):
+    def commit_resident_timed(self, executor, timeout: Optional[float]):
+        """commit_resident and the synchronised root, the device half under
+        a watchdog: DeviceWedgedError when the root does not come within
+        `timeout` seconds (None: no watchdog). The worker thread runs only
+        executor.run and the root's readback; the plan export before and
+        the mark-clean after stay on this thread, so an abandoned worker
+        never races a later rehash_host of this trie."""
+        if self.num_nodes == 0:
+            # the empty trie's root is a host constant: no device op
+            return executor.root_bytes(self.commit_resident(executor))
+        export = self._resident_export(executor, "resident")
+        if export is None:
+            handle = executor.last_root
+            work = lambda: executor.root_bytes(handle)  # noqa: E731
+        else:
+            def work():
+                return executor.root_bytes(executor.run(export))
+        root = _guarded(work, timeout, "resident commit")
+        if export is not None:
+            self._lib.mpt_inc_res_mark_clean(self._h)
+        return root
+
+    def rehash_host(self, threads: int = 1) -> bytes:
+        """Move to the host (the mirror's take_over_host): mark every node dirty, re-pin the trie
+        to host mode and rebuild the whole host digest cache with one CPU
+        commit (after resident commits the digests lived only in the
+        device store). Returns the root."""
+        self._lib.mpt_inc_mark_all_dirty(self._h)
+        self._mode = "host"
+        return self.commit_cpu(threads=threads)
+
+    def commit_resident_dispatch(self, executor,
+                                 timeout: Optional[float] = None):
         """Pipelined resident commit: plan and queue the device work
         without waiting for it, and return a resolve() closure that
         synchronises the root later. Between dispatch and resolve the
         caller may plan and dispatch further commits on the same executor;
-        their patch tables read this commit's store on the same stream, so
-        they run after it (executor.pipeline_depth bounds the staging
-        buffers in flight). Every native-trie mutation happens before
-        return; resolve() touches only the executor."""
+        their patch tables read this commit's store on the executor's
+        stream, so they run after it (executor.pipeline_depth bounds the
+        staging buffers in flight). Every native-trie mutation happens
+        before return; resolve() touches only the executor: it waits on
+        the event recorded after this commit's work, then reads the root.
+        With `timeout`, the dispatch and each resolve run under the
+        watchdog."""
         if self.num_nodes == 0:
             root = executor.root_bytes(self.commit_resident(executor))
             return lambda: root
         export = self._resident_export(executor, "resident")
         if export is None:
-            handle = executor.last_root
+            handle, done = executor.last_root, executor.last_done
         else:
-            handle = executor.run(export)
+            handle, done = _guarded(
+                lambda: (executor.run(export), executor.last_done),
+                timeout, "resident dispatch")
             self._lib.mpt_inc_res_mark_clean(self._h)
-        return lambda: executor.root_bytes(handle)
 
-    def commit_template(self, executor):
+        def sync() -> bytes:
+            failpoint("resident/before_absorb")
+            if done is not None:
+                done.synchronize()
+            return executor.root_bytes(handle)
+
+        return lambda: _guarded(sync, timeout, "resident drain")
+
+    def commit_template(self, executor, timeout: Optional[float] = None):
         """Template-resident commit: the executor keeps this trie's row
         arenas and digest store across commits (uploads carry only fresh
         content), and the commit's digest matrix is read back and absorbed
         into the host cache, so root() and export_nodes() stay valid. Pins
         its own "template" mode. The whole matrix comes back in one
         readback; the reference's per-shard absorb waits for multi-GPU
-        (ROADMAP "Still to port", item 6)."""
+        (ROADMAP "Still to port", item 6). With `timeout`, the run and the
+        readback go under the watchdog; the absorb stays on this thread."""
         if self.num_nodes == 0:
             self._pin_mode("template")
             executor.bind(self)
@@ -585,8 +683,13 @@ class IncrementalTrie:
         export = self._resident_export(executor, "template")
         if export is None:
             return self.root()
-        executor.run(export)
-        dig = executor.host_digests()
+
+        def sync():
+            executor.run(export)
+            failpoint("resident/before_absorb")
+            return executor.host_digests()
+
+        dig = _guarded(sync, timeout, "template commit")
         # strip the zero-sentinel row: the native absorb takes global lane
         # order, as the planned path's digest matrix
         dig8 = np.ascontiguousarray(dig[1:]).view(np.uint8).reshape(-1)

@@ -38,10 +38,16 @@ A commit is the reference's fused form: one upload of the packed fresh
 rows and one of every index table (pinned host staging on CUDA,
 non_blocking), then the fresh-row scatters, the lean expansion, each
 segment's delta patch, gather and K1, and the store scatter, all queued on
-the current stream with no host synchronisation until the root is read.
+the executor's stream with no host synchronisation until the root is read.
 The staging buffers form a ring of `pipeline_depth` + 1 entries; an entry
 is refilled only once the CUDA event recorded after its upload has
 completed, so up to `pipeline_depth` commits may be in flight.
+
+The stream is the one current when the executor is built, and every
+enqueue and readback runs under it, whichever thread calls: torch's
+current stream is per thread, and the device watchdog
+(native/mpt._run_with_watchdog) runs commits and root readbacks on a
+worker thread.
 
 Not ported: `sharding=` (multi-GPU, ROADMAP "Still to port", item 6), the
 reference's per-segment form (`fused=False`) and its
@@ -50,6 +56,7 @@ CORETH_TPU_RESIDENT_FUSE environment switch.
 
 from __future__ import annotations
 
+import contextlib
 import weakref
 from typing import Dict, Optional
 
@@ -90,7 +97,8 @@ class ResidentExecutor:
     last_dig (the commit's digest matrix with the zero row 0, on the
     device) and last_root (its root row); on CUDA, last_events holds the
     events recorded before the first upload, after the uploads and after
-    the store scatter."""
+    the store scatter, and last_done is the last of them (None on the
+    CPU): a reader on another thread waits on it before reading."""
 
     def __init__(self, seg_impl=None, sharding=None,
                  device: DeviceLike = None, pipeline_depth: int = 0):
@@ -99,6 +107,8 @@ class ResidentExecutor:
                 "a sharded resident executor is not ported (ROADMAP 'Still "
                 "to port', item 6: multi-GPU)")
         self.device = resolve(device)
+        self.stream = (torch.cuda.current_stream(self.device)
+                       if self.device.type == "cuda" else None)
         if seg_impl is None:
             from .keccak_cuda import segment_keccak as seg_impl
         self._impl = seg_impl
@@ -109,6 +119,7 @@ class ResidentExecutor:
         self.last_root = None                          # lazy int32[8]
         self.last_dig: Optional[torch.Tensor] = None
         self.last_events = None
+        self.last_done = None
         self._owner = None
         self._ring: list = []  # [(aux, rows, upload event or None)]
         self.h2d_bytes = 0
@@ -133,18 +144,28 @@ class ResidentExecutor:
         n = 0 if self.store is None else self.store.numel() * 4
         return n + sum(f.numel() * 4 for f in self._flat.values())
 
+    def _on_stream(self):
+        """The executor's stream made current on the calling thread."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    def _host(self, t: torch.Tensor) -> np.ndarray:
+        with self._on_stream():
+            return t.cpu().numpy()
+
     def store_parts(self):
         """[(slot_lo, slot_hi, uint32[S, 8])]: the whole store in one part
         (unsharded), for IncrementalTrie.absorb_store_parts."""
         if self.store is None:
             return []
         return [(0, int(self.store.shape[0]),
-                 self.store.cpu().numpy().view(np.uint32))]
+                 self._host(self.store).view(np.uint32))]
 
     def host_digests(self) -> np.ndarray:
         """The last commit's digest matrix uint32[1 + G, 8] on the host
         (row 0 the zero sentinel): template residency absorbs it."""
-        return self.last_dig.cpu().numpy().view(np.uint32)
+        return self._host(self.last_dig).view(np.uint32)
 
     # ---- ownership: slot and row numbering is per trie ----
 
@@ -249,9 +270,14 @@ class ResidentExecutor:
     # ---- one commit ----
 
     def run(self, export) -> torch.Tensor:
-        """Execute one resident commit. `export` is the dict of
-        native.mpt.IncrementalTrie.export_resident_plan(). Returns the root
-        digest as a lazy int32[8] on the device; root_bytes() reads it."""
+        """Execute one resident commit on the executor's stream. `export`
+        is the dict of native.mpt.IncrementalTrie.export_resident_plan().
+        Returns the root digest as a lazy int32[8] on the device;
+        root_bytes() reads it."""
+        with self._on_stream():
+            return self._run(export)
+
+    def _run(self, export) -> torch.Tensor:
         specs = export["specs"]            # [n_seg, 6] int32 host array
         if len(specs) > MAX_SEGMENTS:
             raise ValueError(f"{len(specs)} segments > {MAX_SEGMENTS}")
@@ -368,15 +394,15 @@ class ResidentExecutor:
         self.store.index_copy_(0, lane_slot.long(), dig[1:])
         if t0 is not None:
             self.last_events = (t0, t_up, self._event())
+            self.last_done = self.last_events[2]
         self.last_dig = dig
         self.last_root = dig[int(export["root_lane"]) + 1]
         return self.last_root
 
-    @staticmethod
-    def root_bytes(root) -> bytes:
+    def root_bytes(self, root) -> bytes:
         """Synchronise and render a run() result (or a host array of 8
-        words) as the 32-byte root."""
+        words) as the 32-byte root, read on the executor's stream."""
         if isinstance(root, torch.Tensor):
-            root = root.cpu().numpy()
+            root = self._host(root)
         return np.ascontiguousarray(root).view(np.uint32).astype(
             "<u4").tobytes()

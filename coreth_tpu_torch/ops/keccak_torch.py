@@ -42,31 +42,53 @@ def _i64(v: int) -> int:
 _RC = tuple(_i64(rc) for rc in _ROUND_CONSTANTS)
 
 
-def _rotl(x: torch.Tensor, n: int) -> torch.Tensor:
-    """Rotate int64 lanes left by a static n (logical right shift by mask)."""
-    n %= 64
-    if n == 0:
-        return x
-    return (x << n) | ((x >> (64 - n)) & ((1 << n) - 1))
+# rho and pi as one gather: destination lane j of pi takes source lane
+# _PI_SRC[j], rotated left by _ROTC[_PI_SRC[j]]
+_PI_SRC = [0] * 25
+for _x in range(5):
+    for _y in range(5):
+        _PI_SRC[_y + 5 * ((2 * _x + 3 * _y) % 5)] = _x + 5 * _y
+_PI_ROT = [_ROTC[i] % 64 for i in _PI_SRC]
+_NEXT1 = [1, 2, 3, 4, 0]
+_NEXT2 = [2, 3, 4, 0, 1]
+_PREV1 = [4, 0, 1, 2, 3]
+_TABLES: Dict[torch.device, tuple] = {}
+
+
+def _tables(device: torch.device) -> tuple:
+    t = _TABLES.get(device)
+    if t is None:
+        def idx(v):
+            return torch.tensor(v, dtype=torch.int64, device=device)
+        rot = idx(_PI_ROT)[:, None]
+        low = (torch.ones_like(rot) << rot) - 1  # the low n bits of (x >> 64-n)
+        t = _TABLES[device] = (idx(_PI_SRC), rot, 64 - rot, low, idx(_NEXT1),
+                               idx(_NEXT2), idx(_PREV1),
+                               idx(list(_RC)))
+    return t
 
 
 def keccak_f1600(a: List[torch.Tensor]) -> List[torch.Tensor]:
-    """24-round permutation over 25 int64 lane tensors (x + 5*y order)."""
-    for rc in _RC:
-        c = [a[x] ^ a[x + 5] ^ a[x + 10] ^ a[x + 15] ^ a[x + 20]
-             for x in range(5)]
-        d = [c[(x - 1) % 5] ^ _rotl(c[(x + 1) % 5], 1) for x in range(5)]
-        a = [a[i] ^ d[i % 5] for i in range(25)]
-        b: List[torch.Tensor] = [None] * 25  # type: ignore[list-item]
-        for x in range(5):
-            for y in range(5):
-                b[y + 5 * ((2 * x + 3 * y) % 5)] = _rotl(a[x + 5 * y],
-                                                         _ROTC[x + 5 * y])
-        a = [b[i] ^ (~b[(i % 5 + 1) % 5 + 5 * (i // 5)]
-                     & b[(i % 5 + 2) % 5 + 5 * (i // 5)])
-             for i in range(25)]
-        a[0] = a[0] ^ rc
-    return a
+    """24-round permutation over 25 int64 lane tensors (x + 5*y order),
+    each step on the stacked [25, N] state (a handful of torch ops a
+    round rather than one per lane)."""
+    src, rot, rrot, low, nxt1, nxt2, prv1, rcs = _tables(a[0].device)
+    st = torch.stack(list(torch.broadcast_tensors(*a)))
+    n = st.shape[1:]
+    for r in range(len(_RC)):
+        s5 = st.view(5, 5, *n)  # [y, x, ...]
+        c = s5[0] ^ s5[1] ^ s5[2] ^ s5[3] ^ s5[4]
+        cn = c.index_select(0, nxt1)
+        d = c.index_select(0, prv1) ^ (cn << 1) ^ ((cn >> 63) & 1)
+        st = (s5 ^ d[None]).view(25, *n)
+        g = st.index_select(0, src)
+        rows = rot.view(25, *([1] * len(n)))
+        st = (g << rows) | ((g >> rrot.view_as(rows)) & low.view_as(rows))
+        s5 = st.view(5, 5, *n)
+        st = (s5 ^ (~s5.index_select(1, nxt1) & s5.index_select(1, nxt2))
+              ).view(25, *n)
+        st[0] ^= rcs[r]
+    return list(st.unbind(0))
 
 
 def lanes_from_words(block: torch.Tensor) -> List[torch.Tensor]:

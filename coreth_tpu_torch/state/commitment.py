@@ -17,21 +17,21 @@ BACKEND_MPT = "mpt"
 
 class MPTBackend:
     """Consensus Merkle-Patricia trie behind the seam: opens resolve
-    through the TrieDatabase. `mirror` is where the chain installs the
-    resident account mirror in the reference; the mirror is not ported
-    (ROADMAP "Still to port", item 4), so an installed one raises."""
+    through the TrieDatabase; when a ResidentAccountMirror is installed as
+    `mirror`, roots the mirror holds open as device-resident facades
+    (state/resident_trie.MirrorStateTrie)."""
 
     name = BACKEND_MPT
 
     def __init__(self, triedb):
         self.triedb = triedb
-        self.mirror = None
+        self.mirror = None  # the resident account mirror, when installed
 
     def open(self, root: bytes = EMPTY_ROOT):
-        if self.mirror is not None:
-            raise NotImplementedError(
-                "the resident account mirror is not ported (ROADMAP 'Still "
-                "to port', item 4)")
+        if self.mirror is not None and self.mirror.has_root(root):
+            from .resident_trie import MirrorStateTrie
+
+            return MirrorStateTrie(self.mirror, root, self.triedb)
         return self.triedb.open_state_trie(root)
 
     def empty_root(self) -> bytes:

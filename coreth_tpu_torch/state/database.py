@@ -24,10 +24,20 @@ class Database:
     def __init__(self, triedb: TrieDatabase):
         self.triedb = triedb
         self.diskdb = triedb.diskdb
-        # account-trie opens route through the commitment-backend seam
+        # account-trie opens route through the commitment-backend seam;
+        # the resident mirror installs onto backend.mirror (the `mirror`
+        # property below)
         self.backend = MPTBackend(triedb)
         self._code_cache: Dict[bytes, bytes] = {}
         self._code_cache_size = 0
+
+    @property
+    def mirror(self):
+        return self.backend.mirror
+
+    @mirror.setter
+    def mirror(self, m) -> None:
+        self.backend.mirror = m
 
     def open_trie(self, root: bytes = EMPTY_ROOT):
         return self.backend.open(root)

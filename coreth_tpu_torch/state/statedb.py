@@ -10,19 +10,24 @@ trie, TrieDatabase.update). The tries hash with the TrieDatabase's batch
 keccak: the planned marker (every dirty storage trie and the account trie
 in one device program, kernel K1 on CUDA), the batched marker (each trie
 level by level through BatchedHasher, kernel K2 on CUDA), or None (the
-recursive CPU Hasher).
+recursive CPU Hasher). When the Database's backend has a resident mirror
+holding the root, the account trie is a MirrorStateTrie
+(state/resident_trie.py): its hash previews the block's account batch on
+the mirror and commit lands it as a named block (commit(block_hash=,
+parent_block_hash=)); the storage tries still hash as above, under the
+planned marker in one batch_storage_roots program.
 
 The block commit itself is composed once, by the module functions below
 over a `changed` map (address -> (Account, its storage StateTrie or None);
-Account None deletes the address): intermediate_root dispatches,
-planned_intermediate_root is StateDB._planned_intermediate_root, and
-batch_storage_roots, resident_items and resident_intermediate_root make
-the resident branch (:504-521) for callers that hold native tries.
+Account None deletes the address): intermediate_root dispatches (the
+resident branch of coreth_tpu/state/statedb.py:504-521 included, with its
+state/hash_plan spans), and planned_intermediate_root is
+StateDB._planned_intermediate_root.
 
 Not ported, each with its ROADMAP "Still to port" item: the snapshot tree
-and its slim codec, the prefetcher, the bintrie shadow, metrics and spans
-(item 10); fold_tx_writes (3b, with the parallel executor); the resident
-branches of intermediate_root and commit (item 4).
+and its slim codec, the prefetcher, the bintrie shadow and the expensive
+timers (items 3b.2 and 10); fold_tx_writes (3b, with the parallel
+executor).
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Set, Tuple
 
 from ..core import rawdb
-from ..device import resolve
+from ..metrics.spans import span
 from ..native import keccak256
 from ..trie import planned as _planned
 from ..trie.encoding import key_to_hex
@@ -64,23 +69,37 @@ def intermediate_root(account_trie: StateTrie, changed: Changed,
     least BATCH_THRESHOLD, the whole commit is one
     planned_intermediate_root. StateDB passes its pending accounts plus
     their pending storage writes; None counts the changed accounts plus
-    the storage tries' unhashed updates. Otherwise each storage trie is
-    hashed by its own Trie.hash, in address order, and then the account
-    trie: every trie carrying the "batched" seam
+    the storage tries' unhashed updates. A resident account trie (its
+    `resident` attribute set: the mirror's MirrorStateTrie) has no Python
+    nodes to plan: there `est` counts the pending storage writes alone,
+    and at BATCH_THRESHOLD the dirty storage tries hash in one
+    batch_storage_roots program before the account writes. Otherwise each
+    storage trie is hashed by its own Trie.hash, in address order, and
+    then the account trie: every trie carrying the "batched" seam
     (ops/device.get_batch_keccak) and at least BATCH_THRESHOLD unhashed
     updates is hashed level by level through BatchedHasher, the rest by
     the recursive CPU Hasher. The caller gives every trie the same batch
-    keccak. `device` is forwarded to planned_intermediate_root, where the
-    marker's own commit decides."""
-    if getattr(batch_keccak, "planned", False):
-        if est is None:
-            est = len(changed) + sum(tr.trie.unhashed
-                                     for acct, tr in changed.values()
-                                     if acct is not None and tr is not None)
-        if est >= BATCH_THRESHOLD:
-            return planned_intermediate_root(
-                account_trie, changed, planned=batch_keccak.commit,
-                device=device)
+    keccak. `device` is forwarded to the planned programs, where the
+    marker's own commit decides.
+
+    A kernel failure in a planned program raises: the reference's
+    degradation ladder (ROADMAP "Still to port", item 5) is not ported.
+    Only TooManySegments keeps its reference fallback."""
+    planned = getattr(batch_keccak, "planned", False)
+    resident = getattr(account_trie, "resident", False)
+    if planned and est is None:
+        est = sum(tr.trie.unhashed for acct, tr in changed.values()
+                  if acct is not None and tr is not None)
+        if not resident:
+            est += len(changed)
+    if planned and est >= BATCH_THRESHOLD:
+        if not resident:
+            with span("state/hash_plan/planned", est=est):
+                return planned_intermediate_root(
+                    account_trie, changed, planned=batch_keccak.commit,
+                    device=device)
+        with span("state/hash_plan/storage", est=est):
+            batch_storage_roots(changed, batch_keccak.commit, device)
     for addr in sorted(changed):
         acct, tr = changed[addr]
         if acct is None:
@@ -198,48 +217,6 @@ def batch_storage_roots(changed: Changed, planned=None, device=None) -> int:
         acct.root = builder.digest(handle)
         tr.trie.unhashed = 0
     return len(pending)
-
-
-def resident_items(changed: Changed, planned=None, device=None) -> list:
-    """The account trie's updates for `changed`, as the resident branch of
-    StateDB.intermediate_root writes them: the storage roots first (in one
-    batch_storage_roots program when the pending storage writes reach
-    BATCH_THRESHOLD, else each trie's own hash()), then (keccak(address),
-    account RLP) per address in address order, an empty value deleting."""
-    est = sum(tr.trie.unhashed for acct, tr in changed.values()
-              if acct is not None and tr is not None)
-    if est >= BATCH_THRESHOLD:
-        batch_storage_roots(changed, planned, device)
-    items = []
-    for addr in sorted(changed):
-        acct, tr = changed[addr]
-        if acct is None:
-            items.append((keccak256(addr), b""))
-            continue
-        if tr is not None:
-            acct.root = tr.hash()
-        items.append((keccak256(addr), acct.encode()))
-    return items
-
-
-def resident_intermediate_root(inc_trie, executor, changed: Changed, *,
-                               template: bool = False, device=None) -> bytes:
-    """The resident branch of StateDB.intermediate_root: the block's
-    storage roots (resident_items), then each changed account written into
-    the native account trie `inc_trie` (native.mpt.IncrementalTrie), then
-    one device-resident commit through `executor`
-    (ops.keccak_resident.ResidentExecutor): commit_resident, or
-    commit_template when `template`. Returns the 32-byte state root.
-
-    `device` (None is CUDA, and raises without it) runs the storage
-    program and must be the executor's device."""
-    dev = resolve(device)
-    if executor.device != dev:
-        raise ValueError(f"executor runs on {executor.device}, not {dev}")
-    inc_trie.update(resident_items(changed, device=dev))
-    if template:
-        return inc_trie.commit_template(executor)
-    return executor.root_bytes(inc_trie.commit_resident(executor))
 
 
 class StateDB:
@@ -539,24 +516,36 @@ class StateDB:
         trie and the account trie hash in one device program (the
         module's planned_intermediate_root, which is the reference's
         _planned_intermediate_root with its TooManySegments heal);
-        otherwise each trie's own Trie.hash. The module's
-        intermediate_root makes that choice."""
+        otherwise each trie's own Trie.hash. On a resident account trie
+        the pending storage writes alone count, and reaching the threshold
+        hashes the storage tries in one program; the account writes then
+        go into the MirrorStateTrie, whose hash() previews them on the
+        mirror. The module's intermediate_root makes that choice."""
         self.finalise(delete_empty)
-        est = len(self._objects_pending) + sum(
+        est = sum(
             len(self._objects[a].pending_storage)
             for a in self._objects_pending
             if not self._objects[a].deleted
         )
+        if not getattr(self.trie, "resident", False):
+            est += len(self._objects_pending)
         changed = self._pending_changes()
         self._objects_pending = set()
         return intermediate_root(self.trie, changed,
                                  self.db.triedb.batch_keccak, est=est)
 
-    def commit(self, delete_empty: bool = False) -> bytes:
+    def commit(self, delete_empty: bool = False,
+               block_hash: Optional[bytes] = None,
+               parent_block_hash: Optional[bytes] = None) -> bytes:
         """Commit to the TrieDatabase (statedb.go:1040-1160).
 
         Order: storage tries → code → account trie → TrieDB.Update.
-        Returns the new state root."""
+        Returns the new state root. On a resident account trie the mirror
+        records the block's state under `block_hash` on top of
+        `parent_block_hash` (MirrorStateTrie.commit_block: a preview when
+        block_hash is None); its nodes persist through the writer's
+        interval export, not the dirty forest, and a node set comes back
+        only on the disk-fallback path of a mirror in host mode."""
         self.intermediate_root(delete_empty)
         merged = MergedNodeSet()
         for addr in sorted(self._objects_dirty):
@@ -570,7 +559,11 @@ class StateDB:
             if nodeset is not None:
                 nodeset.owner = obj.addr_hash
                 merged.merge(nodeset)
-        root, acct_set = self.trie.commit(collect_leaf=True)
+        if getattr(self.trie, "resident", False):
+            root, acct_set = self.trie.commit_block(block_hash,
+                                                    parent_block_hash)
+        else:
+            root, acct_set = self.trie.commit(collect_leaf=True)
         if acct_set is not None:
             merged.merge(acct_set)
         self._objects_dirty = set()

@@ -144,6 +144,52 @@ for mode in ("off", "batched", "planned"):
             assert back.get_state(addr, k) == v
     roots.add((block.hash(), root))
 assert len(roots) == 1, roots
+
+# the resident mirror inside StateDB: booted from the persisted genesis by
+# one leaf scan, one block committed on it and accepted through its trie
+# writer (interval export), then read back through a fresh TrieDatabase
+from coreth_tpu_torch.core import rawdb
+from coreth_tpu_torch.core.state_manager import ResidentTrieWriter
+from coreth_tpu_torch.trie.iterator import iterate_leaves
+from coreth_tpu_torch.trie.resident_mirror import ResidentAccountMirror
+
+disk = MemoryDB()
+tdb = TrieDatabase(disk)
+block = Genesis(config=params.TEST_CHAIN_CONFIG, alloc=alloc).commit(
+    disk, Database(tdb))
+mirror = ResidentAccountMirror(
+    list(iterate_leaves(tdb.open_trie(block.root))), device="cpu",
+    pipeline_depth=2)
+db = Database(tdb)
+db.mirror = mirror
+sdb = StateDB(block.root, db)
+assert sdb.trie.resident
+for i, addr in enumerate(alloc):
+    sdb.add_balance(addr, i + 1)
+    sdb.set_state(addr, b"\x02" * 32, b"\x03" * 32)
+root = sdb.commit(True, block_hash=b"\x01" * 32,
+                  parent_block_hash=block.hash())
+assert roots == {(block.hash(), root)}, roots
+
+
+class Blk:
+    number = 1
+    root = root
+
+    def hash(self):
+        return b"\x01" * 32
+
+
+writer = ResidentTrieWriter(tdb, mirror, commit_interval=1)
+writer.insert_trie(Blk())
+writer.accept_trie(Blk())
+writer.shutdown()
+assert mirror.spot_check() and not mirror.host_mode
+back = StateDB(root, Database(TrieDatabase(disk)))
+for i, (addr, acct) in enumerate(alloc.items()):
+    assert back.get_balance(addr) == acct.balance + i + 1
+    assert back.get_state(addr, b"\x02" * 32) == b"\x03" * 32
+assert rawdb.inspect_database(disk)["trieNodes"]["count"] > 0
 leaked = [m for m in sys.modules if refused(m)]
 assert not leaked, leaked
 print("ISOLATED-OK")
@@ -181,6 +227,12 @@ def test_no_source_imports_jax_or_coreth_tpu():
                 if n.split(".")[0] in FORBIDDEN:
                     bad.append(f"{os.path.relpath(path, REPO)}:{node.lineno} {n}")
     assert len(_sources()) > 10
+    names = {os.path.relpath(p, REPO) for p in _sources()}
+    for mod in ("log.py", "metrics/__init__.py", "metrics/spans.py",
+                "metrics/tracectx.py", "fault/__init__.py",
+                "trie/iterator.py", "trie/resident_mirror.py",
+                "state/resident_trie.py", "core/state_manager.py"):
+        assert os.path.join("coreth_tpu_torch", mod) in names, mod
     assert not bad, bad
 
 
@@ -219,14 +271,15 @@ def test_entry_points_without_cuda_raise(monkeypatch):
 
 
 def test_resident_entry_points_without_cuda_raise(monkeypatch):
-    """The resident executor, commit_device and the resident block commit
-    default to CUDA and raise without it; none falls to the CPU."""
+    """The resident executor, commit_device and the resident mirror that
+    carries the resident block commit default to CUDA and raise without
+    it; none falls to the CPU."""
     from coreth_tpu_torch.native.mpt import IncrementalTrie
     from coreth_tpu_torch.ops.keccak_resident import ResidentExecutor
     from coreth_tpu_torch.state.account import Account
     from coreth_tpu_torch.trie.secure import StateTrie
-    from coreth_tpu_torch.state.statedb import batch_storage_roots, \
-        resident_intermediate_root
+    from coreth_tpu_torch.state.statedb import batch_storage_roots
+    from coreth_tpu_torch.trie.resident_mirror import ResidentAccountMirror
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -237,9 +290,9 @@ def test_resident_entry_points_without_cuda_raise(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         t.commit_device()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        resident_intermediate_root(t, None, {})
+        ResidentAccountMirror([(b"\x01" * 32, b"v" * 40)])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        resident_intermediate_root(IncrementalTrie(), None, {})
+        ResidentAccountMirror([])
     # nothing was hashed on the way: the trie is still dirty and unpinned
     assert t.commit_cpu() == IncrementalTrie(
         [(b"\x01" * 32, b"v" * 40), (b"\x02" * 32, b"w")]).commit_cpu()

@@ -13,7 +13,7 @@ exports of each lean setting at no device cost). Tolerance zero throughout.
 The rest holds the port's executor to the native host commit of a twin
 JAX trie: growth, deletion down to empty, ownership, mode pinning,
 pipelined dispatch, the staging ring, the store readback, and the
-resident block commit of statedb.resident_intermediate_root."""
+resident block commit of a StateDB whose account trie is the mirror."""
 
 import numpy as np
 import pytest
@@ -29,9 +29,14 @@ from coreth_tpu_torch.ops import keccak_cuda
 from coreth_tpu_torch.ops.keccak_planned import PlannedCommit, PlannedMode
 from coreth_tpu_torch.ops.keccak_resident import LEAN_WORDS, \
     ResidentExecutor, _pow2_bucket
-from coreth_tpu_torch.state.account import Account
-from coreth_tpu_torch.state.statedb import batch_storage_roots, \
-    planned_intermediate_root, resident_intermediate_root
+from coreth_tpu_torch.state.account import Account, normalize_state_key
+from coreth_tpu_torch.ethdb import MemoryDB
+from coreth_tpu_torch.state.database import Database
+from coreth_tpu_torch.state.statedb import StateDB, batch_storage_roots, \
+    planned_intermediate_root
+from coreth_tpu_torch.trie.iterator import iterate_leaves
+from coreth_tpu_torch.trie.resident_mirror import ResidentAccountMirror
+from coreth_tpu_torch.trie.triedb import TrieDatabase
 from coreth_tpu_torch.trie.hasher import Hasher
 from coreth_tpu_torch.trie.secure import StateTrie
 from coreth_tpu_torch.trie.trie import trie_from_items
@@ -396,13 +401,18 @@ def test_pow2_bucket():
         [16, 16, 16, 32, 1024]
 
 
-# ---- the resident block commit (statedb.resident_intermediate_root) ----
+# ---- the resident block commit (StateDB on the mirror) ----
 
 N_ACCOUNTS, N_CONTRACTS, N_SLOTS = 150, 3, 50
 
 
 def _slot(v: bytes) -> bytes:
     return rlp.encode(v.lstrip(b"\x00"))
+
+
+def _slot_key(rng) -> bytes:
+    """A storage key as StateDB keeps it (normalize_state_key)."""
+    return normalize_state_key(rng.bytes(32))
 
 
 class _World:
@@ -415,7 +425,7 @@ class _World:
         self.acct = {a: [int(self.rng.integers(0, 1000)),
                          int(self.rng.integers(1, 10**18))]
                      for a in self.addrs}
-        self.slots = {a: {self.rng.bytes(32): b"\x01" + self.rng.bytes(31)
+        self.slots = {a: {_slot_key(self.rng): b"\x01" + self.rng.bytes(31)
                           for _ in range(N_SLOTS)}
                       for a in self.addrs[:N_CONTRACTS]}
 
@@ -473,7 +483,7 @@ def _blocks(world):
                           replace=False)]
     writes = {}
     for a in world.addrs[:2]:
-        writes[a] = {rng.bytes(32): b"\x02" + rng.bytes(31)
+        writes[a] = {_slot_key(rng): b"\x02" + rng.bytes(31)
                      for _ in range(60)}
         touched.append(a)
     out.append((touched, writes))
@@ -499,33 +509,65 @@ def _apply(world, i, touched, writes):
         world.slots.setdefault(a, {}).update(w)
 
 
+def _write_block(sdb, world, touched, writes):
+    """The world's values of `touched` and `writes` as StateDB operations;
+    an address the world no longer holds self-destructs."""
+    for a in touched:
+        if a not in world.acct:
+            sdb.suicide(a)
+            continue
+        n, b = world.acct[a]
+        sdb.set_nonce(a, n)
+        sdb.set_balance(a, b)
+    for a, w in writes.items():
+        for k, v in w.items():
+            sdb.set_state(a, k, v)
+
+
 def test_resident_intermediate_root_matches_planned_and_hasher():
-    """Genesis plus three blocks through resident_intermediate_root (lean
-    resident and template mode side by side) on the CPU: every root equals
-    planned_intermediate_root on a twin state and the CPU Hasher over
-    independent tries."""
+    """Genesis committed by a StateDB into a store, two mirrors booted from
+    it by iterate_leaves (lean resident and template mode side by side, on
+    device="cpu"), then three blocks through StateDB.commit(block_hash,
+    parent_block_hash) on each mirror under the planned marker: every root
+    equals planned_intermediate_root on a twin state and the CPU Hasher
+    over independent tries."""
     world = _World(21)
     planned = PlannedCommit(device="cpu")
     mode = PlannedMode(planned)
-    res, twin = _State(world, mode), _State(world, mode)
+    twin = _State(world, mode)
     acct_trie = StateTrie(batch_keccak=mode)
-    t_res, t_tpl = IncrementalTrie(), IncrementalTrie()
-    t_res.set_lean(True)
-    ex_res = ResidentExecutor(device="cpu")
-    ex_tpl = ResidentExecutor(device="cpu")
-    for i, (touched, writes) in enumerate(_blocks(world)):
-        if i:
-            _apply(world, i, touched, writes)
-        changed = res.changes(touched, writes)
-        got = resident_intermediate_root(t_res, ex_res, changed,
-                                         device="cpu")
-        got_tpl = resident_intermediate_root(t_tpl, ex_tpl, changed,
-                                             template=True, device="cpu")
+    blocks = _blocks(world)
+    disk = MemoryDB()
+    gen = StateDB(EMPTY_ROOT, Database(TrieDatabase(disk, batch_keccak=mode)))
+    _write_block(gen, world, *blocks[0])
+    root = gen.commit(True)
+    gen.db.triedb.commit(root)
+    want = planned_intermediate_root(
+        acct_trie, twin.changes(*blocks[0]), planned=planned)
+    assert root == want == world.oracle(), "genesis"
+    items = list(iterate_leaves(TrieDatabase(disk).open_trie(root)))
+    dbs = []
+    for kw in ({"lean_rows": True}, {"template_residency": True}):
+        m = ResidentAccountMirror(items, device="cpu", **kw)
+        assert m.root_of(m.GENESIS) == root
+        db = Database(TrieDatabase(disk, batch_keccak=mode))
+        db.mirror = m
+        dbs.append(db)
+    parent = ResidentAccountMirror.GENESIS
+    for i, (touched, writes) in enumerate(blocks[1:], 1):
+        _apply(world, i, touched, writes)
         want = planned_intermediate_root(
-            acct_trie, twin.changes(touched, writes),
-            planned=planned)
-        assert got == got_tpl == want == world.oracle(), f"block {i}"
-    assert t_tpl.root() == want
+            acct_trie, twin.changes(touched, writes), planned=planned)
+        h = bytes([i]) * 32
+        for db in dbs:
+            sdb = StateDB(root, db)
+            assert sdb.trie.resident
+            _write_block(sdb, world, touched, writes)
+            got = sdb.commit(True, block_hash=h, parent_block_hash=parent)
+            assert got == want == world.oracle(), f"block {i}"
+            assert db.mirror.root_of(h) == want
+        root, parent = want, h
+    assert dbs[1].mirror.trie.root() == want
 
 
 def test_batch_storage_roots_hashes_every_dirty_trie():

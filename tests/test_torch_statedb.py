@@ -498,17 +498,18 @@ def test_genesis_on_card_equals_cpu(mode):
 
 def test_what_is_not_ported_raises():
     """The parts of the slice left for later items raise instead of
-    running something else: a snapshot tree, an installed resident
-    mirror, an enabled stateful precompile, a block with transactions."""
+    running something else: a snapshot tree, the resident mirror's mesh
+    rung, an enabled stateful precompile, a block with transactions."""
     from coreth_tpu_torch import rlp
     from coreth_tpu_torch.core.types import Block, Header
+    from coreth_tpu_torch.trie.resident_mirror import ResidentAccountMirror
 
     db = Database(TrieDatabase(MemoryDB()))
     with pytest.raises(NotImplementedError, match="item 10"):
         StateDB(EMPTY_ROOT, db, snaps=object())
-    db.backend.mirror = object()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        StateDB(EMPTY_ROOT, db)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        ResidentAccountMirror([(b"\x01" * 32, b"v")], mesh_devices=2,
+                              device="cpu")
 
     class Upgrade:
         timestamp = 0
@@ -552,3 +553,223 @@ def test_rawdb_verify_on_read(monkeypatch):
     pdisk.put(rawdb.code_key(keccak256(code)), code + b"\x00")
     with pytest.raises(CorruptDataError):
         rawdb.read_code(pdisk, keccak256(code))
+
+
+# ---- the resident mirror inside StateDB --------------------------------
+
+class _Blk:
+    """What the trie writers read of a block: number, root and hash."""
+
+    def __init__(self, number, root, h):
+        self.number, self.root, self._h = number, root, h
+
+    def hash(self):
+        return self._h
+
+
+def test_statedb_on_the_mirror_against_the_reference(monkeypatch):
+    """A genesis with storage committed by the JAX package, opened in the
+    port with memorydb_from_items; both mirrors booted from one ordered
+    iterate_leaves scan of its account trie (the reference chain's
+    _boot_mirror); three blocks of balance, nonce, code and slot writes,
+    one slot deleted, through StateDB.commit(block_hash, parent_block_hash)
+    on each package's mirror (the port's on device="cpu" under the planned
+    marker, whose storage program runs in block 1; the JAX side with the
+    marker off), each accepted through its ResidentTrieWriter at a commit
+    interval of 2. Roots equal block for block; after shutdown the port's
+    store holds every node of the reference's, and a fresh port
+    TrieDatabase reads every value back."""
+    from coreth_tpu.core.state_manager import \
+        ResidentTrieWriter as JResidentTrieWriter
+    from coreth_tpu.trie.iterator import iterate_leaves as j_iterate_leaves
+    from coreth_tpu.trie.resident_mirror import \
+        ResidentAccountMirror as JMirror
+    from coreth_tpu_torch.core.state_manager import ResidentTrieWriter
+    from coreth_tpu_torch.metrics import default_registry
+    from coreth_tpu_torch.ops.keccak_planned import PlannedCommit, \
+        PlannedMode
+    from coreth_tpu_torch.trie.iterator import iterate_leaves
+    from coreth_tpu_torch.trie.resident_mirror import ResidentAccountMirror
+
+    rng = np.random.default_rng(31)
+    alloc = _alloc(rng, 150)
+    jdisk = JMemoryDB()
+    jtdb = JTrieDatabase(jdisk)
+    gen = jgenesis.Genesis(
+        config=jparams.TEST_CHAIN_CONFIG,
+        alloc={a: jgenesis.GenesisAccount(**v) for a, v in alloc.items()})
+    gblock = gen.commit(jdisk, JDatabase(jtdb))
+    jtdb.cap(0)  # the storage tries its commit leaves (ROADMAP Queue 3)
+    pdisk = memorydb_from_items(jdisk.iterate())
+    items = list(iterate_leaves(TrieDatabase(pdisk).open_trie(gblock.root)))
+    assert items == list(j_iterate_leaves(
+        JTrieDatabase(jdisk).open_trie(gblock.root)))
+    assert len(items) == len(alloc)
+    jm = JMirror(items, prefer_host=True)
+    pm = ResidentAccountMirror(items, device="cpu", lean_rows=True)
+    assert pm.root_of(pm.GENESIS) == jm.root_of(jm.GENESIS) == gblock.root
+    jdb = JDatabase(jtdb)
+    jdb.mirror = jm
+    ptdb = TrieDatabase(pdisk, batch_keccak=PlannedMode(
+        PlannedCommit(device="cpu")))
+    pdb = Database(ptdb)
+    pdb.mirror = pm
+    jw = JResidentTrieWriter(jtdb, jm, commit_interval=2)
+    pw = ResidentTrieWriter(ptdb, pm, commit_interval=2)
+    fallbacks = default_registry.counter("state/resident/fallbacks").count()
+
+    addrs = list(alloc)
+    contracts = [a for a, v in alloc.items() if "storage" in v]
+    slots = [rng.bytes(32) for _ in range(30)]
+    deleted = (contracts[0], next(iter(alloc[contracts[0]]["storage"])))
+    root, parent = gblock.root, gblock.hash()
+    runs = _Runs(monkeypatch)
+    storage_runs = []
+    for n in (1, 2, 3):
+        j = jstatedb.StateDB(root, jdb)
+        p = StateDB(root, pdb)
+        assert p.trie.resident and j.trie.resident
+        ops = [("add_balance", a, int(rng.integers(1, 10**9)))
+               for a in addrs[n::3]]
+        ops += [("set_nonce", a, n + 7) for a in addrs[::17]]
+        ops += [("set_code", addrs[n], rng.bytes(40))]
+        for c in contracts[:4 if n == 1 else 2]:
+            ops += [("set_state", c, k, b"\x05" + rng.bytes(31))
+                    for k in slots]
+        if n == 2:
+            ops.append(("set_state",) + deleted + (b"\x00" * 32,))
+        for op, *args in ops:
+            getattr(j, op)(*args)
+            getattr(p, op)(*args)
+        before = runs.port
+        h = bytes([n]) * 32
+        want = j.commit(True, block_hash=h, parent_block_hash=parent)
+        root = p.commit(True, block_hash=h, parent_block_hash=parent)
+        storage_runs.append(runs.port - before)
+        assert root == want, f"block {n}"
+        assert p.trie.resident  # reopened on the mirror at the new root
+        for w in (jw, pw):
+            w.insert_trie(_Blk(n, root, h))
+            w.accept_trie(_Blk(n, root, h))
+        parent = h
+    assert storage_runs == [1, 0, 0]  # block 1's 120 slot writes
+    assert pm.spot_check()
+    jw.shutdown()
+    pw.shutdown()
+    assert ptdb.dirty_size == 0
+    assert default_registry.counter(
+        "state/resident/fallbacks").count() == fallbacks
+    jstore, pstore = dict(jdisk.iterate()), dict(pdisk.iterate())
+    assert jstore.items() <= pstore.items()
+    # a fresh TrieDatabase over the port's store, and the mirror, read
+    # every account and slot the same as the reference's store
+    fresh = StateDB(root, Database(TrieDatabase(pdisk)))
+    assert not getattr(fresh.trie, "resident", False)
+    on_mirror = StateDB(root, pdb)
+    jfresh = jstatedb.StateDB(root, JDatabase(JTrieDatabase(jdisk)))
+    for a in addrs:
+        want = (jfresh.get_balance(a), jfresh.get_nonce(a),
+                jfresh.get_code(a))
+        assert (fresh.get_balance(a), fresh.get_nonce(a),
+                fresh.get_code(a)) == want
+        assert on_mirror.get_balance(a) == want[0]
+    for c in contracts:
+        for k in slots + list(alloc[c]["storage"]):
+            assert fresh.get_state(c, k) == jfresh.get_state(c, k)
+    assert fresh.get_state(*deleted) == b"\x00" * 32
+
+
+@pytest.mark.parametrize("seed", [61, 62, 63])
+def test_triedb_reference_dereference_and_cap_match(seed):
+    """ROADMAP Queue 3: the port's TrieDatabase garbage collection and
+    partial flush against the reference's. Five blocks of StateDB balance,
+    nonce and slot writes (a slot deleted one time in five) on each side,
+    `reference` on each root and `dereference` of the root two blocks
+    back: after every block the dirty sizes and dirty-node sets are equal.
+    Then cap(20000): the stores are equal. Then the head's commit: the
+    port's store holds every node of the reference's after its cap(0),
+    and fresh reads of every slot are equal."""
+    rng = np.random.default_rng(seed)
+    s = Pair("off")
+    addrs = [rng.bytes(20) for _ in range(60)]
+    keys = [rng.bytes(32) for _ in range(8)]
+    jroot = proot = EMPTY_ROOT
+    roots = []
+    for b in range(5):
+        j = jstatedb.StateDB(jroot, s.jdb)
+        p = StateDB(proot, s.pdb)
+        for i, a in enumerate(addrs):
+            bal, nonce = int(rng.integers(1, 10**12)), int(rng.integers(99))
+            for sdb in (j, p):
+                sdb.add_balance(a, bal)
+                sdb.set_nonce(a, nonce)
+            if i % 3 == 0:
+                k = keys[int(rng.integers(len(keys)))]
+                v = (b"\x00" * 32 if rng.random() < 0.2
+                     else b"\x07" + rng.bytes(31))
+                for sdb in (j, p):
+                    sdb.set_state(a, k, v)
+        jroot, proot = j.commit(True), p.commit(True)
+        assert proot == jroot
+        roots.append(proot)
+        s.jdb.triedb.reference(jroot)
+        s.pdb.triedb.reference(proot)
+        if b >= 2:
+            s.jdb.triedb.dereference(roots[b - 2])
+            s.pdb.triedb.dereference(roots[b - 2])
+            assert roots[b - 2] not in s.pdb.triedb  # collected
+        assert s.pdb.triedb.dirty_size == s.jdb.triedb.dirty_size
+        assert set(s.pdb.triedb._dirties) == set(s.jdb.triedb._dirties)
+    assert s.pdb.triedb.dirty_size > 20000  # cap has work to do
+    s.jdb.triedb.cap(20000)
+    s.pdb.triedb.cap(20000)
+    assert s.pdb.triedb.dirty_size == s.jdb.triedb.dirty_size <= 20000
+    assert dict(s.pdisk.iterate()) == dict(s.jdisk.iterate())
+    _jax_persist(s.jdb.triedb, jroot)
+    s.pdb.triedb.commit(proot)
+    assert dict(s.pdisk.iterate()).items() <= dict(s.jdisk.iterate()).items()
+    fresh = Pair("off", proot, s.jdisk, s.pdisk)
+    for a in addrs:
+        fresh("get_balance", a)
+        fresh("get_nonce", a)
+        for k in keys:
+            fresh("get_state", a, k)
+
+
+def test_rawdb_lean_rows_and_inspect_database(monkeypatch):
+    """The lean node rows and inspect_database lay out and sort keys as
+    the JAX package's; verify-on-read counts db/verified_reads and
+    db/verify_failures."""
+    from coreth_tpu.core import rawdb as jrawdb
+    from coreth_tpu_torch.core import rawdb
+    from coreth_tpu_torch.core.types import Header
+    from coreth_tpu_torch.ethdb import CorruptDataError
+    from coreth_tpu_torch.metrics import default_registry
+
+    pdisk, jdisk = MemoryDB(), JMemoryDB()
+    h = Header(number=9)
+    for mod, disk in ((rawdb, pdisk), (jrawdb, jdisk)):
+        for slot in (2, 3, 70000):
+            blob = bytes([slot % 251]) * 40
+            mod.write_lean_node(disk, slot, keccak256(blob), blob)
+        mod.write_code(disk, keccak256(b"\x60"), b"\x60")
+        mod.write_header_rlp(disk, 9, h.hash(), h.encode())
+        mod.write_head_block_hash(disk, h.hash())
+        disk.put(keccak256(b"node"), b"node")
+    assert list(pdisk.iterate()) == list(jdisk.iterate())
+    assert rawdb.inspect_database(pdisk) == jrawdb.inspect_database(jdisk)
+    assert rawdb.lean_nodes_footprint(pdisk) == \
+        jrawdb.lean_nodes_footprint(jdisk)
+    assert rawdb.read_lean_node(pdisk, 3) == jrawdb.read_lean_node(jdisk, 3)
+    assert rawdb.read_lean_node(pdisk, 4) is None
+    with pytest.raises(ValueError):
+        rawdb.write_lean_node(pdisk, 5, b"\x00", b"x")
+    monkeypatch.setattr(rawdb, "verify_on_read", True)
+    ok = default_registry.counter("db/verified_reads").count()
+    bad = default_registry.counter("db/verify_failures").count()
+    assert rawdb.read_lean_node(pdisk, 2)[1] == bytes([2]) * 40
+    pdisk.put(rawdb.lean_node_key(2), keccak256(b"x") + b"y")
+    with pytest.raises(CorruptDataError):
+        rawdb.read_lean_node(pdisk, 2)
+    assert default_registry.counter("db/verified_reads").count() == ok + 1
+    assert default_registry.counter("db/verify_failures").count() == bad + 1
