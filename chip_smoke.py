@@ -2,15 +2,16 @@
 """Drive the PyTorch/CUDA port's three commit paths on one H100 and check them.
 
     python3 chip_smoke.py            # full size: 1,000,000 accounts
-    python3 chip_smoke.py --accounts 20000 --contracts 50   # a quick run
+    python3 chip_smoke.py --accounts 20000 --contracts 50 --blocks 4 \
+        --evm-blocks 2                                      # a quick run
     python3 chip_smoke.py --device cpu --accounts 2000 --contracts 8
         # rehearsal on the CPU with the plain versions; prints no result
 
 Phases (each passes or the script exits non-zero):
   1. card: nvidia-smi name and power limit, torch and CUDA versions
-  2. build: the host Keccak and the native planners (g++), kernels K1 and
-     K2 (nvcc), in parallel; ptxas registers and spills of their four
-     kernels
+  2. build: the host Keccak, the native planners and the native secp256k1
+     (g++), kernels K1 and K2 (nvcc), in parallel; ptxas registers and
+     spills of their four kernels
   3. K1 against its plain torch version over a (P, L) grid, bit for bit,
      plus the known Keccak vectors, through each variant forced (1: one
      thread per lane, 2: cooperative) and the launch's own choice; the
@@ -23,7 +24,9 @@ Phases (each passes or the script exits non-zero):
      (1, 4) on CUDA events and in the profiler's trace, and the crossover
      that sets kCoopMaxLanes
   5. planned genesis: the 1M-account world (1,000 contracts x 100 storage
-     slots, with code) as a Genesis alloc, Genesis.commit into a MemoryDB
+     slots, each with the hand-assembled store-and-log code STORE_AND_LOG;
+     1,500 plain accounts at addresses of seeded private keys, each with at
+     least 10^21 wei) as a Genesis alloc, Genesis.commit into a MemoryDB
      through a TrieDatabase on get_batch_keccak("planned"): every storage
      trie and the account trie in one K1 program; the root must equal the
      CPU Hasher's root of an independent trie built from the same items,
@@ -42,6 +45,28 @@ Phases (each passes or the script exits non-zero):
      account the block touched, 1,000 others and every slot written; on
      the batched state through intermediate_root. Every root checked
      against the oracle
+  7b. EVM: --evm-blocks (4) blocks of signed type-2 transactions on
+     TEST_CHAIN_CONFIG (15,000,000 gas, tip 0), each filled to over 90% of
+     its gas limit: 23 calls to seeded genesis contracts, each storing 20
+     slots (half existing, half new) and logging once, among transfers
+     from the keyed accounts to seeded plain accounts. Signed once; each
+     mode's run decodes them anew and recovers its own senders (native
+     secp256k1, Signer.sender_batch), then generate_chain from the planned
+     genesis (EVM, receipts, the dummy engine's finalize_and_assemble, whose
+     StateDB.intermediate_root is the device commit, then StateDB.commit)
+     on a TrieDatabase of its own over the genesis store, in three modes:
+     off (CPU Hasher), batched (K2) and planned (K1). Block for block the
+     three give equal block hashes, header roots, receipts, blooms and gas
+     used, and each root equals an oracle derived from the transaction
+     list, the receipts' gas used and the base fee alone (no EVM). The
+     planned chain's last root is committed and every account and slot
+     the blocks touched, the coinbase and 1,000 others read back through a
+     fresh TrieDatabase. Every K1 (planned) and K2 (batched) input is held
+     against the plain version and timed; each launch ran the variant its
+     shape calls for. Per block and mode it prints transactions, gas,
+     sender recovery, EVM, finalize_and_assemble (intermediate_root,
+     derive_sha), StateDB.commit, device window, launches, Mgas/s and the
+     garbage collector's pauses
   8. the mirrors (the resident path, K1): one ordered leaf scan
      (trie/iterator.iterate_leaves) of the planned genesis' persisted
      account trie boots three ResidentAccountMirrors, each installed on a
@@ -87,6 +112,7 @@ imported.
 from __future__ import annotations
 
 import argparse
+import copy
 import gc
 import json
 import resource
@@ -100,8 +126,13 @@ import numpy as np
 import torch
 
 from coreth_tpu_torch import params, rlp
+from coreth_tpu_torch.consensus.dummy import new_dummy_engine
+from coreth_tpu_torch.core import types as types_mod
+from coreth_tpu_torch.core.chain_makers import generate_chain
 from coreth_tpu_torch.core.genesis import Genesis, GenesisAccount
 from coreth_tpu_torch.core.state_manager import ResidentTrieWriter
+from coreth_tpu_torch.core.types import Signer, Transaction
+from coreth_tpu_torch.crypto.secp256k1 import priv_to_address
 from coreth_tpu_torch.device import resolve
 from coreth_tpu_torch.ethdb import MemoryDB
 from coreth_tpu_torch.native import keccak256, keccak256_batch, mpt
@@ -162,6 +193,53 @@ KERNEL_NAMES = {
            keccak_cuda.COOP: "keccak_blocks_coop_kernel"},
 }
 VARIANT_NAME = {keccak_cuda.THREAD: "thread", keccak_cuda.COOP: "coop"}
+
+# The genesis contracts' code, assembled by hand: for each 64-byte (key,
+# value) pair of the calldata SSTORE value at key, then one LOG1 whose data
+# is the first pair and whose topic is the caller; zero-padded to 64 bytes.
+STORE_AND_LOG = bytes([
+    0x60, 0x00,  # 00 PUSH1 0        i
+    0x5B,        # 02 JUMPDEST       loop: [i]
+    0x80,        # 03 DUP1
+    0x36,        # 04 CALLDATASIZE
+    0x11,        # 05 GT             size > i
+    0x15,        # 06 ISZERO
+    0x60, 0x18,  # 07 PUSH1 0x18
+    0x57,        # 09 JUMPI          done -> 0x18
+    0x80,        # 0a DUP1
+    0x60, 0x20,  # 0b PUSH1 32
+    0x01,        # 0d ADD
+    0x35,        # 0e CALLDATALOAD   value = calldata[i + 32]
+    0x81,        # 0f DUP2
+    0x35,        # 10 CALLDATALOAD   key = calldata[i]
+    0x55,        # 11 SSTORE
+    0x60, 0x40,  # 12 PUSH1 64
+    0x01,        # 14 ADD            i += 64
+    0x60, 0x02,  # 15 PUSH1 0x02
+    0x56,        # 17 JUMP
+    0x5B,        # 18 JUMPDEST       done: [i]
+    0x33,        # 19 CALLER         the log's topic
+    0x60, 0x40,  # 1a PUSH1 64
+    0x60, 0x00,  # 1c PUSH1 0
+    0x60, 0x00,  # 1e PUSH1 0
+    0x37,        # 20 CALLDATACOPY   memory[0:64] = calldata[0:64]
+    0x60, 0x40,  # 21 PUSH1 64
+    0x60, 0x00,  # 23 PUSH1 0
+    0xA1,        # 25 LOG1           (0, 64, caller)
+    0x00,        # 26 STOP
+])
+CONTRACT_CODE = STORE_AND_LOG + bytes(64 - len(STORE_AND_LOG))
+# The EVM phase's blocks: ~half the gas in 20-write contract calls (about
+# 315,000 gas each; planned at EVM_CALL_PLAN so the block never overfills),
+# the rest in 21,000-gas transfers, to EVM_FILL of the gas limit.
+EVM_KEYED = 1500
+EVM_CALLS = 23
+EVM_WRITES = 20
+EVM_CALL_PLAN = 320_000
+EVM_CALL_GAS = 400_000
+EVM_FILL = 0.975
+EVM_MAX_FEE = 10**12  # above every base fee of a few blocks; tip 0
+EVM_COINBASE = b"\x00" * 20  # chain_makers' header coinbase
 
 
 def check(cond: bool, what: str) -> None:
@@ -269,9 +347,11 @@ def phase_build(dev) -> None:
         times[name] = time.perf_counter() - t0
 
     from coreth_tpu_torch import native
+    from coreth_tpu_torch.native import secp
     jobs = [("host keccak (g++)", native.load),
             ("native planner (g++)", mpt.load),
-            ("native incremental trie (g++)", mpt.load_inc)]
+            ("native incremental trie (g++)", mpt.load_inc),
+            ("native secp256k1 (g++)", secp.load)]
     if dev.type == "cuda":
         jobs.append(("K1 segment_keccak (nvcc)", keccak_cuda.K1.load))
         jobs.append(("K2 keccak_blocks (nvcc)", keccak_cuda.K2.load))
@@ -638,7 +718,7 @@ class World:
     """The state's items, kept apart from the port's tries: the oracle is
     built from these, never from the tries the main path hashed."""
 
-    def __init__(self, n_accounts, n_contracts, n_slots, seed):
+    def __init__(self, n_accounts, n_contracts, n_slots, seed, n_keyed=0):
         rng = np.random.default_rng(seed)
         raw = rng.bytes(20 * n_accounts)
         self.addrs = [raw[20 * i:20 * i + 20] for i in range(n_accounts)]
@@ -652,7 +732,7 @@ class World:
         # them (normalize_state_key)
         self.storage = {}
         for c in range(n_contracts):
-            self.code[c] = rng.bytes(64)
+            self.code[c] = CONTRACT_CODE
             self.code_hash[c] = keccak256(self.code[c])
             keys = rng.bytes(32 * n_slots)
             vals = rng.bytes(32 * n_slots)
@@ -660,11 +740,27 @@ class World:
                 normalize_state_key(keys[32 * s:32 * s + 32]):
                     b"\x01" + vals[32 * s + 1:32 * s + 32]
                 for s in range(n_slots)}
+        # the first n_keyed plain accounts: addresses of seeded private keys,
+        # each with at least 10^21 wei (the EVM phase's senders)
+        self.keyed = []  # [(account index, private key)]
+        for i in range(n_contracts, min(n_contracts + n_keyed, n_accounts)):
+            key = b"\x01" + rng.bytes(31)
+            self.addrs[i] = priv_to_address(key)
+            self.balance[i] += 10**21
+            self.keyed.append((i, key))
         self.rng = rng
 
     def account(self, i, root) -> Account:
         return Account(nonce=self.nonce[i], balance=self.balance[i],
                        root=root, code_hash=self.code_hash[i])
+
+    def snapshot(self) -> "World":
+        """A copy whose balances, nonces and slots change apart from this
+        one's (addresses, code and keys are shared)."""
+        w = copy.copy(self)
+        w.nonce, w.balance = list(self.nonce), list(self.balance)
+        w.storage = {c: dict(slots) for c, slots in self.storage.items()}
+        return w
 
 
 def slot_value(v: bytes) -> bytes:
@@ -702,6 +798,17 @@ class Oracle:
 
     def root(self) -> bytes:
         return bytes(Hasher().hash(self.trie.root, True)[0])
+
+    def snapshot(self, world: World) -> "Oracle":
+        """An oracle over `world` (a snapshot of this one's) that updates
+        apart from this one: the tries are shared until written, since a
+        Trie update copies the nodes on its path."""
+        o = copy.copy(self)
+        o.world = world
+        o.storage = {c: copy.copy(t) for c, t in self.storage.items()}
+        o.roots = dict(self.roots)
+        o.trie = copy.copy(self.trie)
+        return o
 
 
 class _Timed:
@@ -1789,6 +1896,371 @@ def phase_watchdog_drill(dev, seed: int, timeout: float = 2.0) -> None:
         f"({wall:.1f} ms)")
 
 
+# ------------------------------------------------------------ the EVM phase
+
+class _EvmTx:
+    """One signed transaction of the EVM phase and what it must do: the
+    sender's and receiver's account indices, the value and, for a contract
+    call, the slots its calldata writes."""
+
+    __slots__ = ("blob", "sender", "to", "value", "writes")
+
+    def __init__(self, blob, sender, to, value, writes):
+        self.blob, self.sender, self.to = blob, sender, to
+        self.value, self.writes = value, writes
+
+
+def evm_transactions(world: World, n_blocks: int, seed: int):
+    """Signed transactions of `n_blocks` blocks on TEST_CHAIN_CONFIG (type 2,
+    tip 0, fee cap EVM_MAX_FEE), planned against `world` at genesis: per
+    block EVM_CALLS calls to distinct seeded contracts, each writing
+    EVM_WRITES slots (half existing, half new) and logging once, spread
+    evenly among transfers of seeded values from keyed senders to seeded
+    plain accounts that fill the block to EVM_FILL of its gas limit. The
+    keyed senders sign in turn, each at its next nonce. Returns [[_EvmTx]]
+    per block."""
+    cfg = params.TEST_CHAIN_CONFIG
+    signer = Signer(cfg.chain_id)
+    rng = np.random.default_rng(seed)
+    n, n_contracts = len(world.addrs), len(world.storage)
+    lo = n_contracts + len(world.keyed)
+    receivers = np.arange(lo if lo < n else n_contracts, n)
+    nonces = {i: world.nonce[i] for i, _ in world.keyed}
+    n_calls = min(EVM_CALLS, n_contracts)
+    n_transfers = (int(EVM_FILL * params.CORTINA_GAS_LIMIT)
+                   - n_calls * EVM_CALL_PLAN) // 21000
+    total = n_calls + n_transfers
+    blocks = []
+    for _ in range(n_blocks):
+        contracts = rng.choice(n_contracts, n_calls, replace=False)
+        call_at = {round(j * total / n_calls): int(c)
+                   for j, c in enumerate(contracts)}
+        txs = []
+        for pos in range(total):
+            i, key = world.keyed[(len(blocks) * total + pos)
+                                 % len(world.keyed)]
+            writes, data, value, gas = None, b"", 0, 21000
+            if pos in call_at:
+                to = call_at[pos]
+                old = list(world.storage[to])
+                writes = {old[int(k)]: b"\x04" + rng.bytes(31)
+                          for k in rng.choice(len(old), min(
+                              EVM_WRITES // 2, len(old)), replace=False)}
+                while len(writes) < EVM_WRITES:
+                    k = normalize_state_key(rng.bytes(32))
+                    if k not in world.storage[to]:
+                        writes[k] = b"\x05" + rng.bytes(31)
+                data = b"".join(k + v for k, v in writes.items())
+                gas = EVM_CALL_GAS
+            else:
+                to = int(rng.choice(receivers))
+                value = int(rng.integers(1, 10**15))
+            tx = Transaction(type=2, chain_id=cfg.chain_id, nonce=nonces[i],
+                             max_priority_fee=0, max_fee=EVM_MAX_FEE,
+                             gas=gas, to=world.addrs[to], value=value,
+                             data=data)
+            nonces[i] += 1
+            txs.append(_EvmTx(signer.sign(tx, key).encode(), i, to, value,
+                              writes))
+        blocks.append(txs)
+    return blocks
+
+
+def evm_oracle_block(world: World, oracle: Oracle, txs, receipts, base_fee,
+                     coinbase: list):
+    """The block's post-state root from its transaction list, each
+    receipt's gas_used and the header's base fee, with no EVM: the sender
+    pays value + gas_used x price (tip 0: the price is the base fee) and
+    its nonce goes up by one, the receiver gets the value, the coinbase the
+    fees (coinbase[0], updated), the contract's slots take the calldata's
+    values. Applied to `world` and `oracle`. Returns (root, accounts
+    touched, {contract: writes})."""
+    price = min(EVM_MAX_FEE, base_fee)
+    touched, writes = set(), defaultdict(dict)
+    for tx, r in zip(txs, receipts):
+        fee = r.gas_used * price
+        world.balance[tx.sender] -= tx.value + fee
+        world.nonce[tx.sender] += 1
+        world.balance[tx.to] += tx.value
+        if tx.writes:
+            writes[tx.to].update(tx.writes)
+        touched.update((tx.sender, tx.to))
+        coinbase[0] += fee
+    for c, w in writes.items():
+        world.storage[c].update(w)
+    oracle.apply(sorted(touched), writes)
+    oracle.trie.update(keccak256(EVM_COINBASE),
+                       Account(balance=coinbase[0]).encode())
+    return oracle.root(), touched, writes
+
+
+class _K2Recorder(_BlocksRecorder):
+    """_BlocksRecorder that also keeps the variant each launch ran (none on
+    the CPU)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ran = []
+
+    def __call__(self, words, nblocks):
+        coop = keccak_cuda.blocks_launches_coop
+        out = super().__call__(words, nblocks)
+        if words.is_cuda:
+            self.ran.append(keccak_cuda.COOP
+                            if keccak_cuda.blocks_launches_coop > coop
+                            else keccak_cuda.THREAD)
+        return out
+
+
+def check_variants_k2(rec: _K2Recorder, label) -> dict:
+    """check_variants for K2: each launch ran the variant its lane count
+    calls for (cooperative up to K2's kCoopMaxLanes)."""
+    check(len(rec.records) > 0, f"{label}: no K2 launch recorded")
+    limit = keccak_cuda.K2.coop_max_lanes
+    ran = defaultdict(int)
+    for (words, _n, _out), v in zip(rec.records, rec.ran):
+        want = (keccak_cuda.COOP if words.shape[0] <= limit
+                else keccak_cuda.THREAD)
+        check(v == want, f"{label}: B={words.shape[0]} ran variant {v}, "
+              f"the shape calls for {want}")
+        ran[v] += 1
+    return dict(ran)
+
+
+class _EvmTimed(_Timed):
+    """_Timed with DeriveSha (Block.assemble's transaction and receipt
+    roots) wrapped too."""
+
+    METHODS = _Timed.METHODS + ((types_mod, "derive_sha"),)
+    DERIVE_SHA = f"{types_mod.__name__}.derive_sha"
+
+
+class _TimedEngine:
+    """The dummy engine, its finalize_and_assemble timed: wall ms, the
+    StateDB.intermediate_root ms inside it and the K1 and K2 launches it
+    made."""
+
+    def __init__(self, timed: _Timed):
+        self.engine = new_dummy_engine()
+        self.timed = timed
+        self.ms = self.root_ms = 0.0
+        self.k1 = self.k2 = 0
+
+    def finalize_and_assemble(self, *a, **kw):
+        ir = self.timed.ms["StateDB.intermediate_root"]
+        k1, k2 = keccak_cuda.launches, keccak_cuda.blocks_launches
+        t0 = time.perf_counter()
+        block = self.engine.finalize_and_assemble(*a, **kw)
+        self.ms = (time.perf_counter() - t0) * 1e3
+        self.root_ms = self.timed.ms["StateDB.intermediate_root"] - ir
+        self.k1 = keccak_cuda.launches - k1
+        self.k2 = keccak_cuda.blocks_launches - k2
+        return block
+
+
+class EvmRun:
+    """One mode's chain: the blocks, their receipts, its TrieDatabase, the
+    kernel recorder (planned: K1, batched: K2) and the run's launches."""
+
+    def __init__(self, mode, tdb, rec):
+        self.mode, self.tdb, self.rec = mode, tdb, rec
+        self.blocks, self.receipts = [], []
+        self.k1 = self.k1_coop = self.k2 = self.k2_coop = self.pad = 0
+
+
+def evm_mode_run(dev, mode, world: World, diskdb, gen_block, signed, card):
+    """`signed` through generate_chain, one block a call, from the planned
+    genesis on a TrieDatabase of the mode's own over `diskdb`: "off" (no
+    marker: the CPU Hasher), "batched" (get_batch_keccak("batched"), its
+    BatchedKeccak's impl a recorder that launches K2) or "planned" (the
+    planned marker over a PlannedCommit whose seg_impl launches K1 and
+    records). Each block decodes its transactions anew, recovers their
+    senders in one native batch (Signer.sender_batch, the sender cacher's
+    seam) and adds them through BlockGen.add_tx. Counts are zeroed before
+    the run and read after it. Logs each block's split."""
+    cfg = params.TEST_CHAIN_CONFIG
+    rec, marker = None, None
+    if mode == "planned":
+        rec = _K1Recorder()
+        marker = PlannedMode(PlannedCommit(seg_impl=rec, device=dev))
+    elif mode == "batched":
+        rec = _K2Recorder()
+        marker = get_batch_keccak("batched", dev)
+        marker.batched.impl = rec
+    tdb = TrieDatabase(diskdb, batch_keccak=marker)
+    db = Database(tdb)
+    run = EvmRun(mode, tdb, rec)
+    signer = Signer(cfg.chain_id)
+    keccak_cuda.reset_counts()
+    planned_mod.planned_fallbacks = 0
+    parent = gen_block
+    for txs in signed:
+        ms = {}
+        if mode == "batched":
+            marker.batched.reset_totals()
+
+        def gen(_i, bg, txs=txs, ms=ms):
+            t0 = time.perf_counter()
+            decoded = [Transaction.decode(t.blob) for t in txs]
+            t1 = time.perf_counter()
+            signer.sender_batch(decoded)
+            t2 = time.perf_counter()
+            check([signer.sender(tx) for tx in decoded]
+                  == [world.addrs[t.sender] for t in txs],
+                  f"evm {mode}: a recovered sender differs")
+            t3 = time.perf_counter()
+            for tx in decoded:
+                bg.add_tx(tx)
+            ms.update(decode=(t1 - t0) * 1e3, recover=(t2 - t1) * 1e3,
+                      evm=(time.perf_counter() - t3) * 1e3)
+
+        k1, k2 = keccak_cuda.launches, keccak_cuda.blocks_launches
+        k1c, k2c = keccak_cuda.launches_coop, keccak_cuda.blocks_launches_coop
+        with _EvmTimed() as timed, _GcPauses() as pauses:
+            engine = _TimedEngine(timed)
+            t0 = time.perf_counter()
+            (block,), (receipts,) = generate_chain(cfg, parent, engine, db, 1,
+                                                   gen=gen)
+            wall = (time.perf_counter() - t0) * 1e3
+        k1 = keccak_cuda.launches - k1
+        k2 = keccak_cuda.blocks_launches - k2
+        run.k1, run.k2 = run.k1 + k1, run.k2 + k2
+        run.k1_coop += keccak_cuda.launches_coop - k1c
+        run.k2_coop += keccak_cuda.blocks_launches_coop - k2c
+        commit_ms = timed.ms["StateDB.commit"]
+        win = "host (CPU Hasher)"
+        if mode == "planned":
+            pc = marker.commit
+            win = ("not measured (cpu)" if pc.last_device_ms is None else
+                   f"{pc.last_device_ms:.3f} ms (upload "
+                   f"{pc.last_upload_ms:.3f} ms), last planned program")
+        elif mode == "batched":
+            bk = marker.batched
+            run.pad += bk.padded_lanes - bk.lanes
+            win = ("not measured (cpu)" if bk.device_ms is None else
+                   f"{bk.device_ms:.3f} ms over {bk.calls} level batches")
+        timed_ms = ms["recover"] + ms["evm"] + engine.ms + commit_ms
+        gas = block.header.gas_used
+        log(f"evm {mode} block {block.number}: {len(txs)} transactions, gas "
+            f"used {gas} of {block.header.gas_limit} "
+            f"({100 * gas / block.header.gas_limit:.1f}%); decode "
+            f"{ms['decode']:.1f} ms, sender recovery (native batch) "
+            f"{ms['recover']:.1f} ms, EVM execution {ms['evm']:.1f} ms, "
+            f"finalize_and_assemble {engine.ms:.1f} ms (intermediate_root "
+            f"{engine.root_ms:.1f} ms, derive_sha "
+            f"{timed.ms[_EvmTimed.DERIVE_SHA]:.1f} ms; K1 launches "
+            f"{engine.k1}, K2 launches {engine.k2}), StateDB.commit "
+            f"{commit_ms:.1f} ms (K1 launches {k1 - engine.k1}, K2 launches "
+            f"{k2 - engine.k2}); device window {win}; "
+            f"{gas / timed_ms / 1e3:.3f} Mgas/s over recovery + EVM + "
+            f"finalize_and_assemble + commit; generate_chain wall "
+            f"{wall:.1f} ms; garbage collector pauses ({pauses}); {card}")
+        run.blocks.append(block)
+        run.receipts.append(receipts)
+        parent = block
+    if mode == "batched":
+        marker.batched.impl = keccak_cuda.keccak256_blocks
+    check(planned_mod.planned_fallbacks == 0, f"evm {mode}: planned fallback")
+    cuda = dev.type == "cuda"
+    if mode == "off":
+        check(run.k1 == run.k2 == 0, f"evm off: K1 {run.k1}, K2 {run.k2}")
+    elif mode == "planned":
+        check(run.k2 == 0, f"evm planned: K2 launched {run.k2} times")
+        check(not cuda or run.k1 == len(rec.records) > 0,
+              f"evm planned: {run.k1} K1 launches, {len(rec.records)} "
+              f"recorded")
+    else:
+        check(run.k1 == 0, f"evm batched: K1 launched {run.k1} times")
+        check(not cuda or run.k2 == len(rec.records) > 0,
+              f"evm batched: {run.k2} K2 launches, {len(rec.records)} "
+              f"recorded")
+    return run
+
+
+def _block_summary(block, receipts):
+    return (block.hash(), block.header.root, block.header.receipt_hash,
+            block.header.bloom, block.header.gas_used, block.header.tx_hash,
+            [r.encode() for r in receipts])
+
+
+def phase_evm(dev, world: World, oracle: Oracle, diskdb, gen_block,
+              n_blocks, seed, card):
+    """The EVM phase (module docstring, phase 7b). `world` and `oracle` are
+    genesis snapshots, which the phase advances. Returns the planned and
+    batched EvmRuns."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    signed = evm_transactions(world, n_blocks, seed)
+    log(f"evm: {sum(len(b) for b in signed)} transactions of {n_blocks} "
+        f"blocks signed in {time.perf_counter() - t0:.1f} s")
+    runs = {mode: evm_mode_run(dev, mode, world, diskdb, gen_block, signed,
+                               card)
+            for mode in ("off", "batched", "planned")}
+    coinbase = [0]
+    touched_all, written = set(), defaultdict(set)
+    t0 = time.perf_counter()
+    for b, txs in enumerate(signed):
+        block, receipts = runs["off"].blocks[b], runs["off"].receipts[b]
+        check(all(r.status == 1 for r in receipts),
+              f"evm block {block.number}: a transaction failed")
+        for tx, r in zip(txs, receipts):
+            want_logs = []
+            if tx.writes:
+                k, v = next(iter(tx.writes.items()))
+                want_logs = [(world.addrs[tx.to],
+                              [b"\x00" * 12 + world.addrs[tx.sender]], k + v)]
+            check([(lg.address, lg.topics, lg.data) for lg in r.logs]
+                  == want_logs,
+                  f"evm block {block.number}: logs of a transaction")
+        gas = block.header.gas_used
+        check(gas >= 0.9 * block.header.gas_limit,
+              f"evm block {block.number}: gas used {gas} below 90% of "
+              f"{block.header.gas_limit}")
+        want, touched, writes = evm_oracle_block(
+            world, oracle, txs, receipts, block.header.base_fee, coinbase)
+        touched_all |= touched
+        for c, w in writes.items():
+            written[c].update(w)
+        summary = _block_summary(block, receipts)
+        for mode, run in runs.items():
+            got = _block_summary(run.blocks[b], run.receipts[b])
+            check(got == summary, f"evm {mode} block {block.number}: block "
+                  f"hash, roots, bloom, gas used or receipts differ from off")
+            check(run.blocks[b].header.root == want,
+                  f"evm {mode} block {block.number}: root "
+                  f"{run.blocks[b].header.root.hex()} != oracle {want.hex()}")
+        log(f"evm block {block.number}: off, batched and planned give block "
+            f"{block.hash().hex()}, root {want.hex()} == the EVM-independent "
+            f"oracle's, {len(txs)} receipts, gas used {gas}, base fee "
+            f"{block.header.base_fee}")
+    log(f"evm: oracle over {n_blocks} blocks in "
+        f"{time.perf_counter() - t0:.1f} s")
+    planned = runs["planned"]
+    last = planned.blocks[-1].header.root
+    t0 = time.perf_counter()
+    planned.tdb.commit(last)
+    log(f"evm planned: TrieDatabase.commit of the last root "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    read_back(world, diskdb, last, sorted(touched_all), written, seed + 1,
+              "evm planned")
+    back = StateDB(last, Database(TrieDatabase(diskdb)))
+    check(back.get_balance(EVM_COINBASE) == coinbase[0],
+          "evm planned: read-back of the coinbase's fees")
+    if dev.type == "cuda":
+        k1_ran = check_variants(planned.rec, "evm planned")
+        k2_ran = check_variants_k2(runs["batched"].rec, "evm batched")
+        log(f"evm: every K1 launch (planned) and K2 launch (batched) ran the "
+            f"variant its shape calls for: K1 " + ", ".join(
+                f"{VARIANT_NAME[v]} {n}" for v, n in k1_ran.items())
+            + "; K2 " + ", ".join(f"{VARIANT_NAME[v]} {n}"
+                                  for v, n in k2_ran.items()))
+    log(f"evm: K1 launches (planned) {planned.k1} (cooperative "
+        f"{planned.k1_coop}), K2 launches (batched) {runs['batched'].k2} "
+        f"(cooperative {runs['batched'].k2_coop}); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return planned, runs["batched"]
+
+
 def variants_json(launches: int, coop: int, *kernel_ms: dict) -> dict:
     """Per variant: main-path launches and kernel ms in the profiler's
     trace summed over the commits (None where a trace held no device time
@@ -1811,6 +2283,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=20)
     ap.add_argument("--blocks", type=int, default=16,
                     help="resident blocks after the first, one rejected")
+    ap.add_argument("--evm-blocks", type=int, default=4,
+                    help="blocks of signed transactions through the EVM")
     ap.add_argument("--device", default="cuda",
                     help="'cpu' rehearses with the plain versions")
     args = ap.parse_args()
@@ -1829,9 +2303,13 @@ def main() -> int:
 
     mark(t_start, "world and CPU oracle")
     t0 = time.perf_counter()
-    world = World(args.accounts, args.contracts, args.slots, args.seed)
+    world = World(args.accounts, args.contracts, args.slots, args.seed,
+                  n_keyed=EVM_KEYED)
     oracle = Oracle(world)
     oracle_root = oracle.root()
+    # the EVM phase's chain starts at genesis: its own snapshots
+    evm_world = world.snapshot()
+    evm_oracle = oracle.snapshot(evm_world)
     log(f"genesis: CPU oracle (independent tries) "
         f"{time.perf_counter() - t0:.1f} s; peak RSS {rss_gib():.1f} GiB")
 
@@ -1878,6 +2356,21 @@ def main() -> int:
         bb_rec, "batched block", bb_pad, profile_reps=10)
     del bb_rec
 
+    # signed transactions through the EVM and generate_chain, from the
+    # planned genesis, in the three modes (K1 planned, K2 batched)
+    mark(t_start, "evm")
+    evm_planned, evm_batched = phase_evm(
+        dev, evm_world, evm_oracle, diskdb, gen_block, args.evm_blocks,
+        args.seed + 5, card)
+    del evm_world, evm_oracle
+    e1_err, e1_ms, e1_plain, e1_shapes, e1_kernel = time_k1(
+        dev, [r[0] for r in evm_planned.rec.records], "evm planned",
+        per_segment=False, outputs=[r[1] for r in evm_planned.rec.records])
+    e2_err, e2_ms, e2_plain, e2_inputs, e2_kernel = check_and_time_k2(
+        evm_batched.rec, "evm batched", evm_batched.pad, profile_reps=10)
+    e2_pad = evm_batched.pad
+    del evm_planned.rec, evm_batched.rec
+
     # resident path (K1): the mirrors inside StateDB
     mark(t_start, "mirror")
     run, m_launches, m_coop, n_genesis = phase_mirror(
@@ -1910,19 +2403,24 @@ def main() -> int:
     mark(t_start, "fallback")
     phase_fallback(dev, args.seed)
 
-    k1_shapes = g_shapes + b_shapes + rg_shapes + rb_shapes
+    k1_shapes = g_shapes + b_shapes + e1_shapes + rg_shapes + rb_shapes
     k1_bound, k1_by = k1_bound_ms(k1_shapes)
     rk_bound, rk_by = k1_bound_ms(rg_shapes + rb_shapes)
     log(f"K1 bound over the mirror's inputs {rk_bound:.4f} ms ({rk_by}; "
         f"genesis {k1_bound_ms(rg_shapes)[0]:.4f} ms, blocks "
         f"{k1_bound_ms(rb_shapes)[0]:.4f} ms); K1 events {rg_ms:.4f} / "
         f"{rb_ms:.4f} ms")
-    k1_launches = g_launches + b_launches + m_launches
-    k1_coop = g_coop + b_coop + m_coop
-    k2_bound, k2_by = k2_bound_ms(bg_inputs + bb_inputs)
-    k2_real, _ = k2_bound_ms(bg_inputs + bb_inputs, bg_pad + bb_pad)
-    log(f"K2 bound over both commits {k2_bound:.4f} ms ({k2_by}), over "
-        f"their real lanes alone {k2_real:.4f} ms")
+    k1_launches = g_launches + b_launches + evm_planned.k1 + m_launches
+    k1_coop = g_coop + b_coop + evm_planned.k1_coop + m_coop
+    k2_inputs = bg_inputs + bb_inputs + e2_inputs
+    k2_bound, k2_by = k2_bound_ms(k2_inputs)
+    k2_real, _ = k2_bound_ms(k2_inputs, bg_pad + bb_pad + e2_pad)
+    log(f"K2 bound over the batched commits {k2_bound:.4f} ms ({k2_by}), "
+        f"over their real lanes alone {k2_real:.4f} ms")
+    log(f"launches on the main paths: K1 genesis {g_launches}, block "
+        f"{b_launches}, evm planned {evm_planned.k1}, mirrors {m_launches}; "
+        f"K2 batched genesis {bg_launches}, batched block {bb_launches}, "
+        f"evm batched {evm_batched.k2}")
     log(f"peak RSS {rss_gib():.1f} GiB")
     log(f"card {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
@@ -1931,28 +2429,30 @@ def main() -> int:
         "source": "coreth_tpu_torch/ops/csrc/segment_keccak.cu",
         "replaces": "coreth_tpu/ops/keccak_pallas.py:211",
         "launches": k1_launches,
-        "max_abs_err": max(grid_err, g_err, b_err, rg_err, rb_err),
-        "ms": g_ms + b_ms + rg_ms + rb_ms,
-        "plain_ms": g_plain + b_plain + rg_plain + rb_plain,
+        "max_abs_err": max(grid_err, g_err, b_err, e1_err, rg_err, rb_err),
+        "ms": g_ms + b_ms + e1_ms + rg_ms + rb_ms,
+        "plain_ms": g_plain + b_plain + e1_plain + rg_plain + rb_plain,
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": None,
         "variants": variants_json(k1_launches, k1_coop, g_kernel, b_kernel,
-                                  rg_kernel, rb_kernel),
+                                  e1_kernel, rg_kernel, rb_kernel),
     }, {
         "name": "keccak_blocks",
         "route": "cuda",
         "source": "coreth_tpu_torch/ops/csrc/keccak_blocks.cu",
         "replaces": "coreth_tpu/ops/keccak_pallas.py:126",
-        "launches": bg_launches + bb_launches,
-        "max_abs_err": max(grid2_err, bg_err, bb_err),
-        "ms": bg_ms + bb_ms,
-        "plain_ms": bg_plain + bb_plain,
+        "launches": bg_launches + bb_launches + evm_batched.k2,
+        "max_abs_err": max(grid2_err, bg_err, bb_err, e2_err),
+        "ms": bg_ms + bb_ms + e2_ms,
+        "plain_ms": bg_plain + bb_plain + e2_plain,
         "bound_ms": k2_bound,
         "bound_by": k2_by,
         "library_ms": None,
-        "variants": variants_json(bg_launches + bb_launches,
-                                  bg_coop + bb_coop, bg_kernel, bb_kernel),
+        "variants": variants_json(
+            bg_launches + bb_launches + evm_batched.k2,
+            bg_coop + bb_coop + evm_batched.k2_coop, bg_kernel, bb_kernel,
+            e2_kernel),
     }]}), flush=True)
     if dev.type != "cuda":
         return 0  # a rehearsal prints no result line

@@ -190,6 +190,60 @@ for i, (addr, acct) in enumerate(alloc.items()):
     assert back.get_balance(addr) == acct.balance + i + 1
     assert back.get_state(addr, b"\x02" * 32) == b"\x03" * 32
 assert rawdb.inspect_database(disk)["trieNodes"]["count"] > 0
+
+# signed transactions through the EVM and the block generator: two blocks
+# (transfers, then transfers and one contract call that stores and logs)
+# in planned mode, the header roots hashed by the planned program
+from coreth_tpu_torch.consensus.dummy import new_dummy_engine
+from coreth_tpu_torch.core.chain_makers import generate_chain
+from coreth_tpu_torch.core.types import Signer, Transaction
+from coreth_tpu_torch.crypto.secp256k1 import priv_to_address
+from coreth_tpu_torch.trie import planned
+
+keys = [bytes([i + 1]) * 32 for i in range(60)]
+senders = [priv_to_address(k) for k in keys]
+contract = b"\xcc" * 20
+# PUSH1 0 CALLDATALOAD PUSH1 0 SSTORE PUSH1 0 PUSH1 0 LOG0 STOP
+code = bytes.fromhex("60003560005560006000a000")
+cfg = params.TEST_CHAIN_CONFIG
+chain_alloc = {a: GenesisAccount(balance=10**21) for a in senders}
+chain_alloc[contract] = GenesisAccount(code=code, storage={
+    (i + 1).to_bytes(32, "big"): b"\x01" for i in range(40)})
+disk = MemoryDB()
+tdb = TrieDatabase(disk, batch_keccak=get_batch_keccak("planned", "cpu"))
+gen_block = Genesis(config=cfg, alloc=chain_alloc).commit(disk, Database(tdb))
+signer = Signer(cfg.chain_id)
+
+
+def gen(i, bg):
+    for j, k in enumerate(keys):
+        to = contract if (i, j) == (1, 0) else (0x7000 + j).to_bytes(20, "big")
+        bg.add_tx(signer.sign(Transaction(
+            type=2, chain_id=cfg.chain_id, nonce=i, max_fee=10**12, gas=90000,
+            to=to, value=5, data=b"\x2a" * 32 if to == contract else b""), k))
+
+
+runs = planned.PlannedGraphBuilder.run
+planned_runs = []
+
+
+def counted(self, *a, **kw):
+    planned_runs.append(1)
+    return runs(self, *a, **kw)
+
+
+planned.PlannedGraphBuilder.run = counted
+blocks, receipts = generate_chain(cfg, gen_block, new_dummy_engine(),
+                                  Database(tdb), 2, gen=gen)
+planned.PlannedGraphBuilder.run = runs
+assert planned_runs
+assert all(r.status == 1 for rs in receipts for r in rs)
+assert len(receipts[1][0].logs) == 1
+tdb.commit(blocks[-1].root)
+back = StateDB(blocks[-1].root, Database(TrieDatabase(disk)))
+assert back.get_state(contract, b"\x00" * 32) == b"\x2a" * 32
+assert back.get_nonce(senders[0]) == 2
+assert back.get_balance((0x7001).to_bytes(20, "big")) == 10
 leaked = [m for m in sys.modules if refused(m)]
 assert not leaked, leaked
 print("ISOLATED-OK")
@@ -231,7 +285,14 @@ def test_no_source_imports_jax_or_coreth_tpu():
     for mod in ("log.py", "metrics/__init__.py", "metrics/spans.py",
                 "metrics/tracectx.py", "fault/__init__.py",
                 "trie/iterator.py", "trie/resident_mirror.py",
-                "state/resident_trie.py", "core/state_manager.py"):
+                "state/resident_trie.py", "core/state_manager.py",
+                "vmerrs.py", "utils/__init__.py", "utils/deadline.py",
+                "native/secp.py", "crypto/__init__.py",
+                "crypto/secp256k1.py", "trie/stacktrie.py", "core/types.py",
+                "evm/opcodes.py", "evm/gas.py", "evm/bn256.py",
+                "evm/precompiles.py", "evm/interpreter.py", "evm/evm.py",
+                "core/state_transition.py", "core/state_processor.py",
+                "consensus/dummy.py", "core/chain_makers.py"):
         assert os.path.join("coreth_tpu_torch", mod) in names, mod
     assert not bad, bad
 
@@ -302,3 +363,47 @@ def test_resident_entry_points_without_cuda_raise(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         batch_storage_roots({b"\x03" * 20: (Account(), st)})
     assert st.trie.unhashed == 120  # left to the trie's own hash()
+
+
+@pytest.mark.parametrize("how", ["parallel_workers", "exec_shards_n",
+                                 "CORETH_TPU_EVM_PARALLEL",
+                                 "CORETH_TPU_EVM_EXEC_SHARDS"])
+def test_speculative_execution_raises(how, monkeypatch):
+    """The thread-parallel and sharded execution modes are item 3b.2: asked
+    for by knob or env override, the processor raises instead of running
+    the serial loop in their place, at construction and per block."""
+    from coreth_tpu_torch import params
+    from coreth_tpu_torch.core.state_processor import StateProcessor
+
+    cfg = params.TEST_CHAIN_CONFIG
+    if how.startswith("CORETH"):
+        proc = StateProcessor(cfg, None, None)
+        monkeypatch.setenv(how, "2")
+        with pytest.raises(NotImplementedError, match="3b.2"):
+            proc.process(None, None, None)
+        with pytest.raises(NotImplementedError, match="3b.2"):
+            StateProcessor(cfg, None, None)
+    else:
+        with pytest.raises(NotImplementedError, match="3b.2"):
+            StateProcessor(cfg, None, None, **{how: 2})
+    monkeypatch.setenv("CORETH_TPU_EVM_PARALLEL", "0")
+    monkeypatch.setenv("CORETH_TPU_EVM_EXEC_SHARDS", "0")
+    assert StateProcessor(cfg, None, None).config is cfg
+
+
+def test_failed_secp_build_raises(monkeypatch, tmp_path):
+    """A native secp256k1 that does not build raises; sender recovery does
+    not drift to pure Python."""
+    from coreth_tpu_torch.core.types import Signer, Transaction
+    from coreth_tpu_torch.native import secp
+
+    monkeypatch.setattr(secp, "_lib", None)
+    monkeypatch.setattr(secp, "_SRC", str(tmp_path / "missing.cpp"))
+    monkeypatch.setattr(secp, "build_and_load", lambda *a, **kw: (
+        _ for _ in ()).throw(RuntimeError("build of libsecp256k1.so failed")))
+    tx = Transaction(type=2, chain_id=1, gas=21000, to=b"\x01" * 20, v=0,
+                     r=5, s=7)
+    with pytest.raises(RuntimeError, match="build of libsecp256k1.so"):
+        Signer(1).sender(tx)
+    with pytest.raises(RuntimeError, match="build of libsecp256k1.so"):
+        Signer(1).sender_batch([tx])

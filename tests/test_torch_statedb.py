@@ -499,8 +499,7 @@ def test_genesis_on_card_equals_cpu(mode):
 def test_what_is_not_ported_raises():
     """The parts of the slice left for later items raise instead of
     running something else: a snapshot tree, the resident mirror's mesh
-    rung, an enabled stateful precompile, a block with transactions."""
-    from coreth_tpu_torch import rlp
+    rung, an enabled stateful precompile, a speculative execution mode."""
     from coreth_tpu_torch.core.types import Block, Header
     from coreth_tpu_torch.trie.resident_mirror import ResidentAccountMirror
 
@@ -518,11 +517,20 @@ def test_what_is_not_ported_raises():
     g = genesis.Genesis(config=cfg)
     with pytest.raises(NotImplementedError, match="item 9"):
         g.commit(MemoryDB(), Database(TrieDatabase(MemoryDB())))
-    with pytest.raises(NotImplementedError, match="3b"):
-        Block(Header(), [object()])
-    blob = rlp.encode([Header().rlp_items(), [b"\x01"], [], 0, b""])
-    with pytest.raises(NotImplementedError, match="3b"):
-        Block.decode(blob)
+    # transactions landed with item 3b.1: a block with one round-trips;
+    # the speculative execution modes of item 3b.2 raise
+    from coreth_tpu_torch.core.state_processor import StateProcessor
+    from coreth_tpu_torch.core.types import Transaction
+
+    tx = Transaction(type=2, chain_id=1, nonce=3, max_fee=7, gas=21000,
+                     to=b"\x02" * 20, value=5, v=1, r=2, s=3)
+    full = Block(Header(number=4), [tx])
+    back = Block.decode(full.encode())
+    assert [t.encode() for t in back.transactions] == [tx.encode()]
+    assert back.hash() == full.hash()
+    with pytest.raises(NotImplementedError, match="3b.2"):
+        StateProcessor(params.TEST_CHAIN_CONFIG, None, None,
+                       parallel_workers=2)
     empty = Block(Header(number=3))
     assert Block.decode(empty.encode()).hash() == empty.hash()
 
