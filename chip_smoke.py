@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's three commit paths on one H100 and check them.
+"""Drive the PyTorch/CUDA port's commit paths and chain on one H100; check them.
 
     python3 chip_smoke.py            # full size: 1,000,000 accounts
     python3 chip_smoke.py --accounts 20000 --contracts 50 --blocks 4 \
@@ -23,17 +23,26 @@ Phases (each passes or the script exits non-zero):
   4b. the variant sweep: both variants of K1 and K2 at B in SWEEP_B x L in
      (1, 4) on CUDA events and in the profiler's trace, and the crossover
      that sets kCoopMaxLanes
-  5. planned genesis: the 1M-account world (1,000 contracts x 100 storage
-     slots, each with the hand-assembled store-and-log code STORE_AND_LOG;
-     1,500 plain accounts at addresses of seeded private keys, each with at
-     least 10^21 wei) as a Genesis alloc, Genesis.commit into a MemoryDB
-     through a TrieDatabase on get_batch_keccak("planned"): every storage
-     trie and the account trie in one K1 program; the root must equal the
-     CPU Hasher's root of an independent trie built from the same items,
-     and the same plan run through the plain version must give every
-     lane's digest. Prints the wall split (alloc writes, finalise,
-     intermediate_root, trie commit into NodeSets, TrieDatabase.update and
-     .commit) and what the MemoryDB holds
+  5. planned genesis, through the chain: the 1M-account world (1,000
+     contracts x 100 storage slots, each with the hand-assembled
+     store-and-log code STORE_AND_LOG; 1,500 plain accounts at addresses
+     of seeded private keys, each with at least 10^21 wei) as a Genesis
+     alloc, and BlockChain(CacheConfig(), device=cuda) over a MemoryDB and
+     a TrieDatabase on get_batch_keccak("planned"): its _setup_genesis is
+     Genesis.commit, every storage trie and the account trie in one K1
+     program; then the reference's default CacheConfig boots the resident
+     mirror ("auto" on CUDA: one leaf scan, the mirror's genesis commit on
+     K1), generates the snapshot tree's disk layer and backfills the bloom
+     index. The root must equal the CPU Hasher's root of an independent
+     trie built from the same items, and the same plan run through the
+     plain version must give every lane's digest; the mirror must be on
+     the device; the mirror boot's K1 launches are recorded, each held
+     against the plain version and timed. Prints the boot split
+     (_setup_genesis, mirror boot with its leaf scan, snapshot generation,
+     bloom backfill), the commit's
+     wall split (alloc writes, finalise, intermediate_root, trie commit
+     into NodeSets, TrieDatabase.update and .commit) and what the
+     MemoryDB holds
   6. batched genesis commit: the same items in fresh tries committed by
      intermediate_root on get_batch_keccak("batched"): every trie above
      the threshold hashed level by level through K2; the same oracle root,
@@ -54,7 +63,8 @@ Phases (each passes or the script exits non-zero):
      secp256k1, Signer.sender_batch), then generate_chain from the planned
      genesis (EVM, receipts, the dummy engine's finalize_and_assemble, whose
      StateDB.intermediate_root is the device commit, then StateDB.commit)
-     on a TrieDatabase of its own over the genesis store, in three modes:
+     on a TrieDatabase of its own over an overlay of the genesis store
+     (reads fall through, writes stay in the overlay), in three modes:
      off (CPU Hasher), batched (K2) and planned (K1). Block for block the
      three give equal block hashes, header roots, receipts, blooms and gas
      used, and each root equals an oracle derived from the transaction
@@ -67,6 +77,25 @@ Phases (each passes or the script exits non-zero):
      sender recovery, EVM, finalize_and_assemble (intermediate_root,
      derive_sha), StateDB.commit, device window, launches, Mgas/s and the
      garbage collector's pauses
+  7c. chain: the EVM blocks, decoded anew, into the chain of phase 5 the
+     way a validator takes them, back to back (each block's insert tail
+     overlapping the next insert): insert_block (the sender cacher,
+     StateProcessor.process, validate_state, StateDB.commit with the
+     header root handed to the mirror: the storage tries in one planned
+     program on K1, the account trie on the mirror's ResidentExecutor on
+     K1), set_preference, accept, the acceptor queue drained, stop() (the
+     shutdown export). Every commit root equals the header root (the EVM
+     phase held those against its oracle) and the mirror's; the head is
+     the last block; no bad block; no device wedge, takeover, fallback,
+     pipeline divergence or mirror quarantine counted; the snapshot's
+     account of every touched address equals the trie's; after stop() the
+     last root reads back through a fresh TrieDatabase. The planned
+     programs and the executor launch K1 through recorders: both ran, each
+     launch the variant its shape calls for, every input held against the
+     plain version. Per block it prints the flight record's phases
+     (recover, verify, execute, validate, commit, write), the resident
+     timers, the mirror's device window, K1 launches and Mgas/s over the
+     insert; then the accept and shutdown-export times
   8. the mirrors (the resident path, K1): one ordered leaf scan
      (trie/iterator.iterate_leaves) of the planned genesis' persisted
      account trie boots three ResidentAccountMirrors, each installed on a
@@ -104,7 +133,7 @@ JSON line).
 Before the last line it prints one JSON object describing each kernel
 (launches on its main paths, max error, ms, plain ms, bound ms, and per
 variant its launches and kernel ms in the profiler's trace; K1's entry
-sums the planned path and the mirrors); the last
+sums the planned path, the chain and the mirrors); the last
 line is {"ok": true, "device": {...}}. Nothing of jax or coreth_tpu is
 imported.
 """
@@ -128,13 +157,15 @@ import torch
 from coreth_tpu_torch import params, rlp
 from coreth_tpu_torch.consensus.dummy import new_dummy_engine
 from coreth_tpu_torch.core import types as types_mod
+from coreth_tpu_torch.core.blockchain import BlockChain, CacheConfig
+from coreth_tpu_torch.core.bloom_index import BloomIndexer
 from coreth_tpu_torch.core.chain_makers import generate_chain
 from coreth_tpu_torch.core.genesis import Genesis, GenesisAccount
 from coreth_tpu_torch.core.state_manager import ResidentTrieWriter
-from coreth_tpu_torch.core.types import Signer, Transaction
+from coreth_tpu_torch.core.types import Block, Signer, Transaction
 from coreth_tpu_torch.crypto.secp256k1 import priv_to_address
 from coreth_tpu_torch.device import resolve
-from coreth_tpu_torch.ethdb import MemoryDB
+from coreth_tpu_torch.ethdb import KeyValueStore, MemoryDB
 from coreth_tpu_torch.native import keccak256, keccak256_batch, mpt
 from coreth_tpu_torch.native.mpt import DeviceWedgedError, IncrementalTrie, \
     plan_from_items
@@ -151,7 +182,9 @@ from coreth_tpu_torch.ops.keccak_torch import RATE, BatchedKeccak, \
 from coreth_tpu_torch.state.account import EMPTY_CODE_HASH, Account, \
     normalize_state_key
 from coreth_tpu_torch.state.database import Database
-from coreth_tpu_torch.state.statedb import StateDB, intermediate_root
+from coreth_tpu_torch.state.snapshot import Tree as SnapshotTree
+from coreth_tpu_torch.state.statedb import StateDB, _slim_to_account, \
+    intermediate_root
 from coreth_tpu_torch.trie import hasher as hasher_mod
 from coreth_tpu_torch.trie import planned as planned_mod
 from coreth_tpu_torch.trie.hasher import Hasher
@@ -1057,11 +1090,73 @@ def genesis_alloc(world: World) -> Genesis:
         for i, addr in enumerate(world.addrs)})
 
 
+class _ChainBoot:
+    """While open: the wall ms of the chain's boot steps (BlockChain.
+    _setup_genesis, _boot_mirror and the ResidentAccountMirror
+    construction inside it, the snapshot Tree's _generate, the bloom
+    backfill's BloomIndexer.add_block calls) and the K1 launches of the
+    mirror boot, each recorded (`rec`): inside _boot_mirror the module's
+    segment_keccak, which the mirror's ResidentExecutor takes as its
+    default at construction, is a _K1Recorder over it."""
+
+    STEPS = ((BlockChain, "_setup_genesis"), (BlockChain, "_boot_mirror"),
+             (ResidentAccountMirror, "__init__"), (SnapshotTree, "_generate"),
+             (BloomIndexer, "add_block"))
+
+    def __init__(self):
+        self.ms = defaultdict(float)
+        self.boot_launches = self.boot_coop = 0
+        self.rec = _K1Recorder(keccak_cuda.segment_keccak)
+        self._saved = []
+
+    def __enter__(self):
+        for cls, name in self.STEPS:
+            orig = getattr(cls, name)
+            label = f"{cls.__name__}.{name}"
+
+            def timed(*a, _orig=orig, _label=label, **kw):
+                boot = _label == "BlockChain._boot_mirror"
+                l0, c0 = keccak_cuda.launches, keccak_cuda.launches_coop
+                if boot:
+                    keccak_cuda.segment_keccak = self.rec
+                t0 = time.perf_counter()
+                try:
+                    return _orig(*a, **kw)
+                finally:
+                    self.ms[_label] += (time.perf_counter() - t0) * 1e3
+                    if boot:
+                        keccak_cuda.segment_keccak = self.rec.launch
+                        self.boot_launches += keccak_cuda.launches - l0
+                        self.boot_coop += keccak_cuda.launches_coop - c0
+            self._saved.append((cls, name, orig))
+            setattr(cls, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, orig in reversed(self._saved):
+            setattr(cls, name, orig)
+
+
+def chain_cache_config(dev) -> CacheConfig:
+    """The reference's default CacheConfig: its "auto" boots the resident
+    mirror on CUDA. The CPU rehearsal asks for the mirror, which "auto"
+    leaves off there."""
+    if dev.type == "cuda":
+        return CacheConfig()
+    return CacheConfig(resident_account_trie=True)
+
+
 def phase_genesis(dev, world: World, oracle_root: bytes):
-    """Genesis.commit of the world on the planned marker: every storage
-    trie and the account trie in one K1 program, persisted into a
-    MemoryDB. Returns (MemoryDB, TrieDatabase, genesis block, builder, K1
-    launches, of them cooperative)."""
+    """The planned genesis through BlockChain (module docstring, phase 5):
+    the chain's _setup_genesis is Genesis.commit on its TrieDatabase's
+    planned marker, every storage trie and the account trie in one K1
+    program, persisted into a MemoryDB; then, with the default
+    CacheConfig, the "auto" probe boots the resident mirror (one leaf scan,
+    the mirror's genesis commit on K1), the snapshot tree generates its
+    disk layer and the bloom index backfills. Returns (BlockChain,
+    MemoryDB, genesis block, builder, K1 launches of the genesis program,
+    of them cooperative, the mirror boot's K1 launches, of them
+    cooperative, their recorder)."""
     t0 = time.perf_counter()
     gen = genesis_alloc(world)
     log(f"genesis: {len(world.addrs)} accounts, {len(world.storage)} "
@@ -1071,21 +1166,52 @@ def phase_genesis(dev, world: World, oracle_root: bytes):
     tdb = TrieDatabase(diskdb, batch_keccak=get_batch_keccak("planned", dev))
     keccak_cuda.reset_counts()
     planned_mod.planned_fallbacks = 0
-    with _Timed() as timed, _GcPauses() as pauses:
+    cfg = chain_cache_config(dev)
+    with _Timed() as timed, _GcPauses() as pauses, _ChainBoot() as boot:
         t0 = time.perf_counter()
-        block = gen.commit(diskdb, Database(tdb))
+        chain = BlockChain(diskdb, cfg, params.TEST_CHAIN_CONFIG, gen,
+                           new_dummy_engine(), state_database=Database(tdb),
+                           device=dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
     del gen
+    block = chain.genesis_block
+    check(chain.mirror is not None and not chain.mirror.host_mode,
+          "chain: the resident mirror did not boot on the device")
+    check(chain.snaps is not None and chain.snaps.disk_layer.root
+          == block.root, "chain: no snapshot disk layer at the genesis root")
+    check(chain.mirror.root_of(block.hash()) == block.root,
+          "chain: the mirror's genesis root differs from the block's")
+    chain.mirror.ex.seg_impl = boot.rec.launch
+    check(dev.type != "cuda" or len(boot.rec.records)
+          == boot.boot_launches > 0,
+          f"chain: mirror boot launched K1 {boot.boot_launches} times, "
+          f"{len(boot.rec.records)} recorded")
     builder, launches, coop = planned_commit_report(dev, timed, "genesis")
+    launches -= boot.boot_launches
+    coop -= boot.boot_coop
     check(block.root == oracle_root, f"genesis root {block.root.hex()} != "
           f"CPU oracle {oracle_root.hex()}")
     log(f"genesis root {block.root.hex()} == independent CPU Hasher root; "
         f"block {block.hash().hex()}")
-    log(f"genesis: Genesis.commit wall {wall_ms:.1f} ms: {wall_split(timed)}"
-        f" ms; garbage collector pauses ({pauses})")
-    log(f"genesis: persisted {store_report(diskdb)}; dirty nodes left "
-        f"{tdb.dirty_size} B")
-    return diskdb, tdb, block, builder, launches, coop
+    ms = boot.ms
+    mirror_ms = ms["ResidentAccountMirror.__init__"]
+    knobs = "" if dev.type == "cuda" else "resident_account_trie=True"
+    log(f"genesis: BlockChain(CacheConfig({knobs}), device={dev}) wall "
+        f"{wall_ms:.1f} ms: _setup_genesis "
+        f"(Genesis.commit) {ms['BlockChain._setup_genesis']:.1f}, mirror boot"
+        f" {ms['BlockChain._boot_mirror']:.1f} (leaf scan "
+        f"{ms['BlockChain._boot_mirror'] - mirror_ms:.1f}, mirror "
+        f"construction and genesis commit {mirror_ms:.1f}; K1 launches "
+        f"{boot.boot_launches}, cooperative {boot.boot_coop}), snapshot "
+        f"generation {ms['Tree._generate']:.1f}, bloom backfill "
+        f"{ms['BloomIndexer.add_block']:.1f} ms")
+    log(f"genesis: Genesis.commit wall {ms['BlockChain._setup_genesis']:.1f}"
+        f" ms: {wall_split(timed)} ms; garbage collector pauses over the "
+        f"chain's construction ({pauses})")
+    log(f"genesis: persisted {store_report(diskdb)} (the snapshot's flat "
+        f"entries included); dirty nodes left {tdb.dirty_size} B")
+    return (chain, diskdb, block, builder, launches, coop,
+            boot.boot_launches, boot.boot_coop, boot.rec)
 
 
 def phase_block(dev, world: World, diskdb, tdb, parent, block, want,
@@ -1402,16 +1528,17 @@ def phase_fallback(dev, seed: int):
 
 
 class _K1Recorder:
-    """seg_impl that launches K1 (keccak_cuda.segment_keccak, which counts
-    the launch) and keeps each input, its output and the variant that ran
-    (None on the CPU)."""
+    """seg_impl that launches K1 (`launch`, default keccak_cuda.
+    segment_keccak, which counts the launch) and keeps each input, its
+    output and the variant that ran (None on the CPU)."""
 
-    def __init__(self):
+    def __init__(self, launch=None):
+        self.launch = launch
         self.records = []
 
     def __call__(self, words):
         coop = keccak_cuda.launches_coop
-        out = keccak_cuda.segment_keccak(words)
+        out = (self.launch or keccak_cuda.segment_keccak)(words)
         ran = None
         if words.is_cuda:
             ran = (keccak_cuda.COOP if keccak_cuda.launches_coop > coop
@@ -2183,17 +2310,58 @@ def _block_summary(block, receipts):
             [r.encode() for r in receipts])
 
 
+class _Overlay(KeyValueStore):
+    """A store that reads through to `base` and keeps its own writes (and
+    deletes) apart: the EVM phase's chains run over the genesis store
+    without writing into it, so what the chain phase reads back there is
+    what the chain itself wrote."""
+
+    def __init__(self, base):
+        self.base, self.top, self.gone = base, MemoryDB(), set()
+
+    def get(self, key):
+        if key in self.gone:
+            return None
+        v = self.top.get(key)
+        return v if v is not None else self.base.get(key)
+
+    def put(self, key, value):
+        self.gone.discard(bytes(key))
+        self.top.put(key, value)
+
+    def delete(self, key):
+        self.gone.add(bytes(key))
+        self.top.delete(key)
+
+    def write_batch(self, writes):
+        for k, v in writes:
+            if v is None:
+                self.delete(k)
+            else:
+                self.put(k, v)
+
+    def iterate(self, prefix=b"", start=b""):
+        merged = dict(self.base.iterate(prefix, start))
+        merged.update(self.top.iterate(prefix, start))
+        for k in self.gone:
+            merged.pop(k, None)
+        yield from sorted(merged.items())
+
+
 def phase_evm(dev, world: World, oracle: Oracle, diskdb, gen_block,
               n_blocks, seed, card):
-    """The EVM phase (module docstring, phase 7b). `world` and `oracle` are
-    genesis snapshots, which the phase advances. Returns the planned and
-    batched EvmRuns."""
+    """The EVM phase (module docstring, phase 7b), over an _Overlay of the
+    genesis store. `world` and `oracle` are genesis snapshots, which the
+    phase advances. Returns the planned and batched EvmRuns, the world
+    indices of every account the blocks touched, {contract: slot keys
+    written} and the coinbase's fees."""
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
     signed = evm_transactions(world, n_blocks, seed)
     log(f"evm: {sum(len(b) for b in signed)} transactions of {n_blocks} "
         f"blocks signed in {time.perf_counter() - t0:.1f} s")
-    runs = {mode: evm_mode_run(dev, mode, world, diskdb, gen_block, signed,
+    store = _Overlay(diskdb)
+    runs = {mode: evm_mode_run(dev, mode, world, store, gen_block, signed,
                                card)
             for mode in ("off", "batched", "planned")}
     coinbase = [0]
@@ -2241,9 +2409,9 @@ def phase_evm(dev, world: World, oracle: Oracle, diskdb, gen_block,
     planned.tdb.commit(last)
     log(f"evm planned: TrieDatabase.commit of the last root "
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
-    read_back(world, diskdb, last, sorted(touched_all), written, seed + 1,
+    read_back(world, store, last, sorted(touched_all), written, seed + 1,
               "evm planned")
-    back = StateDB(last, Database(TrieDatabase(diskdb)))
+    back = StateDB(last, Database(TrieDatabase(store)))
     check(back.get_balance(EVM_COINBASE) == coinbase[0],
           "evm planned: read-back of the coinbase's fees")
     if dev.type == "cuda":
@@ -2258,7 +2426,158 @@ def phase_evm(dev, world: World, oracle: Oracle, diskdb, gen_block,
         f"{planned.k1_coop}), K2 launches (batched) {runs['batched'].k2} "
         f"(cooperative {runs['batched'].k2_coop}); phase "
         f"{time.perf_counter() - t_phase:.1f} s")
-    return planned, runs["batched"]
+    return planned, runs["batched"], sorted(touched_all), written, coinbase[0]
+
+
+LOUD_CHAIN = LOUD + ("chain/mirror/quarantines",)
+
+
+def phase_chain(dev, chain, world: World, evm_blocks, touched, written,
+                coinbase_fee, seed, card):
+    """The chain phase (module docstring, phase 7c): the EVM phase's blocks,
+    decoded anew, through BlockChain.insert_block (sender recovery,
+    StateProcessor.process, validate_state, StateDB.commit: the storage
+    tries in one planned program on K1, the account trie on the resident
+    mirror's executor on K1), set_preference, accept, the acceptor queue
+    drained, stop(). The chain's planned marker and its executor launch K1
+    through recorders. Returns (the storage programs' recorder, the
+    executor's, K1 launches, of them cooperative)."""
+    t_phase = time.perf_counter()
+    rec_storage, rec_resident = _K1Recorder(), _K1Recorder()
+    tdb = chain.state_database.triedb
+    tdb.batch_keccak = PlannedMode(PlannedCommit(seg_impl=rec_storage,
+                                                 device=dev))
+    mirror = chain.mirror
+    mirror.ex.seg_impl = rec_resident
+    exports = []
+    export = mirror.export_to
+
+    def timed_export(*a, **kw):
+        t0 = time.perf_counter()
+        n = export(*a, **kw)
+        exports.append((n, (time.perf_counter() - t0) * 1e3))
+        return n
+    mirror.export_to = timed_export
+    blocks = [Block.decode(b.encode()) for b in evm_blocks]
+    loud = {n: default_registry.counter(n).count() for n in LOUD_CHAIN}
+    keccak_cuda.reset_counts()
+    planned_mod.planned_fallbacks = 0
+    insert_s = gas_all = 0.0
+    with _GcPauses() as pauses:
+        # back to back, as a validator inserts: block k's insert tail (its
+        # rawdb writes and snapshot attach, on the tail thread) overlaps
+        # block k+1's insert; the flight records' `write` phase is stamped
+        # when each tail lands, so they are read after one join_tail()
+        done = []
+        for b in blocks:
+            ns, nr = len(rec_storage.records), len(rec_resident.records)
+            t0 = time.perf_counter()
+            chain.insert_block(b)
+            wall = time.perf_counter() - t0
+            win = window_ms(dev, mirror.ex.last_events)
+            chain.set_preference(b)
+            check(chain.current_block.hash() == b.hash(),
+                  f"chain block {b.number}: not the head after its insert")
+            check(mirror.root_of(b.hash()) == b.header.root,
+                  f"chain block {b.number}: mirror root != header root")
+            done.append((b, wall, win, len(rec_storage.records) - ns,
+                         len(rec_resident.records) - nr))
+        t0 = time.perf_counter()
+        chain.join_tail()
+        tail_ms = (time.perf_counter() - t0) * 1e3
+        log(f"chain: the last insert tail landed {tail_ms:.1f} ms after the "
+            f"last insert returned")
+        for b, wall, win, n_storage, n_resident in done:
+            rec = chain.flight_recorder.find(b.hash())
+            phases = rec["phases"]
+            check(set(phases) == {"recover", "verify", "execute", "validate",
+                                  "commit", "write"},
+                  f"chain block {b.number}: flight record phases "
+                  f"{sorted(phases)}")
+            gas = b.header.gas_used
+            insert_s += wall
+            gas_all += gas
+            log(f"chain block {b.number}: insert_block {wall * 1e3:.1f} ms "
+                f"({len(b.transactions)} transactions, gas used {gas}; "
+                f"{gas / wall / 1e6:.3f} Mgas/s over the insert); flight "
+                f"record phases (ms) " + ", ".join(
+                    f"{k} {v * 1e3:.1f}" for k, v in phases.items())
+                + f"; resident timers (ms) " + ", ".join(
+                    f"{k} {v * 1e3:.1f}" for k, v in rec["resident"].items()
+                    if k != "shards")
+                + f"; mirror device window {fmt_window(win)}; K1 launches: "
+                f"storage programs {n_storage}, resident executor "
+                f"{n_resident}; snapshot hits/misses "
+                f"{rec['counters']['state/snap/hits']}/"
+                f"{rec['counters']['state/snap/misses']}; {card}")
+        t0 = time.perf_counter()
+        for b in blocks:
+            chain.accept(b)
+        chain.drain_acceptor_queue()
+        accept_ms = (time.perf_counter() - t0) * 1e3
+        check(chain.acceptor_error is None,
+              f"chain: acceptor error {chain.acceptor_error}")
+        check(chain.last_accepted.hash() == blocks[-1].hash(),
+              "chain: the last accepted block is not the last block")
+        check(not chain.bad_blocks, f"chain: bad blocks {chain.bad_blocks}")
+        check(chain.snaps.disk_layer.root == blocks[-1].header.root,
+              "chain: the snapshot's disk layer is not at the last root")
+        t0 = time.perf_counter()
+        chain.stop()
+        stop_ms = (time.perf_counter() - t0) * 1e3
+    launches, coop = keccak_cuda.launches, keccak_cuda.launches_coop
+    check(planned_mod.planned_fallbacks == 0, "chain: planned fallback")
+    check(keccak_cuda.blocks_launches == 0, "chain: K2 launched")
+    cuda = dev.type == "cuda"
+    check(not cuda or launches == len(rec_storage.records)
+          + len(rec_resident.records) > 0,
+          f"chain: {launches} K1 launches, {len(rec_storage.records)} + "
+          f"{len(rec_resident.records)} recorded")
+    check(rec_storage.records and rec_resident.records,
+          "chain: K1 not launched by both the planned programs and the "
+          "resident executor")
+    if cuda:
+        ran_s = check_variants(rec_storage, "chain storage programs")
+        ran_r = check_variants(rec_resident, "chain resident executor")
+        log("chain: every K1 launch ran the variant its shape calls for: "
+            "storage programs " + ", ".join(
+                f"{VARIANT_NAME[v]} {n}" for v, n in ran_s.items())
+            + "; resident executor " + ", ".join(
+                f"{VARIANT_NAME[v]} {n}" for v, n in ran_r.items()))
+    now = {n: default_registry.counter(n).count() for n in LOUD_CHAIN}
+    for name in LOUD_CHAIN:
+        check(now[name] == loud[name], f"chain: {name} counted "
+              f"{now[name] - loud[name]}")
+    check(not mirror.host_mode, "chain: the mirror ended in host mode")
+    last = blocks[-1].header.root
+    check(exports and exports[-1][0] > 0, f"chain: shutdown export {exports}")
+    log(f"chain: {len(blocks)} blocks inserted in {insert_s * 1e3:.1f} ms "
+        f"({gas_all / insert_s / 1e6:.3f} Mgas/s), accepted and the "
+        f"acceptor drained in {accept_ms:.1f} ms; stop() {stop_ms:.1f} ms, "
+        f"of it the shutdown export " + "; ".join(
+            f"{n} nodes in {ms:.1f} ms" for n, ms in exports)
+        + f"; garbage collector pauses ({pauses}); no bad block, no wedge, "
+        f"takeover, fallback, divergence or quarantine counted")
+    # the acknowledged writes: the last root through a fresh TrieDatabase
+    with _GcPauses() as pauses:
+        read_back(world, chain.diskdb, last, touched, written, seed, "chain")
+    log(f"chain: garbage collector pauses during the read-back ({pauses})")
+    back = StateDB(last, Database(TrieDatabase(chain.diskdb)))
+    check(back.get_balance(EVM_COINBASE) == coinbase_fee,
+          "chain: read-back of the coinbase's fees")
+    # the snapshot's flat accounts against the trie's, every touched one
+    trie = TrieDatabase(chain.diskdb).open_state_trie(last)
+    addrs = [world.addrs[i] for i in touched] + [EVM_COINBASE]
+    for a in addrs:
+        slim = chain.snaps.disk_layer.account(keccak256(a))
+        blob = trie.get(a)
+        check((_slim_to_account(slim) if slim else None)
+              == (Account.decode(blob) if blob else None),
+              f"chain: snapshot account {a.hex()} != the trie's")
+    log(f"chain: the snapshot's accounts of the {len(addrs)} touched "
+        f"addresses equal the trie's at the last root; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    return rec_storage, rec_resident, launches, coop
 
 
 def variants_json(launches: int, coop: int, *kernel_ms: dict) -> dict:
@@ -2313,13 +2632,23 @@ def main() -> int:
     log(f"genesis: CPU oracle (independent tries) "
         f"{time.perf_counter() - t0:.1f} s; peak RSS {rss_gib():.1f} GiB")
 
-    # planned path (K1): Genesis.commit and StateDB.commit
+    # planned path (K1): Genesis.commit inside the chain's construction,
+    # which boots the resident mirror (K1) and the snapshot tree
     mark(t_start, "planned genesis")
-    diskdb, tdb, gen_block, g_builder, g_launches, g_coop = phase_genesis(
-        dev, world, oracle_root)
+    (chain, diskdb, gen_block, g_builder, g_launches, g_coop, cb_launches,
+     cb_coop, cb_rec) = phase_genesis(dev, world, oracle_root)
     g_err, g_ms, g_plain, g_shapes, g_kernel = check_and_time(
         dev, g_builder, "genesis")
     del g_builder
+    if dev.type == "cuda":
+        ran = check_variants(cb_rec, "chain mirror boot")
+        log("chain mirror boot: every K1 launch ran the variant its shape "
+            "calls for (" + ", ".join(
+                f"{VARIANT_NAME[v]} {n}" for v, n in ran.items()) + ")")
+    cb_err, cb_ms, cb_plain, cb_shapes, cb_kernel = time_k1(
+        dev, [r[0] for r in cb_rec.records], "chain mirror boot",
+        outputs=[r[1] for r in cb_rec.records])
+    del cb_rec
     # batched path (K2)
     mark(t_start, "batched genesis")
     mode, b_trie, b_changed, bg_launches, bg_coop, bg_rec = \
@@ -2340,11 +2669,13 @@ def main() -> int:
     want = oracle.root()
     log(f"block: CPU oracle {time.perf_counter() - t0:.1f} s")
     b_builder, b_launches, b_coop = phase_block(
-        dev, world, diskdb, tdb, gen_block.root,
+        dev, world, diskdb,
+        TrieDatabase(diskdb, batch_keccak=get_batch_keccak("planned", dev)),
+        gen_block.root,
         (accounts, writes, transfers), want, args.seed + 1)
     b_err, b_ms, b_plain, b_shapes, b_kernel = check_and_time(
         dev, b_builder, "block")
-    del b_builder, tdb  # the genesis store stays: the mirrors boot from it
+    del b_builder  # the genesis store stays: the mirrors boot from it
     root, bb_launches, bb_coop, bb_rec = commit_batched(
         dev, mode, b_trie, block_changes(world, b_changed, accounts, writes),
         "batched block")
@@ -2359,10 +2690,23 @@ def main() -> int:
     # signed transactions through the EVM and generate_chain, from the
     # planned genesis, in the three modes (K1 planned, K2 batched)
     mark(t_start, "evm")
-    evm_planned, evm_batched = phase_evm(
+    evm_planned, evm_batched, touched, written, coinbase_fee = phase_evm(
         dev, evm_world, evm_oracle, diskdb, gen_block, args.evm_blocks,
         args.seed + 5, card)
-    del evm_world, evm_oracle
+    # the same blocks through the chain booted at genesis (K1: storage
+    # programs and the resident executor)
+    mark(t_start, "chain")
+    c_storage, c_resident, c_launches, c_coop = phase_chain(
+        dev, chain, evm_world, evm_planned.blocks, touched, written,
+        coinbase_fee, args.seed + 6, card)
+    del chain, evm_world, evm_oracle
+    cs_err, cs_ms, cs_plain, cs_shapes, cs_kernel = time_k1(
+        dev, [r[0] for r in c_storage.records], "chain storage programs",
+        per_segment=False, outputs=[r[1] for r in c_storage.records])
+    cr_err, cr_ms, cr_plain, cr_shapes, cr_kernel = time_k1(
+        dev, [r[0] for r in c_resident.records], "chain resident executor",
+        per_segment=False, outputs=[r[1] for r in c_resident.records])
+    del c_storage, c_resident
     e1_err, e1_ms, e1_plain, e1_shapes, e1_kernel = time_k1(
         dev, [r[0] for r in evm_planned.rec.records], "evm planned",
         per_segment=False, outputs=[r[1] for r in evm_planned.rec.records])
@@ -2403,22 +2747,27 @@ def main() -> int:
     mark(t_start, "fallback")
     phase_fallback(dev, args.seed)
 
-    k1_shapes = g_shapes + b_shapes + e1_shapes + rg_shapes + rb_shapes
+    k1_shapes = (g_shapes + cb_shapes + b_shapes + e1_shapes + cs_shapes
+                 + cr_shapes + rg_shapes + rb_shapes)
     k1_bound, k1_by = k1_bound_ms(k1_shapes)
     rk_bound, rk_by = k1_bound_ms(rg_shapes + rb_shapes)
     log(f"K1 bound over the mirror's inputs {rk_bound:.4f} ms ({rk_by}; "
         f"genesis {k1_bound_ms(rg_shapes)[0]:.4f} ms, blocks "
         f"{k1_bound_ms(rb_shapes)[0]:.4f} ms); K1 events {rg_ms:.4f} / "
         f"{rb_ms:.4f} ms")
-    k1_launches = g_launches + b_launches + evm_planned.k1 + m_launches
-    k1_coop = g_coop + b_coop + evm_planned.k1_coop + m_coop
+    k1_launches = (g_launches + cb_launches + b_launches + evm_planned.k1
+                   + c_launches + m_launches)
+    k1_coop = (g_coop + cb_coop + b_coop + evm_planned.k1_coop + c_coop
+               + m_coop)
     k2_inputs = bg_inputs + bb_inputs + e2_inputs
     k2_bound, k2_by = k2_bound_ms(k2_inputs)
     k2_real, _ = k2_bound_ms(k2_inputs, bg_pad + bb_pad + e2_pad)
     log(f"K2 bound over the batched commits {k2_bound:.4f} ms ({k2_by}), "
         f"over their real lanes alone {k2_real:.4f} ms")
-    log(f"launches on the main paths: K1 genesis {g_launches}, block "
-        f"{b_launches}, evm planned {evm_planned.k1}, mirrors {m_launches}; "
+    log(f"launches on the main paths: K1 genesis {g_launches}, the chain's "
+        f"mirror boot {cb_launches}, block {b_launches}, evm planned "
+        f"{evm_planned.k1}, chain inserts {c_launches}, mirrors "
+        f"{m_launches}; "
         f"K2 batched genesis {bg_launches}, batched block {bb_launches}, "
         f"evm batched {evm_batched.k2}")
     log(f"peak RSS {rss_gib():.1f} GiB")
@@ -2429,14 +2778,18 @@ def main() -> int:
         "source": "coreth_tpu_torch/ops/csrc/segment_keccak.cu",
         "replaces": "coreth_tpu/ops/keccak_pallas.py:211",
         "launches": k1_launches,
-        "max_abs_err": max(grid_err, g_err, b_err, e1_err, rg_err, rb_err),
-        "ms": g_ms + b_ms + e1_ms + rg_ms + rb_ms,
-        "plain_ms": g_plain + b_plain + e1_plain + rg_plain + rb_plain,
+        "max_abs_err": max(grid_err, g_err, cb_err, b_err, e1_err, cs_err,
+                           cr_err, rg_err, rb_err),
+        "ms": (g_ms + cb_ms + b_ms + e1_ms + cs_ms + cr_ms + rg_ms
+               + rb_ms),
+        "plain_ms": (g_plain + cb_plain + b_plain + e1_plain + cs_plain
+                     + cr_plain + rg_plain + rb_plain),
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": None,
-        "variants": variants_json(k1_launches, k1_coop, g_kernel, b_kernel,
-                                  e1_kernel, rg_kernel, rb_kernel),
+        "variants": variants_json(k1_launches, k1_coop, g_kernel,
+                                  cb_kernel, b_kernel, e1_kernel, cs_kernel,
+                                  cr_kernel, rg_kernel, rb_kernel),
     }, {
         "name": "keccak_blocks",
         "route": "cuda",

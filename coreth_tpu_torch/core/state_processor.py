@@ -6,7 +6,7 @@ Finalize for atomic-tx extra state (state_processor.go:68-107).
 
 The serial loop only. The reference's two speculative execution modes,
 the thread-parallel `parallel_exec` and the process shards of
-`exec_shards`, are ROADMAP "Still to port", item 3b.2: asking for either
+`exec_shards`, are ROADMAP "Still to port", item 3b.3: asking for either
 (`parallel_workers`, `exec_shards_n`, CORETH_TPU_EVM_PARALLEL or
 CORETH_TPU_EVM_EXEC_SHARDS) raises NotImplementedError, and nothing runs
 serially in its place.
@@ -95,7 +95,7 @@ def apply_message_to_receipt(config, evm: EVM, gp: GasPool, statedb, header: Hea
 
 PARALLEL_ENV = "CORETH_TPU_EVM_PARALLEL"
 SHARDS_ENV = "CORETH_TPU_EVM_EXEC_SHARDS"
-_NOT_PORTED = ("not ported (ROADMAP 'Still to port', item 3b.2); the "
+_NOT_PORTED = ("not ported (ROADMAP 'Still to port', item 3b.3); the "
                "port runs the serial loop only")
 
 

@@ -2,9 +2,10 @@
 gauges, meters, histograms, timers, with the EnabledExpensive gate and
 Prometheus-style export); counterpart of coreth_tpu/metrics/__init__.py.
 
-Not ported: the package's command-line check (`__main__`), its HTTP
-exposition, the profiler, the flight recorder and the shard statistics
-(ROADMAP "Still to port", items 3b.2 and 8)."""
+The flight recorder is metrics/flight.py. Not ported: the shard
+statistics (ROADMAP "Still to port", item 3b.3), the package's
+command-line check (`__main__`), its HTTP exposition and the profiler
+(item 8)."""
 
 from __future__ import annotations
 

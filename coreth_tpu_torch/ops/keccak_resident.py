@@ -89,7 +89,9 @@ class ResidentExecutor:
     One executor per trie: the store and arena contents are that trie's
     digest cache. `device`: None is CUDA (raises without it), "cpu" only
     when asked. `seg_impl`: the segment keccak, int32[P, L, 34] ->
-    int32[P, 8] (default keccak_cuda.segment_keccak: K1 on CUDA).
+    int32[P, 8] (default keccak_cuda.segment_keccak: K1 on CUDA), kept as
+    the public attribute of that name, which a caller may swap for a
+    wrapper that launches the same kernel (a recorder).
 
     After every run(): h2d_bytes and last_transfers (the commit's host to
     device traffic), last_dispatches (host-level steps, counted as the
@@ -111,7 +113,7 @@ class ResidentExecutor:
                        if self.device.type == "cuda" else None)
         if seg_impl is None:
             from .keccak_cuda import segment_keccak as seg_impl
-        self._impl = seg_impl
+        self.seg_impl = seg_impl
         self.pipeline_depth = pipeline_depth
         self.store: Optional[torch.Tensor] = None      # int32[S, 8]
         self._flat: Dict[int, torch.Tensor] = {}       # class -> rows + 1 word
@@ -235,7 +237,7 @@ class ResidentExecutor:
     def _hash_segment(self, cls: int, lanes: int, gstart: int, dig,
                       ridx) -> None:
         words = self._arena(cls).index_select(0, ridx.long())
-        out = self._impl(words.view(lanes, cls, WORDS_PER_BLOCK))
+        out = self.seg_impl(words.view(lanes, cls, WORDS_PER_BLOCK))
         dig[gstart + 1:gstart + 1 + lanes] = out
 
     def _event(self):

@@ -9,8 +9,9 @@ A stateObject carries the account data plus three storage maps:
 
 Storage values are 32-byte words; zero deletes. The storage trie encodes
 values RLP-trimmed (leading zeros stripped) exactly like the reference.
-The reference's flat-snapshot read path and its write record (snap_flush)
-wait for the snapshot tree (ROADMAP "Still to port", item 10).
+Committed-slot reads go through the StateDB's flat snapshot first
+(StateDB.snapshot_storage), and every slot written to the trie since the
+last commit is recorded in snap_flush, the snapshot diff's source.
 """
 
 from __future__ import annotations
@@ -50,6 +51,10 @@ class StateObject:
         self.origin_storage: Dict[bytes, bytes] = {}
         self.pending_storage: Dict[bytes, bytes] = {}
         self.dirty_storage: Dict[bytes, bytes] = {}
+        # slots actually written to the trie since the last commit — the
+        # flat-snapshot diff source (not origin_storage, which also caches
+        # slots that were merely read)
+        self.snap_flush: Dict[bytes, bytes] = {}
 
         self._trie = None  # lazily opened storage trie
 
@@ -86,8 +91,13 @@ class StateObject:
         v = self.origin_storage.get(key)
         if v is not None:
             return v
-        enc = self._open_trie().get(key)
-        value = _pad32(rlp.decode(enc)) if enc else ZERO32
+        # snapshot fast path, else trie
+        snap_val = self._db.snapshot_storage(self.addr_hash, key)
+        if snap_val is not None:
+            value = snap_val
+        else:
+            enc = self._open_trie().get(key)
+            value = _pad32(rlp.decode(enc)) if enc else ZERO32
         self.origin_storage[key] = value
         return value
 
@@ -117,6 +127,7 @@ class StateObject:
             if self.origin_storage.get(k) == v:
                 continue
             self.origin_storage[k] = v
+            self.snap_flush[k] = v
             if v == ZERO32:
                 tr.delete(k)
             else:
@@ -244,6 +255,7 @@ class StateObject:
         o.deleted = self.deleted
         o.origin_storage = dict(self.origin_storage)
         o.pending_storage = dict(self.pending_storage)
+        o.snap_flush = dict(self.snap_flush)
         o.dirty_storage = dict(self.dirty_storage)
         o._trie = self._trie.copy() if self._trie is not None else None
         return o

@@ -24,32 +24,51 @@ resident branch of coreth_tpu/state/statedb.py:504-521 included, with its
 state/hash_plan spans), and planned_intermediate_root is
 StateDB._planned_intermediate_root.
 
-Not ported, each with its ROADMAP "Still to port" item: the snapshot tree
-and its slim codec, the prefetcher, the bintrie shadow and the expensive
-timers (items 3b.2 and 10); fold_tx_writes (3b, with the parallel
-executor).
+With a snapshot tree (`snaps`, state/snapshot.py), account and
+committed-slot reads go through the flat layer for the state's root first
+(an authoritative answer, absence included) and the trie only without
+one; commit records the block's diff (destructs, slim accounts, storage)
+and attaches it as a diff layer, or with defer_snap=True leaves its
+Tree.update arguments in `_deferred_snap_update` for the chain's insert
+tail. start_prefetcher warms the touched tries while a block executes,
+except on a resident account trie.
+
+Not ported, each with its ROADMAP "Still to port" item: fold_tx_writes
+(3b.3, with the parallel executor); the bintrie shadow and the expensive
+timers (10).
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Set, Tuple
 
+from .. import rlp
 from ..core import rawdb
+from ..metrics import default_registry as _metrics
 from ..metrics.spans import span
 from ..native import keccak256
 from ..trie import planned as _planned
 from ..trie.encoding import key_to_hex
 from ..trie.hasher import BATCH_THRESHOLD, Hasher
-from ..trie.node import FullNode, ShortNode
+from ..trie.node import EMPTY_ROOT, FullNode, ShortNode
 from ..trie.planned import PlannedGraphBuilder, TooManySegments
 from ..trie.secure import StateTrie
 from ..trie.trienode import MergedNodeSet
 from .access_list import AccessList
-from .account import Account, normalize_state_key
+from .account import EMPTY_CODE_HASH, Account, normalize_state_key
 from .database import Database
 from .journal import Journal
 from .log import Log
+from .snapshot import SnapshotError
 from .state_object import ZERO32, StateObject
+
+# snapshot read-path attribution: a hit answered the read from the diff-
+# layer stack (including authoritative absence), a miss fell back to the
+# trie with snapshots configured, generating means the disk layer was
+# still being built when the read arrived
+_snap_hits = _metrics.counter("state/snap/hits")
+_snap_misses = _metrics.counter("state/snap/misses")
+_snap_generating = _metrics.counter("state/snap/generating")
 
 Changed = Dict[bytes, Tuple[Optional[Account], Optional[StateTrie]]]
 
@@ -221,15 +240,11 @@ def batch_storage_roots(changed: Changed, planned=None, device=None) -> int:
 
 class StateDB:
     """The journaled state over one root of a state Database. Its tries
-    hash with the batch keccak of the Database's TrieDatabase (module
-    docstring). `snaps`, the reference's flat snapshot tree, is not
-    ported and raises."""
+    hash with the batch keccak of the Database's TrieDatabase; `snaps` is
+    the flat snapshot tree its reads go through first (module
+    docstring)."""
 
     def __init__(self, root: bytes, db: Database, snaps=None):
-        if snaps is not None:
-            raise NotImplementedError(
-                "the snapshot tree is not ported (ROADMAP 'Still to port', "
-                "item 10)")
         self.db = db
         self.original_root = root
         self.trie = db.open_trie(root)
@@ -249,6 +264,19 @@ class StateDB:
         self.access_list = AccessList()
         self.transient: Dict[Tuple[bytes, bytes], bytes] = {}
 
+        # concurrent trie warmer (core/state/trie_prefetcher.go seam)
+        self.prefetcher = None
+
+        # flat snapshot tree; when set, reads go through it first
+        self.snaps = snaps
+        self.snap = snaps.snapshot(root) if snaps is not None else None
+        self._snap_destructs: Set[bytes] = set()
+        self._snap_accounts: Dict[bytes, bytes] = {}
+        self._snap_storage: Dict[bytes, Dict[bytes, bytes]] = {}
+        # Tree.update args stashed by commit(defer_snap=True) for the
+        # chain's insert-tail worker
+        self._deferred_snap_update = None
+
     # ------------------------------------------------------------ object mgmt
 
     def _get_state_object(self, addr: bytes) -> Optional[StateObject]:
@@ -266,13 +294,96 @@ class StateDB:
             return obj
         return self._load_state_object(addr)
 
+    def start_prefetcher(self, namespace: str = "chain") -> None:
+        """StartPrefetcher (statedb.go): warm touched tries concurrently."""
+        from .trie_prefetcher import TriePrefetcher
+
+        self.stop_prefetcher()
+        if getattr(self.trie, "resident", False):
+            # resident account reads are O(path) native lookups with no
+            # triedb cache to warm; a prefetcher would only add threads
+            return
+        self.prefetcher = TriePrefetcher(self.db, namespace)
+
+    def stop_prefetcher(self) -> None:
+        if self.prefetcher is not None:
+            self.prefetcher.close()
+            self.prefetcher = None
+
     def _load_state_object(self, addr: bytes) -> Optional[StateObject]:
-        blob = self.trie.get(addr)
-        if not blob:
-            return None
-        obj = StateObject(self, addr, Account.decode(blob))
+        acct = None
+        addr_hash = keccak256(addr)
+        if self.prefetcher is not None:
+            self.prefetcher.prefetch(b"", self.original_root, [addr])
+        if self.snap is not None:
+            slim = None
+            for attempt in (0, 1):
+                try:
+                    slim = self.snap.account(addr_hash)
+                    break
+                except SnapshotError as exc:
+                    self.snap = self._reresolve_snap(attempt, exc)
+                    if self.snap is None:
+                        break
+            if self.snap is not None:
+                # the snapshot answer is authoritative (snapshot.go: the
+                # disk layer IS the flat state): None means the account
+                # does not exist — no trie fallback
+                _snap_hits.inc()
+                if not slim:
+                    return None
+                acct = _slim_to_account(slim)
+        if acct is None:
+            if self.snaps is not None and self.snap is None:
+                _snap_misses.inc()
+            blob = self.trie.get(addr)
+            if not blob:
+                return None
+            acct = Account.decode(blob)
+        obj = StateObject(self, addr, acct)
         self._objects[addr] = obj
         return obj
+
+    def _reresolve_snap(self, attempt: int, exc: Exception):
+        """A SnapshotError mid-read means generation is still running, or
+        an Accept flattened our layer under us. The flattened case is
+        recoverable: the same state now lives in the new disk layer, so
+        look the root up again (once) instead of abandoning the fast
+        path — dropping it would also skip this block's diff-layer
+        registration at commit and break the Accept that follows."""
+        generating = "generation in progress" in str(exc)
+        if attempt == 0 and self.snaps is not None and not generating:
+            snap = self.snaps.snapshot(self.original_root)
+            if snap is not None:
+                return snap
+        if generating:
+            _snap_generating.inc()
+        else:
+            _snap_misses.inc()
+        return None
+
+    def snapshot_storage(self, addr_hash: bytes, key: bytes) -> Optional[bytes]:
+        """Flat-snapshot storage read hook used by StateObject: the
+        32-byte value, or None when there is no snapshot to ask."""
+        if self.snap is None:
+            if self.snaps is not None:
+                _snap_misses.inc()
+            return None
+        raw = None
+        for attempt in (0, 1):
+            try:
+                raw = self.snap.storage(addr_hash, keccak256(key))
+                break
+            except SnapshotError as exc:
+                self.snap = self._reresolve_snap(attempt, exc)
+                if self.snap is None:
+                    return None
+        _snap_hits.inc()
+        if not raw:
+            # authoritative absence: the slot was never written (or was
+            # deleted) — zero, with no trie walk
+            return ZERO32
+        return rlp.decode(raw).rjust(32, b"\x00")
 
     def _get_or_new(self, addr: bytes) -> StateObject:
         obj = self._get_state_object(addr)
@@ -491,6 +602,9 @@ class StateDB:
                 continue
             if obj.suicided or (delete_empty and obj.empty):
                 obj.deleted = True
+                self._snap_destructs.add(obj.addr_hash)
+                self._snap_accounts.pop(obj.addr_hash, None)
+                self._snap_storage.pop(obj.addr_hash, None)
             else:
                 obj.finalise()
             self._objects_pending.add(addr)
@@ -531,12 +645,20 @@ class StateDB:
             est += len(self._objects_pending)
         changed = self._pending_changes()
         self._objects_pending = set()
-        return intermediate_root(self.trie, changed,
+        root = intermediate_root(self.trie, changed,
                                  self.db.triedb.batch_keccak, est=est)
+        if self.snap is not None:
+            # the accounts' storage roots are final only now
+            for addr, (acct, _tr) in changed.items():
+                if acct is not None:
+                    self._snap_accounts[self._objects[addr].addr_hash] = \
+                        _account_to_slim(acct)
+        return root
 
     def commit(self, delete_empty: bool = False,
                block_hash: Optional[bytes] = None,
-               parent_block_hash: Optional[bytes] = None) -> bytes:
+               parent_block_hash: Optional[bytes] = None,
+               defer_snap: bool = False) -> bytes:
         """Commit to the TrieDatabase (statedb.go:1040-1160).
 
         Order: storage tries → code → account trie → TrieDB.Update.
@@ -545,7 +667,13 @@ class StateDB:
         `parent_block_hash` (MirrorStateTrie.commit_block: a preview when
         block_hash is None); its nodes persist through the writer's
         interval export, not the dirty forest, and a node set comes back
-        only on the disk-fallback path of a mirror in host mode."""
+        only on the disk-fallback path of a mirror in host mode.
+
+        With a snapshot tree, the block's diff becomes a diff layer keyed
+        by `block_hash` on top of `parent_block_hash`'s; defer_snap=True
+        stashes the Tree.update arguments as `_deferred_snap_update`
+        instead, and the caller applies them before anyone opens a
+        StateDB on the new root (the chain's insert tail)."""
         self.intermediate_root(delete_empty)
         merged = MergedNodeSet()
         for addr in sorted(self._objects_dirty):
@@ -559,6 +687,12 @@ class StateDB:
             if nodeset is not None:
                 nodeset.owner = obj.addr_hash
                 merged.merge(nodeset)
+            if self.snap is not None and obj.snap_flush:
+                stor = self._snap_storage.setdefault(obj.addr_hash, {})
+                for k, v in obj.snap_flush.items():
+                    stor[keccak256(k)] = (rlp.encode(v.lstrip(b"\x00"))
+                                          if v != ZERO32 else b"")
+            obj.snap_flush = {}
         if getattr(self.trie, "resident", False):
             root, acct_set = self.trie.commit_block(block_hash,
                                                     parent_block_hash)
@@ -569,6 +703,23 @@ class StateDB:
         self._objects_dirty = set()
         if root != self.original_root and merged.sets:
             self.db.triedb.update(root, self.original_root, merged)
+        self._deferred_snap_update = None
+        if self.snaps is not None and self.snap is not None:
+            # identical-root blocks still need their (empty) diff layer:
+            # Avalanche blocks are keyed by hash, and Accept will flatten
+            # this block_hash (coreth snapshot.go blockLayers semantics)
+            if root != self.original_root or block_hash is not None:
+                update_args = (root, self.original_root,
+                               self._snap_destructs, self._snap_accounts,
+                               self._snap_storage, block_hash,
+                               parent_block_hash)
+                if defer_snap:
+                    self._deferred_snap_update = update_args
+                else:
+                    self.snaps.update(*update_args)
+            self._snap_destructs, self._snap_accounts, self._snap_storage = (
+                set(), {}, {})
+            self.snap = self.snaps.snapshot(root)
         # subsequent commits diff against the new root (geth statedb.Commit);
         # our Trie freezes after commit, so reopen it from the forest
         self.original_root = root
@@ -595,7 +746,39 @@ class StateDB:
         s.preimages = dict(self.preimages)
         s.access_list = self.access_list.copy()
         s.transient = dict(self.transient)
+        # the copy never inherits the prefetcher: it is tied to the parent's
+        # lifecycle (geth statedb.Copy drops it the same way)
+        s.prefetcher = None
+        s.snaps = self.snaps
+        s.snap = self.snap
+        s._snap_destructs = set(self._snap_destructs)
+        s._snap_accounts = dict(self._snap_accounts)
+        s._snap_storage = {k: dict(v) for k, v in self._snap_storage.items()}
+        s._deferred_snap_update = None
         return s
+
+
+# --- slim snapshot account codec (core/state/snapshot/account.go) ----------
+
+def _account_to_slim(acct: Account) -> bytes:
+    root = b"" if acct.root == EMPTY_ROOT else acct.root
+    code = b"" if acct.code_hash == EMPTY_CODE_HASH else acct.code_hash
+    return rlp.encode(
+        [acct.nonce, acct.balance, root, code, 1 if acct.is_multi_coin else 0]
+    )
+
+
+def _slim_to_account(blob: bytes) -> Account:
+    items = rlp.decode(blob)
+    root = items[2] if items[2] else EMPTY_ROOT
+    code = items[3] if items[3] else EMPTY_CODE_HASH
+    return Account(
+        nonce=rlp.decode_uint(items[0]),
+        balance=rlp.decode_uint(items[1]),
+        root=root,
+        code_hash=code,
+        is_multi_coin=rlp.decode_uint(items[4]) != 0,
+    )
 
 
 # --- journal closures for StateDB-level state -------------------------------

@@ -41,9 +41,11 @@ leaves the applied stack as it was; every later device operation raises
 too, until the caller moves the mirror to the host with take_over_host()
 (counted in state/resident/device_takeovers) or rebuilds it. Where the
 reference takes over on the host by itself, the port never moves work
-off the card unasked. The chain's boot (core/blockchain.py _boot_mirror, the
-"auto" probe) waits for ROADMAP "Still to port", item 4b; the mesh rung
-(mesh_devices, the single-device demotion) for item 6.
+off the card unasked. The chain boots it (core/blockchain.py _boot_mirror,
+after the "auto" probe) and takes it over through
+BlockChain.take_over_host(), which notes the takeover in its flight
+recorder. The mesh rung (mesh_devices, the single-device demotion)
+waits for ROADMAP "Still to port", item 6.
 """
 
 from __future__ import annotations

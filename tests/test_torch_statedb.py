@@ -498,14 +498,20 @@ def test_genesis_on_card_equals_cpu(mode):
 
 def test_what_is_not_ported_raises():
     """The parts of the slice left for later items raise instead of
-    running something else: a snapshot tree, the resident mirror's mesh
-    rung, an enabled stateful precompile, a speculative execution mode."""
+    running something else: the bintrie shadow under the state layer (the
+    snapshot tree, which raised here before, landed with the chain), the
+    resident mirror's mesh rung, an enabled stateful precompile, a
+    speculative execution mode."""
+    from coreth_tpu_torch.consensus.dummy import new_dummy_engine
+    from coreth_tpu_torch.core.blockchain import BlockChain, CacheConfig
     from coreth_tpu_torch.core.types import Block, Header
     from coreth_tpu_torch.trie.resident_mirror import ResidentAccountMirror
 
-    db = Database(TrieDatabase(MemoryDB()))
     with pytest.raises(NotImplementedError, match="item 10"):
-        StateDB(EMPTY_ROOT, db, snaps=object())
+        BlockChain(MemoryDB(), CacheConfig(state_backend="bintrie-shadow"),
+                   params.TEST_CHAIN_CONFIG,
+                   genesis.Genesis(config=params.TEST_CHAIN_CONFIG),
+                   new_dummy_engine(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):
         ResidentAccountMirror([(b"\x01" * 32, b"v")], mesh_devices=2,
                               device="cpu")
@@ -518,7 +524,7 @@ def test_what_is_not_ported_raises():
     with pytest.raises(NotImplementedError, match="item 9"):
         g.commit(MemoryDB(), Database(TrieDatabase(MemoryDB())))
     # transactions landed with item 3b.1: a block with one round-trips;
-    # the speculative execution modes of item 3b.2 raise
+    # the speculative execution modes of item 3b.3 raise
     from coreth_tpu_torch.core.state_processor import StateProcessor
     from coreth_tpu_torch.core.types import Transaction
 
@@ -528,7 +534,7 @@ def test_what_is_not_ported_raises():
     back = Block.decode(full.encode())
     assert [t.encode() for t in back.transactions] == [tx.encode()]
     assert back.hash() == full.hash()
-    with pytest.raises(NotImplementedError, match="3b.2"):
+    with pytest.raises(NotImplementedError, match="3b.3"):
         StateProcessor(params.TEST_CHAIN_CONFIG, None, None,
                        parallel_workers=2)
     empty = Block(Header(number=3))
