@@ -2,8 +2,7 @@
 """Drive the PyTorch/CUDA port's commit paths and chain on one H100; check them.
 
     python3 chip_smoke.py            # full size: 1,000,000 accounts
-    python3 chip_smoke.py --accounts 20000 --contracts 50 --blocks 4 \
-        --evm-blocks 2                                      # a quick run
+    python3 chip_smoke.py --accounts 20000 --contracts 50   # a quick run
     python3 chip_smoke.py --device cpu --accounts 2000 --contracts 8
         # rehearsal on the CPU with the plain versions; prints no result
 
@@ -65,10 +64,12 @@ Phases (each passes or the script exits non-zero):
      StateDB.intermediate_root is the device commit, then StateDB.commit)
      on a TrieDatabase of its own over an overlay of the genesis store
      (reads fall through, writes stay in the overlay), in three modes:
-     off (CPU Hasher), batched (K2) and planned (K1). Block for block the
-     three give equal block hashes, header roots, receipts, blooms and gas
-     used, and each root equals an oracle derived from the transaction
-     list, the receipts' gas used and the base fee alone (no EVM). The
+     off (CPU Hasher), batched (K2) and planned (K1); then --option-blocks
+     (6) more blocks in planned mode alone, for the chain's execution
+     options. Block for block the three give equal block hashes, header
+     roots, receipts, blooms and gas used, and each root (the options
+     blocks' too) equals an oracle derived from the transaction list, the
+     receipts' gas used and the base fee alone (no EVM). The
      planned chain's last root is committed and every account and slot
      the blocks touched, the coinbase and 1,000 others read back through a
      fresh TrieDatabase. Every K1 (planned) and K2 (batched) input is held
@@ -77,25 +78,47 @@ Phases (each passes or the script exits non-zero):
      sender recovery, EVM, finalize_and_assemble (intermediate_root,
      derive_sha), StateDB.commit, device window, launches, Mgas/s and the
      garbage collector's pauses
-  7c. chain: the EVM blocks, decoded anew, into the chain of phase 5 the
-     way a validator takes them, back to back (each block's insert tail
-     overlapping the next insert): insert_block (the sender cacher,
-     StateProcessor.process, validate_state, StateDB.commit with the
-     header root handed to the mirror: the storage tries in one planned
-     program on K1, the account trie on the mirror's ResidentExecutor on
-     K1), set_preference, accept, the acceptor queue drained, stop() (the
+  7c. chain: the EVM blocks, decoded anew, into the chain of phase 5
+     (built with insert_pipeline_depth=2, the one execution option the
+     reference reads only at construction) the way a validator takes
+     them, back to back (each block's insert tail overlapping the next
+     insert). The first --evm-blocks through insert_block_manual(writes=
+     True), the serial path (the sender cacher, StateProcessor.process,
+     validate_state, StateDB.commit with the header root handed to the
+     mirror: the storage tries in one planned program on K1, the account
+     trie on the mirror's ResidentExecutor on K1); then the options
+     blocks: one with CORETH_TPU_EVM_PARALLEL=4 (Block-STM on four
+     threads) and one with CORETH_TPU_EVM_EXEC_SHARDS=2 (two worker
+     processes started from a forkserver) through insert_block_manual, and
+     the rest through insert_block, so through the pipeline, back to back
+     with the shards on (the submit stage speculates through the shard
+     pool; the commit thread folds, validates and commits on K1), drained;
+     set_preference, accept, the acceptor queue drained, stop() (the
      shutdown export). Every commit root equals the header root (the EVM
      phase held those against its oracle) and the mirror's; the head is
-     the last block; no bad block; no device wedge, takeover, fallback,
-     pipeline divergence or mirror quarantine counted; the snapshot's
-     account of every touched address equals the trie's; after stop() the
-     last root reads back through a fresh TrieDatabase. The planned
-     programs and the executor launch K1 through recorders: both ran, each
-     launch the variant its shape calls for, every input held against the
-     plain version. Per block it prints the flight record's phases
-     (recover, verify, execute, validate, commit, write), the resident
-     timers, the mirror's device window, K1 launches and Mgas/s over the
-     insert; then the accept and shutdown-export times
+     the last block; each block ran the mode it asked for (serial,
+     parallel, shards, the pipeline's spec) and no speculative fallback
+     was counted; the shard workers hold no CUDA context and no jax,
+     jaxlib or coreth_tpu module; no bad block; no device wedge, takeover,
+     fallback, pipeline divergence or mirror quarantine counted; the
+     snapshot's account of every touched address equals the trie's; after
+     stop() the last root reads back through a fresh TrieDatabase. The
+     planned programs and the executor launch K1 through recorders: both
+     ran, each launch the variant its shape calls for, every input held
+     against the plain version. Per block it prints the mode asked for
+     and run (conflicts, re-executions, fallback, per-worker ShardStats,
+     overlap_fraction), the flight record's phases (recover, verify,
+     execute, validate, commit, write; fold for the pipelined blocks),
+     the resident timers, the mirror's device window, K1 launches and
+     Mgas/s over the insert (over the commit stage for the pipelined
+     blocks); then the pipelined blocks' wall from the first submit to
+     the drain, the accept and shutdown-export times, and a respawn: a
+     shard worker SIGKILLed, replaced and pinged clean. After stop() the
+     forkserver and the resource tracker are stopped
+     (exec_shards.stop_servers) and no process the run started may be
+     left, here and again at the end. The shard pool's forkserver imports
+     this script once before it forks a worker (core/shard_worker.py), so
+     its work stays under `if __name__ == "__main__"`
   8. the mirrors (the resident path, K1): one ordered leaf scan
      (trie/iterator.iterate_leaves) of the planned genesis' persisted
      account trie boots three ResidentAccountMirrors, each installed on a
@@ -141,15 +164,19 @@ imported.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import gc
 import json
+import os
 import resource
+import signal
 import subprocess
 import sys
 import threading
 import time
 from collections import defaultdict
+from unittest import mock
 
 import numpy as np
 import torch
@@ -158,17 +185,17 @@ from coreth_tpu_torch import params, rlp
 from coreth_tpu_torch.consensus.dummy import new_dummy_engine
 from coreth_tpu_torch.core import types as types_mod
 from coreth_tpu_torch.core.blockchain import BlockChain, CacheConfig
+from coreth_tpu_torch.core import exec_shards
 from coreth_tpu_torch.core.bloom_index import BloomIndexer
 from coreth_tpu_torch.core.chain_makers import generate_chain
 from coreth_tpu_torch.core.genesis import Genesis, GenesisAccount
 from coreth_tpu_torch.core.state_manager import ResidentTrieWriter
 from coreth_tpu_torch.core.types import Block, Signer, Transaction
 from coreth_tpu_torch.crypto.secp256k1 import priv_to_address
-from coreth_tpu_torch.device import resolve
+from coreth_tpu_torch.device import DeviceWedgedError, resolve
 from coreth_tpu_torch.ethdb import KeyValueStore, MemoryDB
 from coreth_tpu_torch.native import keccak256, keccak256_batch, mpt
-from coreth_tpu_torch.native.mpt import DeviceWedgedError, IncrementalTrie, \
-    plan_from_items
+from coreth_tpu_torch.native.mpt import IncrementalTrie, plan_from_items
 from coreth_tpu_torch.ops import keccak_cuda, keccak_planned
 from coreth_tpu_torch.ops.device import get_batch_keccak
 from coreth_tpu_torch.ops.keccak_planned import MAX_SEGMENTS, PlannedCommit, \
@@ -273,6 +300,11 @@ EVM_CALL_GAS = 400_000
 EVM_FILL = 0.975
 EVM_MAX_FEE = 10**12  # above every base fee of a few blocks; tip 0
 EVM_COINBASE = b"\x00" * 20  # chain_makers' header coinbase
+# The chain phase's execution options: the pipeline's depth, the workers
+# of the thread-parallel block and the shards of the sharded ones
+PIPELINE_DEPTH = 2
+OPTION_WORKERS = 4
+OPTION_SHARDS = 2
 
 
 def check(cond: bool, what: str) -> None:
@@ -348,6 +380,31 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
 def rss_gib() -> float:
     """Peak resident memory of this process so far."""
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def descendants() -> list:
+    """(pid, command) of every living process this one started, directly
+    or not, from /proc (a zombie not yet reaped counts too)."""
+    parent = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # pid (comm) state ppid ...: comm may hold spaces and parentheses
+        comm = stat[stat.index("(") + 1:stat.rindex(")")]
+        parent[int(d)] = (int(stat[stat.rindex(")") + 2:].split()[1]), comm)
+    out, todo = [], [os.getpid()]
+    while todo:
+        p = todo.pop()
+        for c, (pp, comm) in parent.items():
+            if pp == p:
+                out.append((c, comm))
+                todo.append(c)
+    return out
 
 
 # ----------------------------------------------------------------- phases
@@ -1138,12 +1195,14 @@ class _ChainBoot:
 
 
 def chain_cache_config(dev) -> CacheConfig:
-    """The reference's default CacheConfig: its "auto" boots the resident
-    mirror on CUDA. The CPU rehearsal asks for the mirror, which "auto"
-    leaves off there."""
+    """The reference's default CacheConfig but for the insert pipeline at
+    depth 2 (the one execution option read only at construction): its
+    "auto" boots the resident mirror on CUDA. The CPU rehearsal asks for
+    the mirror, which "auto" leaves off there."""
     if dev.type == "cuda":
-        return CacheConfig()
-    return CacheConfig(resident_account_trie=True)
+        return CacheConfig(insert_pipeline_depth=PIPELINE_DEPTH)
+    return CacheConfig(resident_account_trie=True,
+                       insert_pipeline_depth=PIPELINE_DEPTH)
 
 
 def phase_genesis(dev, world: World, oracle_root: bytes):
@@ -1195,7 +1254,9 @@ def phase_genesis(dev, world: World, oracle_root: bytes):
         f"block {block.hash().hex()}")
     ms = boot.ms
     mirror_ms = ms["ResidentAccountMirror.__init__"]
-    knobs = "" if dev.type == "cuda" else "resident_account_trie=True"
+    knobs = (f"insert_pipeline_depth={PIPELINE_DEPTH}" if dev.type == "cuda"
+             else f"resident_account_trie=True, insert_pipeline_depth="
+             f"{PIPELINE_DEPTH}")
     log(f"genesis: BlockChain(CacheConfig({knobs}), device={dev}) wall "
         f"{wall_ms:.1f} ms: _setup_genesis "
         f"(Genesis.commit) {ms['BlockChain._setup_genesis']:.1f}, mirror boot"
@@ -2349,26 +2410,32 @@ class _Overlay(KeyValueStore):
 
 
 def phase_evm(dev, world: World, oracle: Oracle, diskdb, gen_block,
-              n_blocks, seed, card):
+              n_blocks, n_option, seed, card):
     """The EVM phase (module docstring, phase 7b), over an _Overlay of the
-    genesis store. `world` and `oracle` are genesis snapshots, which the
-    phase advances. Returns the planned and batched EvmRuns, the world
-    indices of every account the blocks touched, {contract: slot keys
-    written} and the coinbase's fees."""
+    genesis store: `n_blocks` blocks in the three modes, and `n_option`
+    more in planned mode alone (the chain phase's options blocks). `world`
+    and `oracle` are genesis snapshots, which the phase advances. Returns
+    the planned and batched EvmRuns, the world indices of every account
+    the blocks touched, {contract: slot keys written} and the coinbase's
+    fees."""
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
-    signed = evm_transactions(world, n_blocks, seed)
-    log(f"evm: {sum(len(b) for b in signed)} transactions of {n_blocks} "
-        f"blocks signed in {time.perf_counter() - t0:.1f} s")
+    signed = evm_transactions(world, n_blocks + n_option, seed)
+    log(f"evm: {sum(len(b) for b in signed)} transactions of "
+        f"{n_blocks + n_option} blocks signed in "
+        f"{time.perf_counter() - t0:.1f} s")
     store = _Overlay(diskdb)
-    runs = {mode: evm_mode_run(dev, mode, world, store, gen_block, signed,
-                               card)
-            for mode in ("off", "batched", "planned")}
+    runs = {mode: evm_mode_run(
+        dev, mode, world, store, gen_block,
+        signed if mode == "planned" else signed[:n_blocks], card)
+        for mode in ("off", "batched", "planned")}
     coinbase = [0]
     touched_all, written = set(), defaultdict(set)
     t0 = time.perf_counter()
     for b, txs in enumerate(signed):
-        block, receipts = runs["off"].blocks[b], runs["off"].receipts[b]
+        held = runs if b < n_blocks else {"planned": runs["planned"]}
+        first = next(iter(held.values()))
+        block, receipts = first.blocks[b], first.receipts[b]
         check(all(r.status == 1 for r in receipts),
               f"evm block {block.number}: a transaction failed")
         for tx, r in zip(txs, receipts):
@@ -2390,18 +2457,18 @@ def phase_evm(dev, world: World, oracle: Oracle, diskdb, gen_block,
         for c, w in writes.items():
             written[c].update(w)
         summary = _block_summary(block, receipts)
-        for mode, run in runs.items():
+        for mode, run in held.items():
             got = _block_summary(run.blocks[b], run.receipts[b])
             check(got == summary, f"evm {mode} block {block.number}: block "
                   f"hash, roots, bloom, gas used or receipts differ from off")
             check(run.blocks[b].header.root == want,
                   f"evm {mode} block {block.number}: root "
                   f"{run.blocks[b].header.root.hex()} != oracle {want.hex()}")
-        log(f"evm block {block.number}: off, batched and planned give block "
+        log(f"evm block {block.number}: {', '.join(held)} give block "
             f"{block.hash().hex()}, root {want.hex()} == the EVM-independent "
             f"oracle's, {len(txs)} receipts, gas used {gas}, base fee "
             f"{block.header.base_fee}")
-    log(f"evm: oracle over {n_blocks} blocks in "
+    log(f"evm: oracle over {n_blocks + n_option} blocks in "
         f"{time.perf_counter() - t0:.1f} s")
     planned = runs["planned"]
     last = planned.blocks[-1].header.root
@@ -2430,18 +2497,51 @@ def phase_evm(dev, world: World, oracle: Oracle, diskdb, gen_block,
 
 
 LOUD_CHAIN = LOUD + ("chain/mirror/quarantines",)
+# a speculative mode that quietly ran serial: each must stay 0
+OPTION_FALLBACKS = ("exec/parallel/fallbacks", "exec/shard/fallbacks",
+                    "chain/pipeline/serial_fallbacks",
+                    "chain/pipeline/spec_aborts")
+SERIAL_PHASES = {"recover", "verify", "execute", "validate", "commit",
+                 "write"}
 
 
-def phase_chain(dev, chain, world: World, evm_blocks, touched, written,
-                coinbase_fee, seed, card):
+def _env_knob(name, value):
+    """While open: one environment override of an execution option (the
+    reference reads them per block)."""
+    return mock.patch.dict(os.environ, {name: str(value)})
+
+
+def _fmt_parallel(stats) -> str:
+    keys = ("workers", "shards", "conflicts", "reexecs", "deps", "fallback")
+    return f"mode {stats.get('mode')} (" + ", ".join(
+        f"{k} {stats[k]}" for k in keys if k in stats) + ")"
+
+
+def _fmt_workers(per_worker) -> str:
+    return "; ".join(
+        f"worker {w}: {row['txs']} txs, {row['spec_failures']} speculative "
+        f"failures, {row['pipe_reads']} pipe reads, execute "
+        f"{row['execute_seconds'] * 1e3:.1f} ms (pipe wait "
+        f"{row['pipe_wait_seconds'] * 1e3:.1f} ms)"
+        for w, row in sorted(per_worker.items()))
+
+
+def phase_chain(dev, chain, world: World, evm_blocks, n_serial, touched,
+                written, coinbase_fee, seed, card):
     """The chain phase (module docstring, phase 7c): the EVM phase's blocks,
-    decoded anew, through BlockChain.insert_block (sender recovery,
-    StateProcessor.process, validate_state, StateDB.commit: the storage
-    tries in one planned program on K1, the account trie on the resident
-    mirror's executor on K1), set_preference, accept, the acceptor queue
-    drained, stop(). The chain's planned marker and its executor launch K1
-    through recorders. Returns (the storage programs' recorder, the
-    executor's, K1 launches, of them cooperative)."""
+    decoded anew, into the chain built with insert_pipeline_depth=2. The
+    first `n_serial` through insert_block_manual(writes=True), the serial
+    path (sender recovery, StateProcessor.process, validate_state,
+    StateDB.commit: the storage tries in one planned program on K1, the
+    account trie on the resident mirror's executor on K1); then the
+    options blocks: one with CORETH_TPU_EVM_PARALLEL=4 and one with
+    CORETH_TPU_EVM_EXEC_SHARDS=2 through insert_block_manual, and the rest
+    through insert_block, so through the pipeline, back to back with the
+    shards on (the submit stage speculates through the shard pool; the
+    commit thread launches K1). Then set_preference, accept, the acceptor
+    queue drained, stop(). The chain's planned marker and its executor
+    launch K1 through recorders. Returns (the storage programs' recorder,
+    the executor's, K1 launches, of them cooperative)."""
     t_phase = time.perf_counter()
     rec_storage, rec_resident = _K1Recorder(), _K1Recorder()
     tdb = chain.state_database.triedb
@@ -2458,22 +2558,52 @@ def phase_chain(dev, chain, world: World, evm_blocks, touched, written,
         exports.append((n, (time.perf_counter() - t0) * 1e3))
         return n
     mirror.export_to = timed_export
+    # the pipeline's commit stage, tapped: its wall, the mirror's events and
+    # the K1 launches it made, per block (only the commit thread launches)
+    taps = {}
+    commit_entry = chain.pipeline._commit_entry
+
+    def tapped(entry):
+        ns, nr = len(rec_storage.records), len(rec_resident.records)
+        t0 = time.perf_counter()
+        try:
+            return commit_entry(entry)
+        finally:
+            taps[entry.hash] = (time.perf_counter() - t0,
+                                mirror.ex.last_events,
+                                len(rec_storage.records) - ns,
+                                len(rec_resident.records) - nr)
+    chain.pipeline._commit_entry = tapped
     blocks = [Block.decode(b.encode()) for b in evm_blocks]
-    loud = {n: default_registry.counter(n).count() for n in LOUD_CHAIN}
+    check(len(blocks) >= n_serial + 4,
+          f"chain: {len(blocks)} blocks for {n_serial} serial ones, one "
+          f"thread-parallel, one sharded and at least two pipelined")
+    loud = {n: default_registry.counter(n).count()
+            for n in LOUD_CHAIN + OPTION_FALLBACKS}
     keccak_cuda.reset_counts()
     planned_mod.planned_fallbacks = 0
     insert_s = gas_all = 0.0
+    asked = {}
     with _GcPauses() as pauses:
-        # back to back, as a validator inserts: block k's insert tail (its
-        # rawdb writes and snapshot attach, on the tail thread) overlaps
-        # block k+1's insert; the flight records' `write` phase is stamped
-        # when each tail lands, so they are read after one join_tail()
+        # blocks 1..n_serial, then one thread-parallel and one sharded:
+        # the serial path, back to back, as a validator inserts (block k's
+        # insert tail, its rawdb writes and snapshot attach on the tail
+        # thread, overlaps block k+1's insert; the flight records' `write`
+        # phase is stamped when each tail lands, so they are read after
+        # one join_tail())
         done = []
-        for b in blocks:
+        for i, b in enumerate(blocks[:n_serial + 2]):
+            knob = (None if i < n_serial else
+                    ("CORETH_TPU_EVM_PARALLEL", OPTION_WORKERS)
+                    if i == n_serial else
+                    ("CORETH_TPU_EVM_EXEC_SHARDS", OPTION_SHARDS))
+            asked[b.hash()] = ("serial" if knob is None else
+                               "parallel" if i == n_serial else "shards")
             ns, nr = len(rec_storage.records), len(rec_resident.records)
-            t0 = time.perf_counter()
-            chain.insert_block(b)
-            wall = time.perf_counter() - t0
+            with (_env_knob(*knob) if knob else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                chain.insert_block_manual(b, writes=True)
+                wall = time.perf_counter() - t0
             win = window_ms(dev, mirror.ex.last_events)
             chain.set_preference(b)
             check(chain.current_block.hash() == b.hash(),
@@ -2482,6 +2612,28 @@ def phase_chain(dev, chain, world: World, evm_blocks, touched, written,
                   f"chain block {b.number}: mirror root != header root")
             done.append((b, wall, win, len(rec_storage.records) - ns,
                          len(rec_resident.records) - nr))
+        # the rest through the pipeline, back to back, shards on: each
+        # submit recovers, verifies and speculates (through the shard
+        # pool) while the commit thread lands the block before it
+        piped = blocks[n_serial + 2:]
+        submits = []
+        with _env_knob("CORETH_TPU_EVM_EXEC_SHARDS", OPTION_SHARDS):
+            t_pipe = time.perf_counter()
+            for b in piped:
+                asked[b.hash()] = "spec"
+                t0 = time.perf_counter()
+                chain.insert_block(b)
+                submits.append(time.perf_counter() - t0)
+            chain.pipeline.drain()
+            pipe_s = time.perf_counter() - t_pipe
+            pool = chain.processor.shard_pool()
+            pongs = pool.ping()
+        chain.set_preference(piped[-1])
+        check(chain.current_block.hash() == piped[-1].hash(),
+              "chain: the last pipelined block is not the head")
+        for b in piped:
+            check(mirror.root_of(b.hash()) == b.header.root,
+                  f"chain block {b.number}: mirror root != header root")
         t0 = time.perf_counter()
         chain.join_tail()
         tail_ms = (time.perf_counter() - t0) * 1e3
@@ -2490,17 +2642,28 @@ def phase_chain(dev, chain, world: World, evm_blocks, touched, written,
         for b, wall, win, n_storage, n_resident in done:
             rec = chain.flight_recorder.find(b.hash())
             phases = rec["phases"]
-            check(set(phases) == {"recover", "verify", "execute", "validate",
-                                  "commit", "write"},
+            check(set(phases) == SERIAL_PHASES,
                   f"chain block {b.number}: flight record phases "
                   f"{sorted(phases)}")
+            want = asked[b.hash()]
+            check(rec["parallel"].get("mode") == want
+                  and not rec["parallel"].get("fallback"),
+                  f"chain block {b.number}: asked for {want}, ran "
+                  f"{rec['parallel']}")
             gas = b.header.gas_used
             insert_s += wall
             gas_all += gas
-            log(f"chain block {b.number}: insert_block {wall * 1e3:.1f} ms "
-                f"({len(b.transactions)} transactions, gas used {gas}; "
-                f"{gas / wall / 1e6:.3f} Mgas/s over the insert); flight "
-                f"record phases (ms) " + ", ".join(
+            extra = ""
+            if want != "serial":
+                extra = (f"mode asked {want}, run "
+                         f"{_fmt_parallel(rec['parallel'])}"
+                         + (f"; {_fmt_workers(rec['parallel']['per_worker'])}"
+                            if "per_worker" in rec["parallel"] else "")
+                         + "; ")
+            log(f"chain block {b.number}: {extra}insert_block_manual "
+                f"{wall * 1e3:.1f} ms ({len(b.transactions)} transactions, "
+                f"gas used {gas}; {gas / wall / 1e6:.3f} Mgas/s over the "
+                f"insert); flight record phases (ms) " + ", ".join(
                     f"{k} {v * 1e3:.1f}" for k, v in phases.items())
                 + f"; resident timers (ms) " + ", ".join(
                     f"{k} {v * 1e3:.1f}" for k, v in rec["resident"].items()
@@ -2510,6 +2673,62 @@ def phase_chain(dev, chain, world: World, evm_blocks, touched, written,
                 f"{n_resident}; snapshot hits/misses "
                 f"{rec['counters']['state/snap/hits']}/"
                 f"{rec['counters']['state/snap/misses']}; {card}")
+        pipe_gas = 0
+        for b, submit in zip(piped, submits):
+            rec = chain.flight_recorder.find(b.hash())
+            phases, par, pipe = rec["phases"], rec["parallel"], rec["pipeline"]
+            check(set(phases) == SERIAL_PHASES | {"fold"},
+                  f"chain block {b.number}: flight record phases "
+                  f"{sorted(phases)}")
+            check(pipe["mode"] == "spec" and pipe["depth"] == PIPELINE_DEPTH
+                  and par["mode"] == "pipeline-spec"
+                  and par["shards"] == OPTION_SHARDS,
+                  f"chain block {b.number}: asked for the pipeline's spec "
+                  f"mode through {OPTION_SHARDS} shards, ran {pipe}, {par}")
+            commit_s, events, n_storage, n_resident = taps[b.hash()]
+            gas = b.header.gas_used
+            pipe_gas += gas
+            log(f"chain block {b.number}: mode asked spec (pipeline depth "
+                f"{PIPELINE_DEPTH}, CORETH_TPU_EVM_EXEC_SHARDS="
+                f"{OPTION_SHARDS}), run {pipe['mode']} (submit stage "
+                f"through {par['shards']} shards), overlap_fraction "
+                f"{pipe['overlap_fraction']}; "
+                f"{_fmt_workers(par['per_worker'])}; submit {submit * 1e3:.1f}"
+                f" ms, commit stage {commit_s * 1e3:.1f} ms "
+                f"({len(b.transactions)} transactions, gas used {gas}; "
+                f"{gas / commit_s / 1e6:.3f} Mgas/s over the commit stage); "
+                f"flight record phases (ms) " + ", ".join(
+                    f"{k} {v * 1e3:.1f}" for k, v in phases.items())
+                + f"; mirror device window "
+                f"{fmt_window(window_ms(dev, events))}; K1 launches from "
+                f"the commit thread: storage programs {n_storage}, resident "
+                f"executor {n_resident}; {card}")
+        log(f"chain: {len(piped)} pipelined blocks from the first submit to "
+            f"the drain {pipe_s * 1e3:.1f} ms ({pipe_gas / pipe_s / 1e6:.3f}"
+            f" Mgas/s over it)")
+        for p in pongs:
+            check(p[4] is False and p[5] == [],
+                  f"chain: shard worker {p[1]} (pid {p[2]}) initialised CUDA "
+                  f"({p[4]}) or loaded {p[5]}")
+        log("chain: shard workers " + ", ".join(
+            f"{p[1]} (pid {p[2]}, inherited threads {p[3]})" for p in pongs)
+            + ": no CUDA context, no jax, jaxlib or coreth_tpu module")
+        # a respawn, as the pool makes one after a crash: the new worker is
+        # forked from the forkserver, which has this script imported
+        killed = pool.pids()[0]
+        os.kill(killed, signal.SIGKILL)
+        pool.workers[0].proc.join(10)
+        t0 = time.perf_counter()
+        respawned = pool.respawn_failed()
+        pongs = pool.ping()
+        respawn_ms = (time.perf_counter() - t0) * 1e3
+        check(respawned == 1 and pool.pids()[0] != killed
+              and all(p[4] is False and p[5] == [] for p in pongs),
+              f"chain: shard respawn after a SIGKILL: {respawned} replaced, "
+              f"pongs {pongs}")
+        log(f"chain: shard respawn: worker 0 (pid {killed}) SIGKILLed, "
+            f"respawn_failed and ping {respawn_ms:.1f} ms, new pid "
+            f"{pool.pids()[0]}, clean; {card}")
         t0 = time.perf_counter()
         for b in blocks:
             chain.accept(b)
@@ -2525,6 +2744,13 @@ def phase_chain(dev, chain, world: World, evm_blocks, touched, written,
         t0 = time.perf_counter()
         chain.stop()
         stop_ms = (time.perf_counter() - t0) * 1e3
+        # the shard workers went with the chain; the forkserver they came
+        # from and the resource tracker go now, and nothing is left
+        t0 = time.perf_counter()
+        exec_shards.stop_servers()
+        servers_ms = (time.perf_counter() - t0) * 1e3
+        left = descendants()
+        check(not left, f"chain: processes left after stop(): {left}")
     launches, coop = keccak_cuda.launches, keccak_cuda.launches_coop
     check(planned_mod.planned_fallbacks == 0, "chain: planned fallback")
     check(keccak_cuda.blocks_launches == 0, "chain: K2 launched")
@@ -2544,18 +2770,22 @@ def phase_chain(dev, chain, world: World, evm_blocks, touched, written,
                 f"{VARIANT_NAME[v]} {n}" for v, n in ran_s.items())
             + "; resident executor " + ", ".join(
                 f"{VARIANT_NAME[v]} {n}" for v, n in ran_r.items()))
-    now = {n: default_registry.counter(n).count() for n in LOUD_CHAIN}
-    for name in LOUD_CHAIN:
+    now = {n: default_registry.counter(n).count()
+           for n in LOUD_CHAIN + OPTION_FALLBACKS}
+    for name in LOUD_CHAIN + OPTION_FALLBACKS:
         check(now[name] == loud[name], f"chain: {name} counted "
               f"{now[name] - loud[name]}")
     check(not mirror.host_mode, "chain: the mirror ended in host mode")
     last = blocks[-1].header.root
     check(exports and exports[-1][0] > 0, f"chain: shutdown export {exports}")
-    log(f"chain: {len(blocks)} blocks inserted in {insert_s * 1e3:.1f} ms "
-        f"({gas_all / insert_s / 1e6:.3f} Mgas/s), accepted and the "
+    log(f"chain: {len(done)} blocks through insert_block_manual in "
+        f"{insert_s * 1e3:.1f} ms ({gas_all / insert_s / 1e6:.3f} Mgas/s), "
+        f"{len(blocks)} accepted and the "
         f"acceptor drained in {accept_ms:.1f} ms; stop() {stop_ms:.1f} ms, "
         f"of it the shutdown export " + "; ".join(
             f"{n} nodes in {ms:.1f} ms" for n, ms in exports)
+        + f"; the forkserver and the resource tracker stopped in "
+        f"{servers_ms:.1f} ms, no process left"
         + f"; garbage collector pauses ({pauses}); no bad block, no wedge, "
         f"takeover, fallback, divergence or quarantine counted")
     # the acknowledged writes: the last root through a fresh TrieDatabase
@@ -2604,9 +2834,14 @@ def main() -> int:
                     help="resident blocks after the first, one rejected")
     ap.add_argument("--evm-blocks", type=int, default=4,
                     help="blocks of signed transactions through the EVM")
+    ap.add_argument("--option-blocks", type=int, default=6,
+                    help="blocks after them, planned mode only, for the "
+                         "chain's execution options (>= 4)")
     ap.add_argument("--device", default="cuda",
                     help="'cpu' rehearses with the plain versions")
     args = ap.parse_args()
+    if args.option_blocks < 4:
+        ap.error("--option-blocks must be at least 4")
     if args.device != "cpu" and not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -2692,13 +2927,14 @@ def main() -> int:
     mark(t_start, "evm")
     evm_planned, evm_batched, touched, written, coinbase_fee = phase_evm(
         dev, evm_world, evm_oracle, diskdb, gen_block, args.evm_blocks,
-        args.seed + 5, card)
+        args.option_blocks, args.seed + 5, card)
     # the same blocks through the chain booted at genesis (K1: storage
-    # programs and the resident executor)
+    # programs and the resident executor), the last ones through the
+    # execution options
     mark(t_start, "chain")
     c_storage, c_resident, c_launches, c_coop = phase_chain(
-        dev, chain, evm_world, evm_planned.blocks, touched, written,
-        coinbase_fee, args.seed + 6, card)
+        dev, chain, evm_world, evm_planned.blocks, args.evm_blocks, touched,
+        written, coinbase_fee, args.seed + 6, card)
     del chain, evm_world, evm_oracle
     cs_err, cs_ms, cs_plain, cs_shapes, cs_kernel = time_k1(
         dev, [r[0] for r in c_storage.records], "chain storage programs",
@@ -2771,7 +3007,10 @@ def main() -> int:
         f"K2 batched genesis {bg_launches}, batched block {bb_launches}, "
         f"evm batched {evm_batched.k2}")
     log(f"peak RSS {rss_gib():.1f} GiB")
-    log(f"card {card}; total {time.perf_counter() - t_start:.1f} s")
+    left = descendants()
+    check(not left, f"processes left at the end: {left}")
+    log(f"card {card}; total {time.perf_counter() - t_start:.1f} s; no "
+        f"process left")
     print(json.dumps({"kernels": [{
         "name": "segment_keccak",
         "route": "cuda",

@@ -23,14 +23,19 @@ where it was; the mirror moves to the host only when the caller calls
 chain.take_over_host() (noted in the flight recorder), never by itself.
 
 Device rules of the port: `device` None is CUDA, and without it the
-device seam and the "auto" probe raise; "cpu" only when asked.
+device seam and the "auto" probe raise; "cpu" only when asked. A device
+fault (device.DEVICE_FAULTS) is never a bad block.
+
+The execution options: evm_exec_shards and evm_parallel_workers (and
+their env overrides, read per block) pick the processor's speculative
+mode (state_processor.py); insert_pipeline_depth > 0 hands insert_block
+to the staged pipeline (insert_pipeline.py), drained at accept, reject,
+set_preference and insert_block_manual and stopped at stop().
 
 Not ported, each raising NotImplementedError by name when asked for (no
 knob is ignored): the degradation ladder (device_call_timeout,
 device_max_retries, device_probe_interval, device_promote_after away from
-their defaults; ROADMAP "Still to port", item 5), the execution options
-(insert_pipeline_depth > 0, evm_parallel_workers, evm_exec_shards and
-their environment overrides; item 3b.3), the mesh-sharded mirror
+their defaults; ROADMAP "Still to port", item 5), the mesh-sharded mirror
 (resident_mesh_devices > 0; item 6) and the bintrie shadow
 (state_backend="bintrie-shadow"; item 10).
 """
@@ -44,7 +49,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 from .. import rlp
-from ..device import DeviceLike, resolve
+from ..device import DEVICE_FAULTS, DeviceLike, DeviceWedgedError, resolve
 from ..fault import failpoint
 from ..fault import register as _register_failpoint
 from ..metrics.flight import FlightRecorder
@@ -165,11 +170,13 @@ class CacheConfig:
     cpu_threads: int = 0
     # bloom-bit index section (bloom_indexer.go BloomBitsBlocks)
     bloom_section_size: int = 4096
-    # Block-STM parallel execution workers and process execution shards:
-    # not ported (ROADMAP "Still to port", item 3b.3); anything but 0
-    # here or in CORETH_TPU_EVM_PARALLEL / CORETH_TPU_EVM_EXEC_SHARDS
-    # raises
+    # Block-STM optimistic parallel execution workers (core/parallel_exec);
+    # 0 = the serial loop. CORETH_TPU_EVM_PARALLEL overrides per block.
     evm_parallel_workers: int = 0
+    # process-level execution shards (core/exec_shards): worker processes
+    # execute speculative txs and ship write-sets back; 0 = in-process
+    # paths only. Checked before evm_parallel_workers;
+    # CORETH_TPU_EVM_EXEC_SHARDS overrides per block.
     evm_exec_shards: int = 0
     # per-chain flight recorder: ring size of retained per-block phase
     # records (metrics/flight.py; served by debug_blockFlightRecord)
@@ -215,8 +222,12 @@ class CacheConfig:
     # block-insert SLO budget (seconds): inserts slower than this are
     # auto-captured into the trace ring (debug_traceRequest); 0 disables
     insert_slo_budget: float = 0.0
-    # staged insert pipeline depth: not ported (ROADMAP "Still to port",
-    # item 3b.3); 0 = the serial insert path, anything else raises
+    # staged insert pipeline depth (core/insert_pipeline.py): up to this
+    # many blocks stay in flight — block k+1's sender recovery and
+    # speculative execution overlap block k's commit/device-hash/tail
+    # write, with only the commit/write/canonical stage under chainmu.
+    # 0 = the serial insert path (every stage under chainmu); validated
+    # range 0-3. Read at construction only
     insert_pipeline_depth: int = 0
     # --- storage fault armor (ROBUSTNESS.md "Storage faults") ---
     # re-hash hash-addressed payloads as they leave disk: header RLP and
@@ -243,7 +254,6 @@ def _refuse_not_ported(cfg: CacheConfig) -> None:
         ("5 (the degradation ladder)",
          ("device_call_timeout", "device_max_retries",
           "device_probe_interval", "device_promote_after")),
-        ("3b.3 (the execution options)", ("insert_pipeline_depth",)),
         ("6 (multi-GPU)", ("resident_mesh_devices",)),
         ("10 (the bintrie shadow)", ("shadow_check_interval",)),
     )
@@ -284,19 +294,21 @@ _FLIGHT_TIMERS = (
 
 class _PhaseClock:
     """Times one insert phase into three sinks at once: the cumulative
-    `chain/phase/<name>` registry timer, the in-flight block's flight
-    record, and — when tracing is on — a `chain/<name>` span. One extra
-    dict store and two monotonic reads per phase over a bare registry
-    timer. (The reference's insert pipeline gives it other prefixes; item
-    3b.3.)"""
+    `<prefix><name>` registry timer (default `chain/phase/`), the
+    in-flight block's flight record, and — when tracing is on — a
+    `<span_prefix><name>` span. One extra dict store and two monotonic
+    reads per phase over a bare registry timer. The insert pipeline uses
+    a `chain/pipeline/` prefix so its stage timers are a parallel family,
+    not an overwrite of the serial attribution."""
 
     __slots__ = ("_timer", "_phases", "_name", "_span_name", "_span", "_t0")
 
-    def __init__(self, name: str, phases: Dict[str, float], registry):
-        self._timer = registry.timer("chain/phase/" + name)
+    def __init__(self, name: str, phases: Dict[str, float], registry,
+                 prefix: str = "chain/phase/", span_prefix: str = "chain/"):
+        self._timer = registry.timer(prefix + name)
         self._phases = phases
         self._name = name
-        self._span_name = "chain/" + name
+        self._span_name = span_prefix + name
 
     def __enter__(self):
         self._span = _span(self._span_name)
@@ -464,7 +476,6 @@ class BlockChain:
         )
         self._tail_thread.start()
 
-        # raises on a speculative execution mode (item 3b.3)
         self.processor = StateProcessor(
             config, self, engine,
             parallel_workers=cache_config.evm_parallel_workers,
@@ -591,6 +602,16 @@ class BlockChain:
             target=self._start_acceptor, name="acceptor", daemon=True
         )
         self._acceptor_thread.start()
+
+        # staged insert pipeline (core/insert_pipeline.py): recover/verify/
+        # speculate on the caller thread, commit under chainmu on a single
+        # worker. Built last — it captures a fully constructed chain.
+        self.pipeline = None
+        if cache_config.insert_pipeline_depth > 0:
+            from .insert_pipeline import InsertPipeline
+
+            self.pipeline = InsertPipeline(
+                self, depth=cache_config.insert_pipeline_depth)
 
         # first view: the fully restored boot heads
         self._publish_read_view()
@@ -972,15 +993,31 @@ class BlockChain:
 
     def insert_block(self, block: Block) -> None:
         """InsertBlockManual(writes=True) (blockchain.go:1234-1389): the
-        serial insert, every stage under chainmu."""
+        serial insert, every stage under chainmu.
+
+        With insert_pipeline_depth > 0 the block is handed to the staged
+        pipeline instead: this call runs recovery/verification/
+        speculative execution (no chainmu) and returns once the block is
+        queued for its commit stage. A commit failure surfaces at the
+        next submit or drain point (accept/reject/set_preference/
+        insert_block_manual/stop) — same deferred-error contract as the
+        async insert tail."""
         if self.degraded:
             self._probe_degraded()  # raises ChainDegradedError while sick
+        if self.pipeline is not None:
+            self.pipeline.submit(block)
+            return
         with self.chainmu:
             self._insert_checked(block, writes=True)
 
     def insert_block_manual(self, block: Block, writes: bool) -> None:
         if self.degraded:
             self._probe_degraded()  # raises ChainDegradedError while sick
+        # a writes=False semantic check runs against the latest committed
+        # state; in-flight pipelined successors would race it — land them
+        # (and surface any deferred commit error) first
+        if self.pipeline is not None:
+            self.pipeline.drain()
         with self.chainmu:
             self._insert_checked(block, writes)
 
@@ -988,11 +1025,10 @@ class BlockChain:
         """Serial insert with bad-block bookkeeping: failures land in the
         bad-block ring (eth/api.go GetBadBlocks / core reportBlock) so
         operators can debug bad-root/gas-mismatch blocks from
-        debug_getBadBlocks. A device that stopped answering
-        (DeviceWedgedError) is not the block's fault: it leaves with the
-        head where it was and no bad-block entry."""
-        from ..native.mpt import DeviceWedgedError
-
+        debug_getBadBlocks. A device fault (DEVICE_FAULTS: a device that
+        stopped answering, a CUDA error, a kernel that did not build) is
+        not the block's fault: it leaves with the head where it was and no
+        bad-block entry."""
         if self.get_header(block.header.parent_hash) is None:
             # unknown ancestor is an ORDERING condition, not a bad block
             # (geth's reportBlock is only reached by validation errors;
@@ -1000,7 +1036,7 @@ class BlockChain:
             raise ChainError("unknown ancestor")
         try:
             self._insert_block(block, writes)
-        except DeviceWedgedError:
+        except DEVICE_FAULTS:
             raise
         except Exception as e:
             self._note_bad_block(block, e)
@@ -1013,7 +1049,8 @@ class BlockChain:
         """Append a failed insert to the bounded bad-block ring with its
         in-flight flight record attached — phase timings up to the point
         of failure are exactly what an operator debugging a bad-root/
-        gas-mismatch block needs."""
+        gas-mismatch block needs. Shared by the serial path and the
+        pipeline's submit and commit stages."""
         # dedup by hash: consensus retries re-submit the same bad
         # block, and each retry would otherwise evict a DISTINCT
         # earlier failure from the bounded ring (the newest reason
@@ -1125,8 +1162,10 @@ class BlockChain:
                        writes: bool, rec: dict, phases: Dict[str, float],
                        insert_timer, _metrics) -> None:
         """Phase body of _insert_block (split so the flight-record
-        bookkeeping wraps it exactly once). This is the serial path:
-        every stage runs here, under chainmu."""
+        bookkeeping wraps it exactly once). This is the SERIAL path:
+        every stage runs here, under chainmu. The pipeline runs the
+        recover/verify/execute half on the submitting thread and shares
+        only _commit_validated — the one stage that needs the lock."""
         # overlap sender ecrecover with verification (blockchain.go:1247)
         from .sender_cacher import sender_cacher
         from .types import Signer
@@ -1160,7 +1199,11 @@ class BlockChain:
                               phases: Dict[str, float], _metrics,
                               insert_timer):
         """Open the parent state, execute the block, and validate the
-        post-state against the header. No chain mutation."""
+        post-state against the header. No chain mutation — safe to run
+        outside chainmu as long as the parent's state stays reachable
+        (the serial path holds chainmu anyway; the pipeline's commit
+        worker calls this as the serial fallback, ordered after the
+        parent's commit)."""
         statedb = self.state_at(parent.root)
         if getattr(statedb.trie, "resident", False):
             # hand the header root to the mirror: with pipelining on,
@@ -1177,9 +1220,7 @@ class BlockChain:
                 with _PhaseClock("execute", phases, _metrics):
                     receipts, _, used_gas = self.processor.process(
                         block, parent, statedb)
-                # the serial loop's verdict, as the reference's processor
-                # reports it (the speculative modes are item 3b.3)
-                rec["parallel"] = {"mode": "serial"}
+                rec["parallel"] = dict(self.processor.last_parallel)
                 with _PhaseClock("validate", phases, _metrics):
                     self.validator.validate_state(
                         block, statedb, receipts, used_gas)
@@ -1195,7 +1236,9 @@ class BlockChain:
                           phases: Dict[str, float],
                           _metrics) -> None:  # guarded-by: chainmu
         """Commit/device-hash/write/canonical stage for a block whose
-        post-state already validated."""
+        post-state already validated. With pipelining on this is the
+        ONLY insert stage that holds chainmu — everything above it runs
+        on the submitting thread."""
         header = block.header
         failpoint("insert/before_commit")
 
@@ -1605,6 +1648,13 @@ class BlockChain:
     def accept(self, block: Block) -> None:
         """Accept (blockchain.go:1034-1065): reorg to the accepted block if
         it is not canonical, then enqueue async post-processing."""
+        # land in-flight pipelined inserts BEFORE taking chainmu (the
+        # commit worker needs the lock to make progress — draining under
+        # it would deadlock). An accept of an in-flight block thereby
+        # waits for its commit; a deferred commit failure surfaces here,
+        # and the pipeline has already rewound the speculated successors.
+        if self.pipeline is not None:
+            self.pipeline.drain()
         with self.chainmu:
             canonical = self.get_canonical_hash(block.number)
             if canonical != block.hash():
@@ -1620,6 +1670,11 @@ class BlockChain:
 
     def reject(self, block: Block) -> None:
         """Reject (blockchain.go:1067-1094): drop refs for the losing block."""
+        # same ordering as accept: drain the pipeline outside chainmu so
+        # a reject of (or racing) an in-flight block sees it committed —
+        # or its speculation rewound — before refs are dropped
+        if self.pipeline is not None:
+            self.pipeline.drain()
         with self.chainmu:
             # the losing block's tail may still be queued; land it before
             # dropping the in-memory refs so disk state stays coherent
@@ -1659,7 +1714,6 @@ class BlockChain:
         caller moves it with take_over_host() the next export writes the
         full image."""
         from ..metrics import default_registry as _metrics
-        from ..native.mpt import DeviceWedgedError
 
         with _span("chain/accept", number=block.number):
             with _metrics.timer("chain/block/accepts").time():
@@ -1697,6 +1751,11 @@ class BlockChain:
 
     def set_preference(self, block: Block) -> None:
         """SetPreference (blockchain.go:973-1012)."""
+        # a preference switch can reorg: rewind in-flight speculation
+        # first (outside chainmu — see accept) so the reorg never races
+        # a pipelined commit that extends the losing fork
+        if self.pipeline is not None:
+            self.pipeline.drain()
         with self.chainmu:
             self._set_preference_locked(block)
 
@@ -1746,9 +1805,17 @@ class BlockChain:
     # ------------------------------------------------------------ lifecycle
 
     def stop(self) -> None:
-        """Drain the acceptor queue and the insert tail, retire both
-        workers, then the trie writer's shutdown (the resident writer's
-        final export of the last accepted block)."""
+        """Retire the insert pipeline and the shard pool, drain the
+        acceptor queue and the insert tail, retire both workers, then the
+        trie writer's shutdown (the resident writer's final export of the
+        last accepted block)."""
+        # the pipeline first: its commit worker feeds the acceptor/tail
+        # queues being drained below
+        if self.pipeline is not None:
+            self.pipeline.stop()
+        # then the execution shard pool (the pipeline's submit stage was
+        # its last possible dispatcher)
+        self.processor.close()
         self.drain_acceptor_queue()
         self._acceptor_queue.put(None)
         self._acceptor_thread.join(timeout=5)

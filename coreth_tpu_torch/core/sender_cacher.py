@@ -10,17 +10,19 @@ overlaps the GIL-released native recovery of the others. A failed native
 build raises, as everywhere in the port: there is no pure-Python path.
 
 recover() tags each dispatch with a batch token so wait(token) joins one
-block's futures only.
+block's futures only: with the insert pipeline keeping two blocks in
+flight, a global wait would serialize block k+1's recovery behind block
+k's. A cacher that crossed a fork rebuilds its thread pool before use
+(_ensure_pool).
 
-Not ported: the reference's respawn-after-fork guard, which serves its
-forked execution shards, and its caller-supplied `batch_recover` and
-`recover_from_block`, which only its insert pipeline's tests use (ROADMAP
-"Still to port", item 3b.3).
+Not ported: the reference's caller-supplied `batch_recover` and
+`recover_from_block`, which only its tests use.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -48,6 +50,29 @@ class TxSenderCacher:
         # batch token -> outstanding futures for that recover() call
         self._batches: Dict[int, list] = {}  # guarded-by: _lock
         self._tokens = itertools.count(1)
+        # fork guard: fork copies only the calling thread, so an inherited
+        # ThreadPoolExecutor is a threadless shell — submit() would queue
+        # work nobody runs and wait() would hang forever on it
+        self._owner_pid = os.getpid()  # guarded-by: _lock
+
+    def _ensure_pool(self) -> None:
+        """Respawn-after-fork guard: if this cacher object crossed a
+        fork, its pool's worker threads did not — submits would queue
+        work nobody runs and waits would hang. Rebuild the pool (and
+        drop the parent's futures — they can never complete here) before
+        any dispatch or join. The unlocked pre-check is benign: the pid
+        only changes across fork, and a forked child starts single-
+        threaded."""
+        if os.getpid() == self._owner_pid:
+            return
+        with self._lock:
+            pid = os.getpid()
+            if pid == self._owner_pid:
+                return
+            _metrics.counter("exec/shard/fork_guard_trips").inc()
+            self._pool = ThreadPoolExecutor(max_workers=self.threads)
+            self._batches.clear()
+            self._owner_pid = pid
 
     def recover(self, signer: Signer, txs: List[Transaction]) -> Optional[int]:
         """Kick off sender recovery for txs; results land in each tx's
@@ -55,6 +80,7 @@ class TxSenderCacher:
         token for wait(token) (None when there was nothing to do)."""
         if not txs:
             return None
+        self._ensure_pool()
         # prune finished batches so the fire-and-forget path stays bounded
         with self._lock:
             for tok in [t for t, fs in self._batches.items()
@@ -99,6 +125,7 @@ class TxSenderCacher:
         batch when token is None. A token that already completed (or was
         pruned, or is None from an empty recover) is a no-op — senders
         for those txs are cached either way."""
+        self._ensure_pool()
         with self._lock:
             if token is None:
                 futures = [f for fs in self._batches.values() for f in fs]

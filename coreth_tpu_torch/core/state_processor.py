@@ -4,23 +4,28 @@ Process: configure per-block precompiles, apply each tx with per-tx
 Finalise/IntermediateRoot (statedb journal boundaries), then the engine's
 Finalize for atomic-tx extra state (state_processor.go:68-107).
 
-The serial loop only. The reference's two speculative execution modes,
-the thread-parallel `parallel_exec` and the process shards of
-`exec_shards`, are ROADMAP "Still to port", item 3b.3: asking for either
-(`parallel_workers`, `exec_shards_n`, CORETH_TPU_EVM_PARALLEL or
-CORETH_TPU_EVM_EXEC_SHARDS) raises NotImplementedError, and nothing runs
-serially in its place.
+Besides the serial loop, two speculative execution modes: the process
+shards of `exec_shards` (`exec_shards_n`, CORETH_TPU_EVM_EXEC_SHARDS),
+checked first, and the thread-parallel Block-STM of `parallel_exec`
+(`parallel_workers`, CORETH_TPU_EVM_PARALLEL). The env overrides are read
+per block. A speculative failure runs the serial loop from pristine state
+(the fold is the modes' only StateDB mutation and it runs last); a device
+fault (device.DEVICE_FAULTS) is never a speculative failure and reaches
+the caller.
 
 Counterpart of coreth_tpu/core/state_processor.py.
 """
 
 from __future__ import annotations
 
-import os
+import threading
 from typing import List, Optional, Tuple
 
+from ..device import DEVICE_FAULTS
 from ..evm.evm import EVM, BlockContext, Config, TxContext
+from ..metrics import default_registry as _metrics
 from ..metrics.spans import span
+from . import exec_shards, parallel_exec
 from .state_transition import GasPool, Message, apply_message, tx_as_message
 from .types import Block, Header, Receipt, Signer
 
@@ -93,37 +98,54 @@ def apply_message_to_receipt(config, evm: EVM, gp: GasPool, statedb, header: Hea
     return receipt
 
 
-PARALLEL_ENV = "CORETH_TPU_EVM_PARALLEL"
-SHARDS_ENV = "CORETH_TPU_EVM_EXEC_SHARDS"
-_NOT_PORTED = ("not ported (ROADMAP 'Still to port', item 3b.3); the "
-               "port runs the serial loop only")
-
-
-def _refuse_speculative(parallel_workers: int, exec_shards_n: int) -> None:
-    """Raise when a speculative execution mode is asked for, through the
-    knob or its env override (the reference's effective_workers /
-    effective_shards read the same names; "0" asks for serial)."""
-    for knob, val, env in (("evm-parallel-workers", parallel_workers,
-                            PARALLEL_ENV),
-                           ("evm-exec-shards", exec_shards_n, SHARDS_ENV)):
-        raw = os.environ.get(env, "").strip()
-        if val or raw not in ("", "0"):
-            raise NotImplementedError(
-                f"{knob}={val or raw} ({env}={raw!r}): {_NOT_PORTED}")
-
-
 class StateProcessor:
     def __init__(self, config, chain, engine, parallel_workers: int = 0,
                  exec_shards_n: int = 0):
-        _refuse_speculative(parallel_workers, exec_shards_n)
         self.config = config
         self.chain = chain
         self.engine = engine
+        # evm-parallel-workers knob (0 = serial); CORETH_TPU_EVM_PARALLEL
+        # overrides per-process at block time
+        self.parallel_workers = parallel_workers
+        # evm-exec-shards knob (0 = in-process paths only);
+        # CORETH_TPU_EVM_EXEC_SHARDS overrides per-process at block time
+        self.exec_shards = exec_shards_n
+        # started on the first sharded block; guarded by _shard_mu.
+        # Shared with the insert pipeline's submit stage.
+        self._shard_pool = None  # guarded-by: _shard_mu
+        self._shard_mu = threading.Lock()
+        # stats of the most recent process() call, consumed by the
+        # chain's flight recorder ("parallel" field)
+        self.last_parallel: dict = {"mode": "serial"}
+
+    def shard_pool(self):
+        """The live shard pool, starting it on first use — or None when
+        the knob is off, the pool is demoted (lifecycle ladder), or its
+        start failed (counted as a fallback; retried next block)."""
+        n = exec_shards.effective_shards(self.exec_shards)
+        if n <= 0:
+            return None
+        with self._shard_mu:
+            pool = self._shard_pool
+            if pool is not None:
+                return pool if pool.healthy else None
+            try:
+                pool = exec_shards.ShardPool(n, self.config)
+            except Exception:
+                _metrics.counter("exec/shard/fallbacks").inc()
+                return None
+            self._shard_pool = pool
+            return pool
+
+    def close(self) -> None:
+        with self._shard_mu:
+            pool, self._shard_pool = self._shard_pool, None
+        if pool is not None:
+            pool.close()
 
     def process(self, block: Block, parent: Header, statedb,
                 vm_config: Config = None) -> Tuple[list, list, int]:
         """Process (state_processor.go:68-107): returns (receipts, logs, gasUsed)."""
-        _refuse_speculative(0, 0)
         header = block.header
         used_gas = [0]
         all_logs: list = []
@@ -136,6 +158,63 @@ class StateProcessor:
 
         block_ctx = new_block_context(header, self.chain)
         evm = EVM(block_ctx, TxContext(), statedb, self.config, vm_config or Config())
+
+        workers = parallel_exec.effective_workers(self.parallel_workers)
+        shards = exec_shards.effective_shards(self.exec_shards)
+        self.last_parallel = {"mode": "serial"}
+        parallel = None
+        gate_ok = (len(block.transactions) >= parallel_exec.MIN_PARALLEL_TXS
+                   and (vm_config is None or vm_config.tracer is None)
+                   and self.config.is_byzantium(header.number))
+        if shards > 0 and gate_ok:
+            # third execution mode: GIL-free process shards. Checked
+            # BEFORE the thread mode; a shard fallback goes straight to
+            # the serial loop (mixing both speculative paths on one
+            # block would double-execute for no win).
+            pool = self.shard_pool()
+            if pool is not None:
+                try:
+                    parallel, stats = exec_shards.execute_block_sharded(
+                        self.config, block, parent, statedb, block_ctx,
+                        vm_config or Config(), shards, pool,
+                    )
+                except DEVICE_FAULTS:
+                    raise
+                except Exception:
+                    # same contract as the thread mode: the fold is the
+                    # only StateDB mutation and it runs last, so the
+                    # serial loop below re-executes from pristine state
+                    _metrics.counter("exec/shard/fallbacks").inc()
+                    parallel, stats = None, {
+                        "mode": "serial", "workers": shards,
+                        "conflicts": 0, "reexecs": 0, "deps": 0,
+                        "fallback": True,
+                    }
+                self.last_parallel = stats
+        elif workers > 0 and gate_ok:
+            try:
+                parallel, stats = parallel_exec.execute_block(
+                    self.config, block, parent, statedb, block_ctx,
+                    vm_config or Config(), workers,
+                )
+            except DEVICE_FAULTS:
+                raise
+            except Exception:
+                # optimistic path must never take down block processing:
+                # the fold is its only StateDB mutation and it runs last,
+                # so the serial loop below re-executes from pristine state
+                _metrics.counter("exec/parallel/fallbacks").inc()
+                parallel, stats = None, {
+                    "mode": "serial", "workers": workers, "conflicts": 0,
+                    "reexecs": 0, "deps": 0, "fallback": True,
+                }
+            self.last_parallel = stats
+
+        if parallel is not None:
+            receipts, all_logs, used_gas[0] = parallel
+            with span("chain/execute/finalize"):
+                self.engine.finalize(self.config, block, parent, statedb, receipts)
+            return receipts, all_logs, used_gas[0]
 
         with span("chain/execute/txs", number=block.number,
                   txs=len(block.transactions)):

@@ -263,7 +263,10 @@ class Signer:
         surfaces the precise error later.
 
         native_threads is forwarded to the native recover pool (0 = its
-        hardware-concurrency default)."""
+        hardware-concurrency default); sharded callers (the sender
+        cacher) pass 1 so each shard owns one core and the Python-side
+        item building (RLP + sig-hash keccak) of one shard overlaps the
+        GIL-released native recovery of the others."""
         from ..native import secp
 
         todo = [tx for tx in txs if tx._sender is None]

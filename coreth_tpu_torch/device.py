@@ -4,6 +4,14 @@ Counterpart of coreth_tpu/ops/keccak_planned.py:_tpu_backend. Entry points
 run on CUDA unless the caller asks for the CPU; nothing drifts to the CPU
 when CUDA is missing. The CUDA kernels are built for sm_90a, so a CUDA
 device must be Hopper (compute capability >= 9.0).
+
+DEVICE_FAULTS names the failures of the device itself: a device that
+stopped answering (DeviceWedgedError), a kernel launch that returned a
+CUDA error (KernelLaunchError, torch's CUDA errors) and a kernel or native
+library that did not build (BuildError). They are never a block's fault
+and never a failed speculation: every path that catches exceptions to
+fall back (the speculative execution modes, the insert pipeline's commit
+stage) lets them through to its caller.
 """
 
 from __future__ import annotations
@@ -12,7 +20,24 @@ from typing import Optional, Union
 
 import torch
 
+from .native._build import BuildError
+
 DeviceLike = Optional[Union[str, torch.device]]
+
+
+class DeviceWedgedError(RuntimeError):
+    """The device did not answer within the watchdog budget. A caller may
+    move the trie to the host (IncrementalTrie.rehash_host); nothing here
+    does so by itself."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel launch returned a CUDA error."""
+
+
+DEVICE_FAULTS = (DeviceWedgedError, KernelLaunchError, BuildError,
+                 torch.cuda.CudaError, torch.OutOfMemoryError) + (
+    (torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ())
 
 
 def hopper_available() -> bool:

@@ -36,6 +36,7 @@ helper every retry loop in the tree must go through.
 
 from __future__ import annotations
 
+import copy
 import os
 import random
 import threading
@@ -226,6 +227,24 @@ def child_after_fork() -> None:
     _lock = threading.Lock()
     _unhang = threading.Event()
     _fired_hook = lambda name: None
+
+
+def armed_state() -> Dict[str, "_Armed"]:
+    """Copies of every armed failpoint, with its fire budget and random
+    stream as they stand now: what a worker process started from a
+    forkserver (core/exec_shards.py) adopts with adopt_armed(), so it
+    sees the parent's arming exactly as a forked child would."""
+    with _lock:
+        return copy.deepcopy(_armed)
+
+
+def adopt_armed(state: Dict[str, "_Armed"]) -> None:
+    """Replace this process's armed set with a parent's armed_state()."""
+    global enabled
+    with _lock:
+        _armed.clear()
+        _armed.update(state)
+        enabled = bool(_armed)
 
 
 def failpoint(name: str) -> None:

@@ -2,10 +2,10 @@
 gauges, meters, histograms, timers, with the EnabledExpensive gate and
 Prometheus-style export); counterpart of coreth_tpu/metrics/__init__.py.
 
-The flight recorder is metrics/flight.py. Not ported: the shard
-statistics (ROADMAP "Still to port", item 3b.3), the package's
-command-line check (`__main__`), its HTTP exposition and the profiler
-(item 8)."""
+The flight recorder is metrics/flight.py, the shard workers' stdlib-only
+accumulator metrics/shardstats.py. Not ported: the package's command-line
+check (`__main__`), its HTTP exposition and the profiler (ROADMAP "Still
+to port", item 8)."""
 
 from __future__ import annotations
 

@@ -24,6 +24,10 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 
 
+class BuildError(RuntimeError):
+    """A compiler failed, timed out or is missing."""
+
+
 def _stale(srcs: Sequence[str], lib_path: str) -> bool:
     """True when lib_path is missing or older than a source or any header
     (.h/.cuh) beside one."""
@@ -44,7 +48,7 @@ def build_and_load(compiler: Sequence[str], srcs: Sequence[str], lib_name: str,
                    build_dir: str = BUILD_DIR) -> ctypes.CDLL:
     """Run `compiler... -o <lib> srcs... link...` if stale, then CDLL it.
     The compiler's output is kept beside the library as <lib>.log.
-    Raises RuntimeError when the compiler fails or is missing."""
+    Raises BuildError when the compiler fails or is missing."""
     os.makedirs(build_dir, exist_ok=True)
     lib_path = os.path.join(build_dir, lib_name)
     with open(lib_path + ".lock", "w") as lock:
@@ -63,10 +67,10 @@ def _compile(compiler, srcs, lib_name, lib_path, link, timeout) -> None:
                            timeout=timeout)
     except (OSError, subprocess.SubprocessError) as e:
         os.unlink(tmp)
-        raise RuntimeError(f"build of {lib_name} failed: {e}") from e
+        raise BuildError(f"build of {lib_name} failed: {e}") from e
     if r.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(
+        raise BuildError(
             f"build of {lib_name} failed ({' '.join(cmd)}):\n"
             f"{r.stdout}{r.stderr}")
     with open(lib_path + ".log", "w") as f:

@@ -49,6 +49,7 @@ from . import CXX_FLAGS, default_cpu_threads  # noqa: F401  (one policy)
 from ..fault import failpoint
 from ..fault import register as _register_failpoint
 from ._build import build_and_load
+from ..device import DeviceWedgedError
 
 FP_BEFORE_ABSORB = _register_failpoint(
     "resident/before_absorb",
@@ -308,12 +309,6 @@ def items_to_arrays(items: Sequence[Tuple[bytes, bytes]]):
 def plan_from_items(items: Sequence[Tuple[bytes, bytes]]) -> CommitPlan:
     """plan_commit over items_to_arrays(items)."""
     return plan_commit(*items_to_arrays(items))
-
-
-class DeviceWedgedError(RuntimeError):
-    """The device did not answer within the watchdog budget. A caller may
-    move the trie to the host (IncrementalTrie.rehash_host); nothing here
-    does so by itself."""
 
 
 def _run_with_watchdog(fn, timeout: float, what: str):

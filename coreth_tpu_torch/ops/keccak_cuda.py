@@ -43,6 +43,7 @@ from typing import List, Optional
 
 import torch
 
+from ..device import KernelLaunchError
 from ..native._build import BUILD_DIR, build_and_load
 from .keccak_staged import segment_keccak_plain
 from .keccak_torch import WORDS_PER_BLOCK, keccak256_blocks_plain
@@ -154,7 +155,7 @@ def _launch(kernel: _Kernel, name: str, words: torch.Tensor, *args) -> int:
         with torch.cuda.device(dev):
             rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
     if rc <= 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {-rc}")
+        raise KernelLaunchError(f"{name} launch failed: CUDA error {-rc}")
     return rc
 
 

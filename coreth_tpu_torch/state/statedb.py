@@ -33,9 +33,11 @@ Tree.update arguments in `_deferred_snap_update` for the chain's insert
 tail. start_prefetcher warms the touched tries while a block executes,
 except on a resident account trie.
 
-Not ported, each with its ROADMAP "Still to port" item: fold_tx_writes
-(3b.3, with the parallel executor); the bintrie shadow and the expensive
-timers (10).
+fold_tx_writes is the one way a speculative write-set reaches the StateDB
+(core/parallel_exec.py, core/exec_shards.py, core/insert_pipeline.py).
+
+Not ported (ROADMAP "Still to port", item 10): the bintrie shadow and the
+expensive timers.
 """
 
 from __future__ import annotations
@@ -610,6 +612,76 @@ class StateDB:
             self._objects_pending.add(addr)
             self._objects_dirty.add(addr)
         self.journal = Journal()
+        self.refund = 0
+
+    def fold_tx_writes(self, tx_hash: bytes, tx_index: int, accounts,
+                       storage, logs, preimages,
+                       fee_to: Optional[bytes] = None,
+                       fee_amount: int = 0) -> None:
+        """Deterministic-commit entry point of the speculative executors
+        (core/parallel_exec.py): apply one transaction's validated
+        write-set straight into pending state, called in ascending
+        tx-index order, reproducing what the journaled execute +
+        finalise(True) pair leaves behind.
+
+        `accounts` maps addr -> account tuple (nonce, balance, code_hash,
+        code, code_dirty, is_multi_coin, fresh) or None for a deletion
+        (suicide or EIP-158 empty); `storage` maps (addr, normalized key)
+        -> value for live accounts; `fee_to`/`fee_amount` carry the
+        commutative coinbase fee delta. Assumes an empty journal: the
+        executor finalises the configure-precompiles writes before the
+        first fold."""
+        self.set_tx_context(tx_hash, tx_index)
+        for addr, ws in accounts.items():  # write-set order == journal.dirties order
+            if ws is None:
+                obj = self._get_deleted_state_object(addr)
+                if obj is None:
+                    # created and destructed within this tx: a bare object
+                    # carries the deletion marker (serial leaves the same)
+                    obj = StateObject(self, addr, None)
+                    self._objects[addr] = obj
+                obj.deleted = True
+                self._snap_destructs.add(obj.addr_hash)
+                self._snap_accounts.pop(obj.addr_hash, None)
+                self._snap_storage.pop(obj.addr_hash, None)
+            else:
+                (nonce, balance, code_hash, code, code_dirty, is_multi_coin,
+                 fresh) = ws
+                obj = self._get_state_object(addr)
+                if obj is None or fresh:
+                    # (re)created this tx: empty storage root, like the
+                    # serial _create_object reset
+                    obj = StateObject(self, addr, None)
+                    self._objects[addr] = obj
+                d = obj.data
+                d.nonce = nonce
+                d.balance = balance
+                d.is_multi_coin = is_multi_coin
+                if code_dirty:
+                    obj.code = code
+                    d.code_hash = code_hash
+                    obj.dirty_code = True
+            self._objects_pending.add(addr)
+            self._objects_dirty.add(addr)
+        for (addr, key), value in storage.items():
+            self._objects[addr].pending_storage[key] = value
+        if fee_amount:
+            obj = self._get_state_object(fee_to)
+            if obj is None:
+                obj = StateObject(self, fee_to, None)
+                self._objects[fee_to] = obj
+            obj.data.balance += fee_amount
+            self._objects_pending.add(fee_to)
+            self._objects_dirty.add(fee_to)
+        for log in logs:
+            log.tx_hash = tx_hash
+            log.tx_index = tx_index
+            log.index = self.log_size
+            self.logs.setdefault(tx_hash, []).append(log)
+            self.log_size += 1
+        for h, p in preimages.items():
+            if h not in self.preimages:
+                self.preimages[h] = p
         self.refund = 0
 
     def _pending_changes(self) -> Changed:

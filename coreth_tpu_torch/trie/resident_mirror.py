@@ -55,7 +55,7 @@ import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from ..device import DeviceLike
+from ..device import DeviceLike, DeviceWedgedError
 from ..fault import FailpointError, failpoint
 from ..fault import register as _register_failpoint
 from ..native.mpt import IncrementalTrie
@@ -209,7 +209,6 @@ class ResidentAccountMirror:
         A device that does not answer raises DeviceWedgedError (_wedge)."""
         from ..metrics import phase_timer
         from ..metrics.spans import span
-        from ..native.mpt import DeviceWedgedError
 
         with span("resident/commit", host_mode=self.host_mode):
             with phase_timer("resident/phase/commit"):
@@ -234,8 +233,6 @@ class ResidentAccountMirror:
         """_commit_root for a block whose scope the caller has just opened
         and filled: a wedge closes the scope again before it raises, so
         the trie stays at the applied stack's head."""
-        from ..native.mpt import DeviceWedgedError
-
         try:
             return self._commit_root()
         except DeviceWedgedError:
@@ -243,8 +240,6 @@ class ResidentAccountMirror:
             raise
 
     def _check_device(self) -> None:  # guarded-by: _lock
-        from ..native.mpt import DeviceWedgedError
-
         if self._wedged is not None:
             raise DeviceWedgedError(
                 f"the device stopped answering earlier ({self._wedged}); "
@@ -348,8 +343,6 @@ class ResidentAccountMirror:
         root; the entry settles at the next drain point. The caller has
         already opened the scope and applied [updates]; [expected] is
         the header root this commit is optimistically recorded under."""
-        from ..native.mpt import DeviceWedgedError
-
         try:
             self._check_device()
             resolve = self.trie.commit_resident_dispatch(
@@ -376,8 +369,6 @@ class ResidentAccountMirror:
         the window left in flight (take_over_host settles it on the
         host); a root mismatch rewinds the offending commit and raises
         MirrorError."""
-        from ..native.mpt import DeviceWedgedError
-
         if upto is not None and not any(
                 e["key"] == upto for e in self._inflight):
             return
@@ -467,7 +458,6 @@ class ResidentAccountMirror:
         interval flush is degraded to a full image."""
         from ..metrics import default_registry
         from ..native import keccak256_batch
-        from ..native.mpt import DeviceWedgedError
 
         default_registry.counter("state/resident/spot_checks").inc(1)
         try:
@@ -956,8 +946,6 @@ class ResidentAccountMirror:
         if self.host_mode:
             self.trie.commit_cpu(threads=self._cpu_threads)
         else:
-            from ..native.mpt import DeviceWedgedError
-
             try:
                 self._check_device()
                 if self.template:

@@ -328,7 +328,10 @@ def test_no_source_imports_jax_or_coreth_tpu():
                 "consensus/dummy.py", "core/chain_makers.py",
                 "metrics/flight.py", "state/snapshot.py",
                 "state/trie_prefetcher.py", "core/sender_cacher.py",
-                "core/bloom_index.py", "core/blockchain.py"):
+                "core/bloom_index.py", "core/blockchain.py",
+                "core/mvcc.py", "core/parallel_exec.py",
+                "core/exec_shards.py", "core/shard_worker.py",
+                "core/insert_pipeline.py", "metrics/shardstats.py"):
         assert os.path.join("coreth_tpu_torch", mod) in names, mod
     assert not bad, bad
 
@@ -404,27 +407,30 @@ def test_resident_entry_points_without_cuda_raise(monkeypatch):
 @pytest.mark.parametrize("how", ["parallel_workers", "exec_shards_n",
                                  "CORETH_TPU_EVM_PARALLEL",
                                  "CORETH_TPU_EVM_EXEC_SHARDS"])
-def test_speculative_execution_raises(how, monkeypatch):
-    """The thread-parallel and sharded execution modes are item 3b.3: asked
-    for by knob or env override, the processor raises instead of running
-    the serial loop in their place, at construction and per block."""
-    from coreth_tpu_torch import params
+def test_speculative_mode_is_reached(how, monkeypatch):
+    """The thread-parallel and sharded execution modes, asked for by the
+    processor's knob or by its env override (read per block), run the
+    block in that mode: the processor reports it, and the block lands the
+    root the reference's serial loop stamped."""
     from coreth_tpu_torch.core.state_processor import StateProcessor
+    from coreth_tpu_torch.core.types import Block
+    from torch_exec_twin import corpus, port_chain
 
-    cfg = params.TEST_CHAIN_CONFIG
+    mode = "parallel" if "PARALLEL" in how.upper() else "shards"
+    monkeypatch.delenv("CORETH_TPU_EVM_PARALLEL", raising=False)
+    monkeypatch.delenv("CORETH_TPU_EVM_EXEC_SHARDS", raising=False)
+    chain = port_chain()
     if how.startswith("CORETH"):
-        proc = StateProcessor(cfg, None, None)
         monkeypatch.setenv(how, "2")
-        with pytest.raises(NotImplementedError, match="3b.3"):
-            proc.process(None, None, None)
-        with pytest.raises(NotImplementedError, match="3b.3"):
-            StateProcessor(cfg, None, None)
     else:
-        with pytest.raises(NotImplementedError, match="3b.3"):
-            StateProcessor(cfg, None, None, **{how: 2})
-    monkeypatch.setenv("CORETH_TPU_EVM_PARALLEL", "0")
-    monkeypatch.setenv("CORETH_TPU_EVM_EXEC_SHARDS", "0")
-    assert StateProcessor(cfg, None, None).config is cfg
+        chain.processor = StateProcessor(chain.config, chain, chain.engine,
+                                         **{how: 2})
+    block = corpus("disjoint")[0]
+    chain.insert_block(Block.decode(block.encode()))
+    assert chain.processor.last_parallel["mode"] == mode
+    assert chain.processor.last_parallel["workers"] == 2
+    assert chain.current_block.root == block.header.root
+    chain.stop()
 
 
 def test_failed_secp_build_raises(monkeypatch, tmp_path):
@@ -443,3 +449,107 @@ def test_failed_secp_build_raises(monkeypatch, tmp_path):
         Signer(1).sender(tx)
     with pytest.raises(RuntimeError, match="build of libsecp256k1.so"):
         Signer(1).sender_batch([tx])
+
+
+def test_shard_worker_imports_stdlib_fault_and_shardstats_only():
+    """core/shard_worker.py's module-level imports: the stdlib, the fault
+    package and metrics/shardstats (whose own are the stdlib alone); the
+    EVM machinery only inside functions. A hostile import fails the same
+    check."""
+    def module_imports(src):
+        names = []
+        for node in ast.parse(src).body:
+            if isinstance(node, ast.Import):
+                names += [(0, a.name) for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names += [(node.level, (node.module or "") + "." + a.name)
+                          for a in node.names]
+        return names
+
+    def stray(names):
+        allowed = {(2, ".fault"), (2, "metrics.shardstats.ShardStats")}
+        return [n for n in names if not (
+            (n[0] == 0 and n[1].split(".")[0] in sys.stdlib_module_names)
+            or n in allowed or n == (0, "__future__.annotations"))]
+
+    path = os.path.join(REPO, "coreth_tpu_torch", "core", "shard_worker.py")
+    names = module_imports(open(path).read())
+    assert (2, ".fault") in names and not stray(names), stray(names)
+    stats = os.path.join(REPO, "coreth_tpu_torch", "metrics", "shardstats.py")
+    assert not stray(module_imports(open(stats).read()))
+    for hostile in ("from .. import metrics\n", "import torch\n",
+                    "from .mvcc import VersionedStateView\n"):
+        assert stray(module_imports(hostile)), hostile
+
+
+_SHARDED_CHILD = r'''
+import sys
+
+FORBIDDEN = ("jax", "jaxlib", "coreth_tpu")
+
+
+def refused(name):
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if refused(name):
+            raise ImportError(f"the port must not import {name}")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+
+from coreth_tpu_torch import params
+from coreth_tpu_torch.consensus.dummy import new_dummy_engine
+from coreth_tpu_torch.core.blockchain import BlockChain, CacheConfig
+from coreth_tpu_torch.core.genesis import Genesis, GenesisAccount
+from coreth_tpu_torch.core.types import Block
+from coreth_tpu_torch.ethdb import MemoryDB
+
+lines = open(sys.argv[1]).read().split()
+alloc = {bytes.fromhex(a): GenesisAccount(balance=int(v),
+                                          code=bytes.fromhex(c))
+         for a, v, c in (l.split(":") for l in lines[1:])}
+block = Block.decode(bytes.fromhex(lines[0]))
+chain = BlockChain(MemoryDB(), CacheConfig(evm_exec_shards=2),
+                   params.TEST_CHAIN_CONFIG,
+                   Genesis(config=params.TEST_CHAIN_CONFIG,
+                           gas_limit=params.CORTINA_GAS_LIMIT, alloc=alloc),
+                   new_dummy_engine(), device="cpu")
+chain.insert_block(block)
+assert chain.processor.last_parallel["mode"] == "shards"
+assert chain.current_block.root == block.header.root
+for pong in chain.processor.shard_pool().ping():
+    print("PONG", pong[3], pong[4], ",".join(pong[5]) or "-")
+chain.stop()
+leaked = [m for m in sys.modules if refused(m)]
+assert not leaked, leaked
+print("ISOLATED-OK")
+'''
+
+
+def test_sharded_block_runs_without_jax_or_coreth_tpu(tmp_path):
+    """One sharded block in a process whose sys.meta_path refuses jax,
+    jaxlib and coreth_tpu. The workers start from a forkserver, which the
+    guard does not reach, so their own pongs report what they loaded:
+    no refused module, no CUDA context, no inherited thread."""
+    from torch_exec_twin import ADDRS, EXTRA, FUND, corpus
+
+    block = corpus("disjoint")[0]
+    spec = tmp_path / "block.txt"
+    spec.write_text("\n".join(
+        [block.encode().hex()] + [f"{a.hex()}:{FUND}:" for a in ADDRS]
+        + [f"{a.hex()}:{bal}:{code.hex()}"
+           for a, (bal, code) in EXTRA.items()]))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    r = subprocess.run([sys.executable, "-c", _SHARDED_CHILD, str(spec)],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "ISOLATED-OK" in r.stdout
+    pongs = [line.split()[1:] for line in r.stdout.splitlines()
+             if line.startswith("PONG")]
+    assert pongs == [["0", "False", "-"]] * 2, r.stdout

@@ -57,7 +57,7 @@ from coreth_tpu_torch.core.types import Block, create_address
 from coreth_tpu_torch.ethdb import MemoryDB
 from coreth_tpu_torch.metrics import default_registry
 from coreth_tpu_torch.native import mpt
-from coreth_tpu_torch.native.mpt import DeviceWedgedError
+from coreth_tpu_torch.device import DeviceWedgedError
 from coreth_tpu_torch.ops.device import get_batch_keccak
 from coreth_tpu_torch.state.database import Database
 from coreth_tpu_torch.trie import planned
@@ -671,9 +671,6 @@ def _genesis():
     ("device_max_retries", 3, "item 5"),
     ("device_probe_interval", 0.0, "item 5"),
     ("device_promote_after", 1, "item 5"),
-    ("insert_pipeline_depth", 2, "item 3b.3"),
-    ("evm_parallel_workers", 4, "item 3b.3"),
-    ("evm_exec_shards", 2, "item 3b.3"),
     ("resident_mesh_devices", 4, "item 6"),
     ("state_backend", "bintrie-shadow", "item 10"),
     ("shadow_check_interval", 4, "item 10"),
@@ -683,6 +680,39 @@ def test_not_ported_knobs_raise(knob, value, item):
     with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
         BlockChain(MemoryDB(), cfg, params.TEST_CHAIN_CONFIG, _genesis(),
                    new_dummy_engine(), device="cpu")
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("insert_pipeline_depth", 2),
+    ("evm_parallel_workers", 4),
+    ("evm_exec_shards", 2),
+])
+def test_execution_option_knobs_reach_their_modes(knob, value):
+    """The three knobs of the execution options (item 3b.3) build a
+    resident chain that runs a block in the mode asked for: the pipeline
+    ("spec"), the thread-parallel executor or the shards, with the mirror
+    holding the header's root."""
+    c = Chains(port_knobs={knob: value})
+
+    def gen(i, bg):
+        for j, key in enumerate((KEY1, KEY2)):
+            bg.add_tx(transfer(i, bytes([0x90 + j]) * 20, key,
+                               bg.base_fee() or BASE_FEE))
+
+    blocks = c.blocks(2, gen)
+    for b in blocks:
+        c.do("insert_block", b)
+    if c.port.pipeline is not None:
+        c.port.pipeline.drain()
+    rec = c.port.flight_recorder.find(blocks[-1].hash())
+    want = {"insert_pipeline_depth": ("pipeline-spec", "spec"),
+            "evm_parallel_workers": ("parallel", None),
+            "evm_exec_shards": ("shards", None)}[knob]
+    assert (rec["parallel"]["mode"], rec.get("pipeline", {}).get("mode")) \
+        == want
+    assert getattr(c.port.cache_config, knob) == value
+    c.check()
+    c.stop()
 
 
 def test_device_that_does_not_resolve_refuses_the_chain(monkeypatch):

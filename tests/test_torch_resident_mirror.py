@@ -33,7 +33,8 @@ from coreth_tpu_torch.ethdb import MemoryDB
 from coreth_tpu_torch.metrics import default_registry
 from coreth_tpu_torch.metrics import spans
 from coreth_tpu_torch.native import keccak256
-from coreth_tpu_torch.native.mpt import DeviceWedgedError, plan_from_items
+from coreth_tpu_torch.device import DeviceWedgedError
+from coreth_tpu_torch.native.mpt import plan_from_items
 from coreth_tpu_torch.ops import keccak_cuda
 from coreth_tpu_torch.ops.keccak_resident import ResidentExecutor
 from coreth_tpu_torch.state.resident_trie import MirrorStateTrie

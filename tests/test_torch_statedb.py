@@ -500,8 +500,9 @@ def test_what_is_not_ported_raises():
     """The parts of the slice left for later items raise instead of
     running something else: the bintrie shadow under the state layer (the
     snapshot tree, which raised here before, landed with the chain), the
-    resident mirror's mesh rung, an enabled stateful precompile, a
-    speculative execution mode."""
+    resident mirror's mesh rung, an enabled stateful precompile. (The
+    speculative execution modes, which raised here before, landed with
+    item 3b.3: the processor keeps its knob.)"""
     from coreth_tpu_torch.consensus.dummy import new_dummy_engine
     from coreth_tpu_torch.core.blockchain import BlockChain, CacheConfig
     from coreth_tpu_torch.core.types import Block, Header
@@ -524,7 +525,7 @@ def test_what_is_not_ported_raises():
     with pytest.raises(NotImplementedError, match="item 9"):
         g.commit(MemoryDB(), Database(TrieDatabase(MemoryDB())))
     # transactions landed with item 3b.1: a block with one round-trips;
-    # the speculative execution modes of item 3b.3 raise
+    # the speculative execution modes landed with item 3b.3
     from coreth_tpu_torch.core.state_processor import StateProcessor
     from coreth_tpu_torch.core.types import Transaction
 
@@ -534,9 +535,10 @@ def test_what_is_not_ported_raises():
     back = Block.decode(full.encode())
     assert [t.encode() for t in back.transactions] == [tx.encode()]
     assert back.hash() == full.hash()
-    with pytest.raises(NotImplementedError, match="3b.3"):
-        StateProcessor(params.TEST_CHAIN_CONFIG, None, None,
-                       parallel_workers=2)
+    proc = StateProcessor(params.TEST_CHAIN_CONFIG, None, None,
+                          parallel_workers=2)
+    assert proc.parallel_workers == 2
+    assert proc.last_parallel == {"mode": "serial"}
     empty = Block(Header(number=3))
     assert Block.decode(empty.encode()).hash() == empty.hash()
 
