@@ -22,17 +22,20 @@ Phases (each passes or the script exits non-zero):
   4b. the variant sweep: both variants of K1 and K2 at B in SWEEP_B x L in
      (1, 4) on CUDA events and in the profiler's trace, and the crossover
      that sets kCoopMaxLanes
-  5. planned genesis, through the chain: the 1M-account world (1,000
+  5. planned genesis, through the VM: the 1M-account world (1,000
      contracts x 100 storage slots, each with the hand-assembled
      store-and-log code STORE_AND_LOG; 1,500 plain accounts at addresses
      of seeded private keys, each with at least 10^21 wei) as a Genesis
-     alloc, and BlockChain(CacheConfig(), device=cuda) over a MemoryDB and
-     a TrieDatabase on get_batch_keccak("planned"): its _setup_genesis is
-     Genesis.commit, every storage trie and the account trie in one K1
-     program; then the reference's default CacheConfig boots the resident
-     mirror ("auto" on CUDA: one leaf scan, the mirror's genesis commit on
-     K1), generates the snapshot tree's disk layer and backfills the bloom
-     index. The root must equal the CPU Hasher's root of an independent
+     alloc, and VM().initialize(SnowContext(shared_memory=Memory()),
+     MemoryDB(), genesis, config_bytes=<JSON>, device=cuda), the JSON as
+     AvalancheGo hands it over ({"insert-pipeline-depth": 2}; the CPU
+     rehearsal adds "resident-account-trie": true): the VM's TrieDatabase
+     is on get_batch_keccak("auto") (the planned marker), and its
+     BlockChain's _setup_genesis is Genesis.commit, every storage trie and
+     the account trie in one K1 program; then the default "auto" boots the
+     resident mirror (one leaf scan, the mirror's genesis commit on K1),
+     generates the snapshot tree's disk layer and backfills the bloom
+     index; then the VM's tx pool, miner, atomic mempool and trie. The root must equal the CPU Hasher's root of an independent
      trie built from the same items, and the same plan run through the
      plain version must give every lane's digest; the mirror must be on
      the device; the mirror boot's K1 launches are recorded, each held
@@ -78,7 +81,7 @@ Phases (each passes or the script exits non-zero):
      sender recovery, EVM, finalize_and_assemble (intermediate_root,
      derive_sha), StateDB.commit, device window, launches, Mgas/s and the
      garbage collector's pauses
-  7c. chain: the EVM blocks, decoded anew, into the chain of phase 5
+  7c. chain: the EVM blocks, decoded anew, into the VM's chain of phase 5
      (built with insert_pipeline_depth=2, the one execution option the
      reference reads only at construction) the way a validator takes
      them, back to back (each block's insert tail overlapping the next
@@ -93,8 +96,8 @@ Phases (each passes or the script exits non-zero):
      the rest through insert_block, so through the pipeline, back to back
      with the shards on (the submit stage speculates through the shard
      pool; the commit thread folds, validates and commits on K1), drained;
-     set_preference, accept, the acceptor queue drained, stop() (the
-     shutdown export). Every commit root equals the header root (the EVM
+     set_preference, accept, the acceptor queue drained (stop() comes
+     after phase 7d). Every commit root equals the header root (the EVM
      phase held those against its oracle) and the mirror's; the head is
      the last block; each block ran the mode it asked for (serial,
      parallel, shards, the pipeline's spec) and no speculative fallback
@@ -112,13 +115,36 @@ Phases (each passes or the script exits non-zero):
      the resident timers, the mirror's device window, K1 launches and
      Mgas/s over the insert (over the commit stage for the pipelined
      blocks); then the pipelined blocks' wall from the first submit to
-     the drain, the accept and shutdown-export times, and a respawn: a
-     shard worker SIGKILLed, replaced and pinged clean. After stop() the
-     forkserver and the resource tracker are stopped
-     (exec_shards.stop_servers) and no process the run started may be
-     left, here and again at the end. The shard pool's forkserver imports
-     this script once before it forks a worker (core/shard_worker.py), so
-     its work stays under `if __name__ == "__main__"`
+     the drain, the accept time, and a respawn: a shard worker SIGKILLed,
+     replaced and pinged clean. The shard pool's forkserver imports this
+     script once before it forks a worker (core/shard_worker.py), so its
+     work stays under `if __name__ == "__main__"`
+  7d. VM: --vm-blocks (2) blocks of the EVM phase's mix (368 signed
+     transactions from the keyed accounts' next nonces, 23 of them calls
+     that store 20 slots and log) through the VM on that chain: each
+     transaction issued through vm.issue_tx, and in the first block one
+     ImportTx (consuming a UTXO seeded into the shared memory from the X
+     chain) and one ExportTx through vm.issue_atomic_tx; then
+     vm.build_block() (the miner from the tx pool and the atomic mempool;
+     finalize_and_assemble's intermediate_root: the storage programs on
+     K1 under the degradation ladder, the account trie on the mirror's
+     executor on K1; insert_block_manual(writes=False)), vmb.verify()
+     (insert_block_manual(writes=True), the atomic backend),
+     vm.set_preference, vmb.accept(), the acceptor drained. Every header
+     root equals the EVM-independent oracle's (evm_oracle_block over the
+     block's own transaction order, the fees to the miner's coinbase,
+     plus the atomic txs' balance and nonce changes); the head is
+     vm.last_accepted(); the mempool and the tx pool end empty; the shared
+     memory holds the export's UTXO and not the import's; no loud,
+     fallback or ops/device/* counter moves. Per block it prints issue,
+     build, verify and accept ms, the K1 launches of build and verify
+     (storage programs, resident executor), the flight record's phases,
+     the mirror's window and Mgas/s over build + verify; the K1 launches
+     are recorded and held against the plain version. Then vm.shutdown()
+     (the chain's stop() and its shutdown export), the forkserver and the
+     resource tracker stopped (exec_shards.stop_servers), and no process
+     the run started may be left, here and again at the end; the last
+     accepted root reads back through a fresh TrieDatabase
   8. the mirrors (the resident path, K1): one ordered leaf scan
      (trie/iterator.iterate_leaves) of the planned genesis' persisted
      account trie boots three ResidentAccountMirrors, each installed on a
@@ -141,6 +167,26 @@ Phases (each passes or the script exits non-zero):
      resident/commit and state/hash_plan/storage spans are read back.
      Every K1 input of A's and B's executors and of the storage programs
      is held against the plain version and timed
+  8b. ladder drill: a VM of its own over --drill-accounts (2,000)
+     accounts, booted from JSON with device-call-timeout 1.0,
+     device-probe-interval 0.05, device-promote-after 2 and
+     commit-interval 1, its blocks of 6 contract calls (120 slot writes)
+     and 10 transfers through the VM, every root the oracle's. Only a
+     caller demotes the ladder; a failed dispatch reaches its caller:
+     raise (ops/device/dispatch armed raise*1: build_block raises the
+     error, the head stays, no demotion; then the block builds with
+     storage K1 launches), hang (the dispatch hangs: the watchdog's
+     DeviceWedgedError reaches build_block within 3 s, the head stays, no
+     demotion; released, the block builds on K1), takeover (the probes
+     failing, chain.take_over_host() demotes the ladder: device/demote in
+     the flight events, a block hashed on the host with 0 K1 launches),
+     recover (cleared: the probes, K2 on the card, re-promote, the
+     listener reboots the mirror on the device and the next block
+     launches K1 in the storage programs and the executor). Then the
+     ladder is reset to its defaults. Before it, the main paths' loud
+     counters, ops/device/* among them, must all be 0; after it
+     demotions 1, promotions 1, dispatch errors 2. Its K1 launches and
+     the probes' K2 launches are held against the plain versions
   9. watchdog drill: a 2,000-key mirror whose executor hangs once: the
      commit raises DeviceWedgedError with the applied stack unchanged and
      nothing on the host; the drill then asks for the host
@@ -181,10 +227,10 @@ from unittest import mock
 import numpy as np
 import torch
 
-from coreth_tpu_torch import params, rlp
+from coreth_tpu_torch import fault, params, rlp
 from coreth_tpu_torch.consensus.dummy import new_dummy_engine
 from coreth_tpu_torch.core import types as types_mod
-from coreth_tpu_torch.core.blockchain import BlockChain, CacheConfig
+from coreth_tpu_torch.core.blockchain import BlockChain
 from coreth_tpu_torch.core import exec_shards
 from coreth_tpu_torch.core.bloom_index import BloomIndexer
 from coreth_tpu_torch.core.chain_makers import generate_chain
@@ -197,7 +243,8 @@ from coreth_tpu_torch.ethdb import KeyValueStore, MemoryDB
 from coreth_tpu_torch.native import keccak256, keccak256_batch, mpt
 from coreth_tpu_torch.native.mpt import IncrementalTrie, plan_from_items
 from coreth_tpu_torch.ops import keccak_cuda, keccak_planned
-from coreth_tpu_torch.ops.device import get_batch_keccak
+from coreth_tpu_torch.ops import device as device_mod
+from coreth_tpu_torch.ops.device import default_ladder, get_batch_keccak
 from coreth_tpu_torch.ops.keccak_planned import MAX_SEGMENTS, PlannedCommit, \
     PlannedMode, default_planned_commit
 from coreth_tpu_torch.metrics import default_registry, spans
@@ -222,6 +269,9 @@ from coreth_tpu_torch.trie.resident_mirror import ResidentAccountMirror
 from coreth_tpu_torch.trie.secure import StateTrie
 from coreth_tpu_torch.trie.trie import trie_from_items
 from coreth_tpu_torch.trie.triedb import TrieDatabase
+from coreth_tpu_torch.vm import atomic_tx
+from coreth_tpu_torch.vm.shared_memory import Element, Memory, Requests
+from coreth_tpu_torch.vm.vm import VM, SnowContext
 
 # Bound model for K1 and K2 (csrc/segment_keccak.cu header): 32-bit integer
 # ALU operations per 136-byte block absorbed, with LOP3 folding, and the
@@ -1194,45 +1244,61 @@ class _ChainBoot:
             setattr(cls, name, orig)
 
 
-def chain_cache_config(dev) -> CacheConfig:
-    """The reference's default CacheConfig but for the insert pipeline at
-    depth 2 (the one execution option read only at construction): its
-    "auto" boots the resident mirror on CUDA. The CPU rehearsal asks for
-    the mirror, which "auto" leaves off there."""
-    if dev.type == "cuda":
-        return CacheConfig(insert_pipeline_depth=PIPELINE_DEPTH)
-    return CacheConfig(resident_account_trie=True,
-                       insert_pipeline_depth=PIPELINE_DEPTH)
+def vm_config(dev) -> dict:
+    """The VM's JSON config, as AvalancheGo hands it over: the defaults but
+    for the insert pipeline at depth 2 (the one execution option read only
+    at construction); "auto" boots the resident mirror on CUDA. The CPU
+    rehearsal asks for the mirror, which "auto" leaves off there."""
+    cfg = {"insert-pipeline-depth": PIPELINE_DEPTH}
+    if dev.type != "cuda":
+        cfg["resident-account-trie"] = True
+    return cfg
+
+
+def chain_clock(vm, gap: int = 10):
+    """The VM's block clock: each block `gap` seconds of chain time after
+    its parent (as generate_chain's blocks), so tip-0 blocks owe no block
+    gas cost."""
+    return lambda: vm.blockchain.current_block.time + gap
 
 
 def phase_genesis(dev, world: World, oracle_root: bytes):
-    """The planned genesis through BlockChain (module docstring, phase 5):
-    the chain's _setup_genesis is Genesis.commit on its TrieDatabase's
-    planned marker, every storage trie and the account trie in one K1
-    program, persisted into a MemoryDB; then, with the default
-    CacheConfig, the "auto" probe boots the resident mirror (one leaf scan,
-    the mirror's genesis commit on K1), the snapshot tree generates its
-    disk layer and the bloom index backfills. Returns (BlockChain,
-    MemoryDB, genesis block, builder, K1 launches of the genesis program,
-    of them cooperative, the mirror boot's K1 launches, of them
-    cooperative, their recorder)."""
+    """The planned genesis through the VM (module docstring, phase 5):
+    VM.initialize(SnowContext(shared_memory=Memory()), MemoryDB(), the
+    world's Genesis, config_bytes=<JSON>, device=dev) builds its state's
+    TrieDatabase on get_batch_keccak("auto", dev) and its BlockChain,
+    whose _setup_genesis is Genesis.commit on the planned marker, every
+    storage trie and the account trie in one K1 program, persisted into
+    the MemoryDB; then the default "auto" probe boots the resident mirror
+    (one leaf scan, the mirror's genesis commit on K1), the snapshot tree
+    generates its disk layer and the bloom index backfills; then the
+    VM's tx pool, miner, mempool, atomic trie and block builder. Returns
+    (VM, its shared Memory, MemoryDB, genesis block, builder, K1 launches
+    of the genesis program, of them cooperative, the mirror boot's K1
+    launches, of them cooperative, their recorder)."""
     t0 = time.perf_counter()
     gen = genesis_alloc(world)
     log(f"genesis: {len(world.addrs)} accounts, {len(world.storage)} "
         f"contracts x {len(next(iter(world.storage.values())))} slots as a "
         f"Genesis alloc in {time.perf_counter() - t0:.1f} s")
     diskdb = MemoryDB()
-    tdb = TrieDatabase(diskdb, batch_keccak=get_batch_keccak("planned", dev))
     keccak_cuda.reset_counts()
     planned_mod.planned_fallbacks = 0
-    cfg = chain_cache_config(dev)
+    cfg = json.dumps(vm_config(dev))
+    mem = Memory()
+    vm = VM()
     with _Timed() as timed, _GcPauses() as pauses, _ChainBoot() as boot:
         t0 = time.perf_counter()
-        chain = BlockChain(diskdb, cfg, params.TEST_CHAIN_CONFIG, gen,
-                           new_dummy_engine(), state_database=Database(tdb),
-                           device=dev)
+        vm.initialize(SnowContext(shared_memory=mem), diskdb, gen,
+                      config_bytes=cfg.encode(), device=dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
     del gen
+    vm.miner.clock = chain_clock(vm)
+    chain = vm.blockchain
+    tdb = chain.state_database.triedb
+    check(getattr(tdb.batch_keccak, "planned", False)
+          and chain.pipeline is not None,
+          "vm: the state's seam is not the planned marker, or no pipeline")
     block = chain.genesis_block
     check(chain.mirror is not None and not chain.mirror.host_mode,
           "chain: the resident mirror did not boot on the device")
@@ -1254,11 +1320,8 @@ def phase_genesis(dev, world: World, oracle_root: bytes):
         f"block {block.hash().hex()}")
     ms = boot.ms
     mirror_ms = ms["ResidentAccountMirror.__init__"]
-    knobs = (f"insert_pipeline_depth={PIPELINE_DEPTH}" if dev.type == "cuda"
-             else f"resident_account_trie=True, insert_pipeline_depth="
-             f"{PIPELINE_DEPTH}")
-    log(f"genesis: BlockChain(CacheConfig({knobs}), device={dev}) wall "
-        f"{wall_ms:.1f} ms: _setup_genesis "
+    log(f"genesis: VM.initialize(config_bytes={cfg}, device={dev}) wall "
+        f"{wall_ms:.1f} ms: BlockChain._setup_genesis "
         f"(Genesis.commit) {ms['BlockChain._setup_genesis']:.1f}, mirror boot"
         f" {ms['BlockChain._boot_mirror']:.1f} (leaf scan "
         f"{ms['BlockChain._boot_mirror'] - mirror_ms:.1f}, mirror "
@@ -1271,7 +1334,7 @@ def phase_genesis(dev, world: World, oracle_root: bytes):
         f"chain's construction ({pauses})")
     log(f"genesis: persisted {store_report(diskdb)} (the snapshot's flat "
         f"entries included); dirty nodes left {tdb.dirty_size} B")
-    return (chain, diskdb, block, builder, launches, coop,
+    return (vm, mem, diskdb, block, builder, launches, coop,
             boot.boot_launches, boot.boot_coop, boot.rec)
 
 
@@ -2098,15 +2161,16 @@ class _EvmTx:
         self.value, self.writes = value, writes
 
 
-def evm_transactions(world: World, n_blocks: int, seed: int):
+def evm_transactions(world: World, n_blocks: int, seed: int,
+                     n_calls: int = EVM_CALLS, n_transfers=None):
     """Signed transactions of `n_blocks` blocks on TEST_CHAIN_CONFIG (type 2,
-    tip 0, fee cap EVM_MAX_FEE), planned against `world` at genesis: per
-    block EVM_CALLS calls to distinct seeded contracts, each writing
+    tip 0, fee cap EVM_MAX_FEE), planned against `world` as it stands: per
+    block `n_calls` calls to distinct seeded contracts, each writing
     EVM_WRITES slots (half existing, half new) and logging once, spread
     evenly among transfers of seeded values from keyed senders to seeded
-    plain accounts that fill the block to EVM_FILL of its gas limit. The
-    keyed senders sign in turn, each at its next nonce. Returns [[_EvmTx]]
-    per block."""
+    plain accounts; by default the transfers fill the block to EVM_FILL of
+    its gas limit. The keyed senders sign in turn, each at its next nonce.
+    Returns [[_EvmTx]] per block."""
     cfg = params.TEST_CHAIN_CONFIG
     signer = Signer(cfg.chain_id)
     rng = np.random.default_rng(seed)
@@ -2114,9 +2178,10 @@ def evm_transactions(world: World, n_blocks: int, seed: int):
     lo = n_contracts + len(world.keyed)
     receivers = np.arange(lo if lo < n else n_contracts, n)
     nonces = {i: world.nonce[i] for i, _ in world.keyed}
-    n_calls = min(EVM_CALLS, n_contracts)
-    n_transfers = (int(EVM_FILL * params.CORTINA_GAS_LIMIT)
-                   - n_calls * EVM_CALL_PLAN) // 21000
+    n_calls = min(n_calls, n_contracts)
+    if n_transfers is None:
+        n_transfers = (int(EVM_FILL * params.CORTINA_GAS_LIMIT)
+                       - n_calls * EVM_CALL_PLAN) // 21000
     total = n_calls + n_transfers
     blocks = []
     for _ in range(n_blocks):
@@ -2155,14 +2220,14 @@ def evm_transactions(world: World, n_blocks: int, seed: int):
 
 
 def evm_oracle_block(world: World, oracle: Oracle, txs, receipts, base_fee,
-                     coinbase: list):
+                     coinbase: list, coinbase_addr: bytes = EVM_COINBASE):
     """The block's post-state root from its transaction list, each
     receipt's gas_used and the header's base fee, with no EVM: the sender
     pays value + gas_used x price (tip 0: the price is the base fee) and
-    its nonce goes up by one, the receiver gets the value, the coinbase the
-    fees (coinbase[0], updated), the contract's slots take the calldata's
-    values. Applied to `world` and `oracle`. Returns (root, accounts
-    touched, {contract: writes})."""
+    its nonce goes up by one, the receiver gets the value, the coinbase
+    (`coinbase_addr`) the fees (coinbase[0], updated), the contract's slots
+    take the calldata's values. Applied to `world` and `oracle`. Returns
+    (root, accounts touched, {contract: writes})."""
     price = min(EVM_MAX_FEE, base_fee)
     touched, writes = set(), defaultdict(dict)
     for tx, r in zip(txs, receipts):
@@ -2177,7 +2242,7 @@ def evm_oracle_block(world: World, oracle: Oracle, txs, receipts, base_fee,
     for c, w in writes.items():
         world.storage[c].update(w)
     oracle.apply(sorted(touched), writes)
-    oracle.trie.update(keccak256(EVM_COINBASE),
+    oracle.trie.update(keccak256(coinbase_addr),
                        Account(balance=coinbase[0]).encode())
     return oracle.root(), touched, writes
 
@@ -2526,8 +2591,7 @@ def _fmt_workers(per_worker) -> str:
         for w, row in sorted(per_worker.items()))
 
 
-def phase_chain(dev, chain, world: World, evm_blocks, n_serial, touched,
-                written, coinbase_fee, seed, card):
+def phase_chain(dev, chain, evm_blocks, n_serial, card):
     """The chain phase (module docstring, phase 7c): the EVM phase's blocks,
     decoded anew, into the chain built with insert_pipeline_depth=2. The
     first `n_serial` through insert_block_manual(writes=True), the serial
@@ -2538,10 +2602,12 @@ def phase_chain(dev, chain, world: World, evm_blocks, n_serial, touched,
     CORETH_TPU_EVM_EXEC_SHARDS=2 through insert_block_manual, and the rest
     through insert_block, so through the pipeline, back to back with the
     shards on (the submit stage speculates through the shard pool; the
-    commit thread launches K1). Then set_preference, accept, the acceptor
-    queue drained, stop(). The chain's planned marker and its executor
+    commit thread launches K1). Then set_preference, accept and the
+    acceptor queue drained (the VM phase follows on the same chain, and
+    finish_chain stops it). The chain's planned marker and its executor
     launch K1 through recorders. Returns (the storage programs' recorder,
-    the executor's, K1 launches, of them cooperative)."""
+    the executor's, K1 launches, of them cooperative, the mirror's exports
+    as (nodes, ms), its shutdown export appended at vm.shutdown())."""
     t_phase = time.perf_counter()
     rec_storage, rec_resident = _K1Recorder(), _K1Recorder()
     tdb = chain.state_database.triedb
@@ -2741,16 +2807,6 @@ def phase_chain(dev, chain, world: World, evm_blocks, n_serial, touched,
         check(not chain.bad_blocks, f"chain: bad blocks {chain.bad_blocks}")
         check(chain.snaps.disk_layer.root == blocks[-1].header.root,
               "chain: the snapshot's disk layer is not at the last root")
-        t0 = time.perf_counter()
-        chain.stop()
-        stop_ms = (time.perf_counter() - t0) * 1e3
-        # the shard workers went with the chain; the forkserver they came
-        # from and the resource tracker go now, and nothing is left
-        t0 = time.perf_counter()
-        exec_shards.stop_servers()
-        servers_ms = (time.perf_counter() - t0) * 1e3
-        left = descendants()
-        check(not left, f"chain: processes left after stop(): {left}")
     launches, coop = keccak_cuda.launches, keccak_cuda.launches_coop
     check(planned_mod.planned_fallbacks == 0, "chain: planned fallback")
     check(keccak_cuda.blocks_launches == 0, "chain: K2 launched")
@@ -2776,28 +2832,55 @@ def phase_chain(dev, chain, world: World, evm_blocks, n_serial, touched,
         check(now[name] == loud[name], f"chain: {name} counted "
               f"{now[name] - loud[name]}")
     check(not mirror.host_mode, "chain: the mirror ended in host mode")
-    last = blocks[-1].header.root
-    check(exports and exports[-1][0] > 0, f"chain: shutdown export {exports}")
     log(f"chain: {len(done)} blocks through insert_block_manual in "
         f"{insert_s * 1e3:.1f} ms ({gas_all / insert_s / 1e6:.3f} Mgas/s), "
-        f"{len(blocks)} accepted and the "
-        f"acceptor drained in {accept_ms:.1f} ms; stop() {stop_ms:.1f} ms, "
-        f"of it the shutdown export " + "; ".join(
-            f"{n} nodes in {ms:.1f} ms" for n, ms in exports)
+        f"{len(blocks)} accepted and the acceptor drained in "
+        f"{accept_ms:.1f} ms; garbage collector pauses ({pauses}); no bad "
+        f"block, no wedge, takeover, fallback, divergence or quarantine "
+        f"counted; phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    return rec_storage, rec_resident, launches, coop, exports
+
+
+def finish_chain(dev, vm, world: World, touched, written, coinbase_fee,
+                 vm_coinbase_fee, exports, seed, card):
+    """After the VM phase: vm.shutdown() (the block builder's timer, the
+    chain's stop(): the pipeline, the shard pool, the acceptor, the insert
+    tail, the ladder listener and the shutdown export), then the
+    forkserver and the resource tracker (exec_shards.stop_servers), and no
+    process the run started may be left; then the last accepted root reads
+    back through a fresh TrieDatabase (every account and slot the EVM and
+    VM blocks touched, the coinbase and 1,000 others) and the snapshot's
+    accounts equal the trie's."""
+    chain = vm.blockchain
+    mirror = chain.mirror
+    last = chain.last_accepted.header.root
+    t0 = time.perf_counter()
+    vm.shutdown()
+    stop_ms = (time.perf_counter() - t0) * 1e3
+    # the shard workers went with the chain; the forkserver they came
+    # from and the resource tracker go now, and nothing is left
+    t0 = time.perf_counter()
+    exec_shards.stop_servers()
+    servers_ms = (time.perf_counter() - t0) * 1e3
+    left = descendants()
+    check(not left, f"chain: processes left after vm.shutdown(): {left}")
+    check(not mirror.host_mode, "chain: the mirror ended in host mode")
+    check(exports and exports[-1][0] > 0, f"chain: shutdown export {exports}")
+    log(f"chain: vm.shutdown() {stop_ms:.1f} ms, of it the shutdown export "
+        + "; ".join(f"{n} nodes in {ms:.1f} ms" for n, ms in exports)
         + f"; the forkserver and the resource tracker stopped in "
-        f"{servers_ms:.1f} ms, no process left"
-        + f"; garbage collector pauses ({pauses}); no bad block, no wedge, "
-        f"takeover, fallback, divergence or quarantine counted")
+        f"{servers_ms:.1f} ms, no process left")
     # the acknowledged writes: the last root through a fresh TrieDatabase
     with _GcPauses() as pauses:
         read_back(world, chain.diskdb, last, touched, written, seed, "chain")
     log(f"chain: garbage collector pauses during the read-back ({pauses})")
     back = StateDB(last, Database(TrieDatabase(chain.diskdb)))
-    check(back.get_balance(EVM_COINBASE) == coinbase_fee,
-          "chain: read-back of the coinbase's fees")
+    check(back.get_balance(EVM_COINBASE) == coinbase_fee
+          and back.get_balance(VM_COINBASE) == vm_coinbase_fee,
+          "chain: read-back of the coinbases' fees")
     # the snapshot's flat accounts against the trie's, every touched one
     trie = TrieDatabase(chain.diskdb).open_state_trie(last)
-    addrs = [world.addrs[i] for i in touched] + [EVM_COINBASE]
+    addrs = [world.addrs[i] for i in touched] + [EVM_COINBASE, VM_COINBASE]
     for a in addrs:
         slim = chain.snaps.disk_layer.account(keccak256(a))
         blob = trie.get(a)
@@ -2805,9 +2888,460 @@ def phase_chain(dev, chain, world: World, evm_blocks, n_serial, touched,
               == (Account.decode(blob) if blob else None),
               f"chain: snapshot account {a.hex()} != the trie's")
     log(f"chain: the snapshot's accounts of the {len(addrs)} touched "
-        f"addresses equal the trie's at the last root; phase "
+        f"addresses equal the trie's at the last root; {card}")
+
+
+# the VM phase's atomic transactions (nAVAX): the UTXO the import consumes,
+# what the export sends to the X chain, and what each burns (above its
+# dynamic fee at these blocks' base fee)
+VM_IMPORT = 5 * 10**9
+VM_EXPORT = 3 * 10**9
+VM_BURN = 10**9
+VM_COINBASE = b"\x01" + b"\x00" * 19  # the miner's (miner/worker.py)
+# the ladder's counters: each must stay 0 outside the ladder drill
+LOUD_DEVICE = tuple(f"ops/device/{c}" for c in (
+    "dispatch_errors", "demotions", "promotions", "probe_errors",
+    "resolve_fail"))
+
+
+class _AtomicPair:
+    """One signed ImportTx and one signed ExportTx on the VM's chain and
+    what they do: the import consumes a UTXO the X chain exported to this
+    chain (seeded into the shared memory here), owned by the last keyed
+    account, and credits VM_IMPORT - VM_BURN to the first plain account
+    after the keyed ones; the export debits VM_EXPORT + VM_BURN and one
+    nonce from the second-to-last keyed account (which sends no transfer
+    in the VM blocks) and exports a UTXO of VM_EXPORT to the X chain."""
+
+    def __init__(self, vm, mem: Memory, world: World):
+        ctx = vm.ctx
+        imp_i, imp_key = world.keyed[-1]
+        self.exp_i, exp_key = world.keyed[-2]
+        self.dest = len(world.storage) + len(world.keyed)
+        self.utxo = atomic_tx.UTXO(
+            tx_id=keccak256(b"chip_smoke x-chain export"), output_index=0,
+            asset_id=ctx.avax_asset_id, amount=VM_IMPORT,
+            address=world.addrs[imp_i])
+        mem.new_shared_memory(ctx.x_chain_id).apply({ctx.chain_id: Requests(
+            put_requests=[Element(self.utxo.utxo_id(), self.utxo.encode(),
+                                  [self.utxo.address])])})
+        self.imp = atomic_tx.Tx(atomic_tx.ImportTx(
+            network_id=ctx.network_id, blockchain_id=ctx.chain_id,
+            source_chain=ctx.x_chain_id, imported_inputs=[self.utxo],
+            outs=[atomic_tx.EVMOutput(world.addrs[self.dest],
+                                      VM_IMPORT - VM_BURN,
+                                      ctx.avax_asset_id)]))
+        self.imp.sign([imp_key])
+        self.out = atomic_tx.UTXO(
+            tx_id=b"\x00" * 32, output_index=0, asset_id=ctx.avax_asset_id,
+            amount=VM_EXPORT, address=b"\x99" * 20)
+        self.exp = atomic_tx.Tx(atomic_tx.ExportTx(
+            network_id=ctx.network_id, blockchain_id=ctx.chain_id,
+            destination_chain=ctx.x_chain_id,
+            ins=[atomic_tx.EVMInput(world.addrs[self.exp_i],
+                                    VM_EXPORT + VM_BURN, ctx.avax_asset_id,
+                                    world.nonce[self.exp_i])],
+            exported_outputs=[self.out]))
+        self.exp.sign([exp_key])
+
+    def apply(self, world: World, oracle: Oracle) -> None:
+        """Their balance and nonce changes, applied to `world` and
+        `oracle` (an atomic tx has no receipt)."""
+        world.balance[self.dest] += (VM_IMPORT - VM_BURN) * atomic_tx.X2C_RATE
+        world.balance[self.exp_i] -= ((VM_EXPORT + VM_BURN)
+                                      * atomic_tx.X2C_RATE)
+        world.nonce[self.exp_i] += 1
+        oracle.apply([self.dest, self.exp_i], {})
+
+
+def vm_block(vm, world: World, oracle: Oracle, txs, coinbase: list,
+             recs, atomic=None, label="vm", dev=None, issued=False):
+    """One block through the VM: `txs` (and `atomic`'s two txs) issued
+    through vm.issue_tx and vm.issue_atomic_tx (unless `issued`: already
+    in the tx pool from a build that failed), then vm.build_block() →
+    vmb.verify() → vm.set_preference(vmb.id()) → vmb.accept() and the
+    acceptor drained. Its header root must equal the EVM-independent
+    oracle's (evm_oracle_block over the block's own transaction order,
+    plus `atomic`'s changes), the head and the last accepted block must be
+    it. `recs`: the storage programs' and the executor's K1 recorders.
+    Returns (block, receipts, touched, writes, stats)."""
+    chain = vm.blockchain
+    decoded = [Transaction.decode(t.blob) for t in txs]
+    by_hash = {tx.hash(): t for tx, t in zip(decoded, txs)}
+    t0 = time.perf_counter()
+    for tx in decoded if not issued else ():
+        vm.issue_tx(tx)
+    if atomic is not None:
+        vm.issue_atomic_tx(atomic.imp)
+        vm.issue_atomic_tx(atomic.exp)
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    check(vm.txpool.stats()[0] == len(txs),
+          f"{label}: the tx pool holds {vm.txpool.stats()}, not "
+          f"{len(txs)} pending")
+    n0 = [len(r.records) for r in recs]
+    t0 = time.perf_counter()
+    vmb = vm.build_block()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    n1 = [len(r.records) for r in recs]
+    t0 = time.perf_counter()
+    vmb.verify()
+    verify_ms = (time.perf_counter() - t0) * 1e3
+    n2 = [len(r.records) for r in recs]
+    mirror = chain.mirror
+    win = (window_ms(dev, mirror.ex.last_events)
+           if dev is not None and mirror is not None and not
+           mirror.host_mode else None)
+    vm.set_preference(vmb.id())
+    t0 = time.perf_counter()
+    vmb.accept()
+    chain.drain_acceptor_queue()
+    accept_ms = (time.perf_counter() - t0) * 1e3
+    eth = vmb.eth_block
+    check(len(eth.transactions) == len(txs),
+          f"{label} block {eth.number}: {len(eth.transactions)} of "
+          f"{len(txs)} transactions included")
+    check(len(vmb.atomic_txs) == (2 if atomic is not None else 0),
+          f"{label} block {eth.number}: {len(vmb.atomic_txs)} atomic txs")
+    ordered = [by_hash[tx.hash()] for tx in eth.transactions]
+    receipts = chain.get_receipts(eth.hash())
+    check(all(r.status == 1 for r in receipts),
+          f"{label} block {eth.number}: a transaction failed")
+    want, touched, writes = evm_oracle_block(
+        world, oracle, ordered, receipts, eth.header.base_fee, coinbase,
+        VM_COINBASE)
+    if atomic is not None:
+        atomic.apply(world, oracle)
+        want = oracle.root()
+        touched |= {atomic.dest, atomic.exp_i}
+    check(eth.header.root == want,
+          f"{label} block {eth.number}: root {eth.header.root.hex()} != "
+          f"oracle {want.hex()}")
+    check(vm.last_accepted().id() == vmb.id()
+          and chain.current_block.hash() == vmb.id()
+          and chain.last_accepted.hash() == vmb.id(),
+          f"{label} block {eth.number}: not the head and last accepted")
+    stats = dict(issue=issue_ms, build=build_ms, verify=verify_ms,
+                 accept=accept_ms, window=win,
+                 build_k1=[b - a for a, b in zip(n0, n1)],
+                 verify_k1=[b - a for a, b in zip(n1, n2)])
+    return vmb, receipts, touched, writes, stats
+
+
+def phase_vm(dev, vm, mem: Memory, world: World, oracle: Oracle, n_blocks,
+             coinbase: list, seed, card):
+    """The VM phase (module docstring, phase 7d): `n_blocks` blocks of the
+    EVM phase's mix (evm_transactions from the keyed accounts' next
+    nonces) through the VM on the chain the chain phase left, the first
+    with one ImportTx and one ExportTx (_AtomicPair). Each block through
+    vm_block: issue, build (the miner from the tx pool and the atomic
+    mempool, finalize_and_assemble's intermediate_root: the storage
+    programs on K1 under the ladder, the account trie on the mirror's
+    executor on K1; then insert_block_manual(writes=False)), verify
+    (insert_block_manual(writes=True) and the atomic backend), preference,
+    accept. Then the mempool and the tx pool are empty, and the shared
+    memory holds the export's UTXO and not the import's. The storage
+    programs and the executor launch K1 through recorders. Returns (the
+    storage recorder, the executor's, K1 launches, of them cooperative,
+    accounts touched, {contract: keys written})."""
+    t_phase = time.perf_counter()
+    chain = vm.blockchain
+    mirror = chain.mirror
+    rec_storage, rec_resident = _K1Recorder(), _K1Recorder()
+    chain.state_database.triedb.batch_keccak = PlannedMode(
+        PlannedCommit(seg_impl=rec_storage, device=dev))
+    mirror.ex.seg_impl = rec_resident
+    t0 = time.perf_counter()
+    signed = evm_transactions(world, n_blocks, seed)
+    atomic = _AtomicPair(vm, mem, world)
+    log(f"vm: {sum(len(b) for b in signed)} transactions of {n_blocks} "
+        f"blocks and 2 atomic txs signed in {time.perf_counter() - t0:.1f} "
+        f"s; a UTXO of {VM_IMPORT} nAVAX seeded into the shared memory")
+    loud_names = LOUD_CHAIN + OPTION_FALLBACKS + LOUD_DEVICE
+    loud = {n: default_registry.counter(n).count() for n in loud_names}
+    keccak_cuda.reset_counts()
+    planned_mod.planned_fallbacks = 0
+    touched_all, written = set(), defaultdict(set)
+    gas_all = wall_all = 0.0
+    with _GcPauses() as pauses:
+        for b, txs in enumerate(signed):
+            vmb, _r, touched, writes, st = vm_block(
+                vm, world, oracle, txs, coinbase, (rec_storage, rec_resident),
+                atomic=atomic if b == 0 else None, dev=dev)
+            touched_all |= touched
+            for c, w in writes.items():
+                written[c].update(w)
+            eth = vmb.eth_block
+            gas = eth.header.gas_used
+            wall = (st["build"] + st["verify"]) / 1e3
+            gas_all += gas
+            wall_all += wall
+            rec = chain.flight_recorder.find(eth.hash())
+            log(f"vm block {eth.number}: {len(eth.transactions)} "
+                f"transactions, {len(vmb.atomic_txs)} atomic, gas used {gas}"
+                f"; issue {st['issue']:.1f} ms, build_block "
+                f"{st['build']:.1f} ms (K1 launches: storage programs "
+                f"{st['build_k1'][0]}, resident executor "
+                f"{st['build_k1'][1]}), verify {st['verify']:.1f} ms (K1 "
+                f"launches: storage programs {st['verify_k1'][0]}, resident "
+                f"executor {st['verify_k1'][1]}; flight record phases (ms) "
+                + ", ".join(f"{k} {v * 1e3:.1f}"
+                            for k, v in rec["phases"].items())
+                + f"), accept and drain {st['accept']:.1f} ms; mirror device"
+                f" window {fmt_window(st['window'])}; {gas / wall / 1e6:.3f}"
+                f" Mgas/s over build + verify; root {eth.header.root.hex()}"
+                f" == the EVM-independent oracle's; {card}")
+    launches, coop = keccak_cuda.launches, keccak_cuda.launches_coop
+    check(len(vm.mempool) == 0 and not vm.mempool.issued
+          and vm.txpool.stats() == (0, 0),
+          f"vm: mempool {len(vm.mempool)} (issued {len(vm.mempool.issued)}"
+          f"), tx pool {vm.txpool.stats()} after the last accept")
+    ctx = vm.ctx
+    out = mem.new_shared_memory(ctx.x_chain_id).get(
+        ctx.chain_id, [atomic.out.utxo_id()])
+    check(atomic_tx.UTXO.decode(out[0]) == atomic.out,
+          "vm: the export's UTXO is not in the X chain's shared memory")
+    try:
+        mem.new_shared_memory(ctx.chain_id).get(ctx.x_chain_id,
+                                                [atomic.utxo.utxo_id()])
+        check(False, "vm: the imported UTXO is still in the shared memory")
+    except KeyError:
+        pass
+    last = chain.last_accepted.header.root
+    check(chain.snaps.disk_layer.root == last,
+          "vm: the snapshot's disk layer is not at the last root")
+    check(planned_mod.planned_fallbacks == 0, "vm: planned fallback")
+    check(keccak_cuda.blocks_launches == 0, "vm: K2 launched")
+    cuda = dev.type == "cuda"
+    check(not cuda or launches == len(rec_storage.records)
+          + len(rec_resident.records) > 0,
+          f"vm: {launches} K1 launches, {len(rec_storage.records)} + "
+          f"{len(rec_resident.records)} recorded")
+    check(rec_storage.records and rec_resident.records,
+          "vm: K1 not launched by both the storage programs and the "
+          "resident executor")
+    if cuda:
+        ran_s = check_variants(rec_storage, "vm storage programs")
+        ran_r = check_variants(rec_resident, "vm resident executor")
+        log("vm: every K1 launch ran the variant its shape calls for: "
+            "storage programs " + ", ".join(
+                f"{VARIANT_NAME[v]} {n}" for v, n in ran_s.items())
+            + "; resident executor " + ", ".join(
+                f"{VARIANT_NAME[v]} {n}" for v, n in ran_r.items()))
+    for name in loud_names:
+        now = default_registry.counter(name).count()
+        check(now == loud[name], f"vm: {name} counted {now - loud[name]}")
+    check(default_ladder().healthy and not mirror.host_mode,
+          "vm: the ladder is not healthy or the mirror is on the host")
+    log(f"vm: {n_blocks} blocks built, verified and accepted through the VM"
+        f" in {wall_all * 1e3:.1f} ms of build + verify "
+        f"({gas_all / wall_all / 1e6:.3f} Mgas/s); head == "
+        f"vm.last_accepted(); mempool and tx pool empty; the shared memory "
+        f"holds the export's UTXO and not the import's; K1 launches "
+        f"{launches} (storage programs {len(rec_storage.records)}, resident "
+        f"executor {len(rec_resident.records)}); garbage collector pauses "
+        f"({pauses}); phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    return (rec_storage, rec_resident, launches, coop, sorted(touched_all),
+            written)
+
+
+# the ladder drill's VM config (phase 8b): a watchdog of 1 s a dispatch,
+# probes every 50 ms, re-promotion after two healthy probes; every
+# accepted block exported, so a reboot's leaf scan finds its state
+DRILL_CONFIG = {"device-call-timeout": 1.0, "device-probe-interval": 0.05,
+                "device-promote-after": 2, "commit-interval": 1}
+DRILL_CALLS = 6       # contract calls a drill block: 120 slot writes, so
+DRILL_TRANSFERS = 10  # the storage program engages (BATCH_THRESHOLD 100)
+
+
+def _wait(cond, seconds: float) -> bool:
+    deadline = time.monotonic() + seconds
+    while not cond() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return cond()
+
+
+def phase_ladder_drill(dev, n_accounts, seed, card):
+    """The ladder drill (module docstring, phase 8b) on a VM of its own
+    over `n_accounts` accounts (24 contracts of 20 slots, 64 keyed), booted
+    from DRILL_CONFIG. Blocks of DRILL_CALLS contract calls and
+    DRILL_TRANSFERS transfers through vm_block, each root held against the
+    oracle: raise (ops/device/dispatch `raise*1`: the error reaches
+    build_block, the head stays and nothing is demoted; the block then
+    builds with storage K1 launches), hang (the dispatch hangs: the
+    watchdog's DeviceWedgedError reaches build_block within its deadline,
+    the head stays, nothing is demoted; released, the abandoned call never
+    runs and the block builds on K1), takeover (the probes failing,
+    chain.take_over_host() demotes the ladder: a block on the host with 0
+    K1 launches, storage programs and executor), recover (cleared: the
+    probes, K2 on the card, re-promote, the listener reboots the mirror on
+    the device, and the next block launches K1 in both). The ladder is
+    then reset to its defaults. Returns (K1 recorders of the storage
+    programs and the executors, K1 launches, of them cooperative, the
+    probes' K2 recorder, K2 launches, of them cooperative, K2's padding
+    lanes)."""
+    t_phase = time.perf_counter()
+    names = LOUD + LOUD_DEVICE
+    moved = {n: default_registry.counter(n).count() for n in names}
+    check(not any(moved.values()),
+          f"ladder drill: the main paths counted {moved}")
+    lad = default_ladder()
+    world = World(n_accounts, 24, 20, seed, n_keyed=64)
+    oracle = Oracle(world)
+    cfg = dict(DRILL_CONFIG)
+    if dev.type != "cuda":
+        cfg["resident-account-trie"] = True
+    vm = VM()
+    t0 = time.perf_counter()
+    vm.initialize(SnowContext(shared_memory=Memory()), MemoryDB(),
+                  genesis_alloc(world), config_bytes=json.dumps(cfg).encode(),
+                  device=dev)
+    boot_ms = (time.perf_counter() - t0) * 1e3
+    vm.miner.clock = chain_clock(vm)
+    chain = vm.blockchain
+    check(chain.genesis_block.root == oracle.root(),
+          "ladder drill: genesis root != the oracle's")
+    st = lad.status()
+    check((st["call_timeout"], st["probe_interval"], st["promote_after"])
+          == (1.0, 0.05, 2),
+          f"ladder drill: the chain configured the ladder as {st}")
+    rec_storage, rec_resident, rec_k2 = _K1Recorder(), _K1Recorder(), \
+        _K2Recorder()
+    chain.state_database.triedb.batch_keccak = PlannedMode(
+        PlannedCommit(seg_impl=rec_storage, device=dev))
+    chain.mirror.ex.seg_impl = rec_resident
+    probe = device_mod._cached["fn"].__self__
+    check(probe is chain.state_database.triedb.batch_keccak.batched,
+          "ladder drill: the probe is not the chain device's K2 seam")
+    probe.impl = rec_k2
+    probe.reset_totals()
+    signed = evm_transactions(world, 5, seed + 1, n_calls=DRILL_CALLS,
+                              n_transfers=DRILL_TRANSFERS)
+    coinbase = [0]
+    keccak_cuda.reset_counts()
+    recs = (rec_storage, rec_resident)
+    before = {n: default_registry.counter(n).count() for n in LOUD_DEVICE}
+
+    def counted(name):
+        return default_registry.counter(name).count() - before[name]
+
+    def events():
+        return [e["event"] for e in chain.flight_recorder.events()]
+
+    def step(label, txs, issued=False):
+        vmb, _r, _t, _w, st = vm_block(vm, world, oracle, txs, coinbase,
+                                       recs, label=f"ladder drill {label}",
+                                       dev=dev, issued=issued)
+        n = [a + b for a, b in zip(st["build_k1"], st["verify_k1"])]
+        log(f"ladder drill {label}: block {vmb.height()} root == the "
+            f"oracle's; build_block {st['build']:.1f} ms, verify "
+            f"{st['verify']:.1f} ms; K1 launches: storage programs {n[0]}, "
+            f"resident executor {n[1]}; ladder {lad.state}; {card}")
+        return n
+
+    def failed_build(label, txs, want):
+        """Issue `txs`, then a build_block whose dispatch fails: the error
+        (a `want`) reaches it, the head stays, nothing is demoted."""
+        for t in txs:
+            vm.issue_tx(Transaction.decode(t.blob))
+        head = chain.current_block.hash()
+        t0 = time.perf_counter()
+        try:
+            vm.build_block()
+            err = None
+        except Exception as e:  # noqa: BLE001 — checked below
+            err = e
+        ms = (time.perf_counter() - t0) * 1e3
+        check(isinstance(err, want) and chain.current_block.hash() == head
+              and vm.last_accepted().id() == head and lad.healthy
+              and counted("ops/device/demotions") == 0
+              and "device/demote" not in events(),
+              f"ladder drill {label}: build_block gave {err!r}, head "
+              f"moved {chain.current_block.hash() != head}, ladder "
+              f"{lad.state}, demotions {counted('ops/device/demotions')}")
+        log(f"ladder drill {label}: build_block raised {type(err).__name__}"
+            f" after {ms:.1f} ms, the head unchanged, no demotion; {card}")
+        return ms
+
+    # raise: the first dispatch fails; its error reaches build_block
+    fault.set_failpoint("ops/device/dispatch", "raise*1")
+    failed_build("raise", signed[0], fault.FailpointError)
+    n = step("raise", signed[0], issued=True)
+    check(n[0] > 0, "ladder drill raise: no storage K1 launch after it")
+    # hang: the watchdog's deadline reaches build_block
+    fault.set_failpoint("ops/device/dispatch", "hang")
+    hang_ms = failed_build("hang", signed[1], DeviceWedgedError)
+    budget_ms = (DRILL_CONFIG["device-call-timeout"] + 2.0) * 1e3
+    check(hang_ms < budget_ms,
+          f"ladder drill hang: build_block took {hang_ms:.1f} ms")
+    fault.clear_all()  # releases the abandoned call, which never runs
+    n = step("hang", signed[1], issued=True)
+    check(n[0] > 0, "ladder drill hang: no storage K1 launch after it")
+    # takeover: the caller demotes the ladder; the probes fail, so the
+    # next block is hashed on the host
+    fault.set_failpoint("ops/device/probe", "raise")
+    old = chain.mirror
+    chain.take_over_host("ladder drill")
+    check(old.host_mode and not lad.healthy and "device/demote" in events()
+          and counted("ops/device/demotions") == 1,
+          "ladder drill: take_over_host did not demote the ladder")
+    check(_wait(lambda: counted("ops/device/probe_errors") > 0, 5)
+          and not lad.healthy,
+          "ladder drill: no probe failed while the probes' failpoint held")
+    n = step("takeover", signed[2])
+    check(n == [0, 0] and not lad.healthy,
+          f"ladder drill takeover: K1 launches {n} while demoted")
+    # recover: the probes (K2 on the card) re-promote; the listener
+    # reboots the mirror on the device (its executor takes the module's
+    # segment_keccak at construction: a recorder while the reboot runs)
+    rec_boot = _K1Recorder(keccak_cuda.segment_keccak)
+    keccak_cuda.segment_keccak = rec_boot
+    fault.clear_all()
+    t0 = time.perf_counter()
+    rebooted = _wait(lambda: "mirror/reboot" in events(), 30)
+    keccak_cuda.segment_keccak = rec_boot.launch
+    check(rebooted,
+          f"ladder drill: no mirror reboot after the promotion: {events()}")
+    reboot_ms = (time.perf_counter() - t0) * 1e3
+    check(lad.healthy and chain.mirror is not old
+          and not chain.mirror.host_mode,
+          "ladder drill: the rebooted mirror is not on the device")
+    chain.mirror.ex.seg_impl = rec_resident
+    n = step("recover", signed[3])
+    check(n[0] > 0 and n[1] > 0 and not chain.mirror.host_mode,
+          f"ladder drill recover: K1 launches {n} after the promotion")
+    moved = {name: counted(name) for name in LOUD_DEVICE}
+    check(moved["ops/device/demotions"] == 1
+          and moved["ops/device/promotions"] == 1
+          and moved["ops/device/dispatch_errors"] == 2
+          and moved["ops/device/probe_errors"] > 0
+          and moved["ops/device/resolve_fail"] == 0,
+          f"ladder drill: counters {moved}")
+    kinds = [k for k in events() if k.startswith(("device/", "mirror/"))]
+    k1, k1_coop = keccak_cuda.launches, keccak_cuda.launches_coop
+    k2, k2_coop = keccak_cuda.blocks_launches, keccak_cuda.blocks_launches_coop
+    pad = probe.padded_lanes - probe.lanes
+    probe.impl = keccak_cuda.keccak256_blocks
+    cuda = dev.type == "cuda"
+    rec_resident.records += rec_boot.records
+    check(not cuda or (k1 == len(rec_storage.records)
+                       + len(rec_resident.records) > 0
+                       and k2 == len(rec_k2.records) > 0),
+          f"ladder drill: K1 {k1} launches, {len(rec_storage.records)} + "
+          f"{len(rec_resident.records)} recorded (the reboot's "
+          f"{len(rec_boot.records)}); K2 {k2}, {len(rec_k2.records)} "
+          f"recorded")
+    check(rec_k2.records, "ladder drill: no probe reached K2")
+    lad.reset()
+    vm.shutdown()
+    log(f"ladder drill: VM of {n_accounts} accounts booted in "
+        f"{boot_ms:.1f} ms; the hang reached build_block after "
+        f"{hang_ms:.1f} ms (budget {budget_ms:.1f} ms); after the "
+        f"takeover the mirror rebooted on the device {reboot_ms:.1f} ms "
+        f"after the probes' failpoint cleared; counters {moved}; flight "
+        f"events {kinds}; K1 launches {k1}, probes' K2 launches {k2}; phase "
         f"{time.perf_counter() - t_phase:.1f} s; {card}")
-    return rec_storage, rec_resident, launches, coop
+    return (rec_storage, rec_resident, k1, k1_coop, rec_k2, k2, k2_coop,
+            pad)
 
 
 def variants_json(launches: int, coop: int, *kernel_ms: dict) -> dict:
@@ -2837,6 +3371,11 @@ def main() -> int:
     ap.add_argument("--option-blocks", type=int, default=6,
                     help="blocks after them, planned mode only, for the "
                          "chain's execution options (>= 4)")
+    ap.add_argument("--vm-blocks", type=int, default=2,
+                    help="blocks built, verified and accepted through the "
+                         "VM after the chain phase")
+    ap.add_argument("--drill-accounts", type=int, default=2_000,
+                    help="accounts of the ladder drill's own VM")
     ap.add_argument("--device", default="cuda",
                     help="'cpu' rehearses with the plain versions")
     args = ap.parse_args()
@@ -2870,7 +3409,7 @@ def main() -> int:
     # planned path (K1): Genesis.commit inside the chain's construction,
     # which boots the resident mirror (K1) and the snapshot tree
     mark(t_start, "planned genesis")
-    (chain, diskdb, gen_block, g_builder, g_launches, g_coop, cb_launches,
+    (vm, mem, diskdb, gen_block, g_builder, g_launches, g_coop, cb_launches,
      cb_coop, cb_rec) = phase_genesis(dev, world, oracle_root)
     g_err, g_ms, g_plain, g_shapes, g_kernel = check_and_time(
         dev, g_builder, "genesis")
@@ -2932,10 +3471,22 @@ def main() -> int:
     # programs and the resident executor), the last ones through the
     # execution options
     mark(t_start, "chain")
-    c_storage, c_resident, c_launches, c_coop = phase_chain(
-        dev, chain, evm_world, evm_planned.blocks, args.evm_blocks, touched,
-        written, coinbase_fee, args.seed + 6, card)
-    del chain, evm_world, evm_oracle
+    c_storage, c_resident, c_launches, c_coop, c_exports = phase_chain(
+        dev, vm.blockchain, evm_planned.blocks, args.evm_blocks, card)
+    # then blocks built, verified and accepted through the VM on the same
+    # chain (K1: storage programs and the resident executor), and the
+    # chain's stop through vm.shutdown()
+    mark(t_start, "vm")
+    vm_coinbase = [0]
+    (v_storage, v_resident, v_launches, v_coop, v_touched,
+     v_written) = phase_vm(dev, vm, mem, evm_world, evm_oracle,
+                           args.vm_blocks, vm_coinbase, args.seed + 7, card)
+    for c, keys in v_written.items():
+        written[c] = set(written.get(c, ())) | keys
+    finish_chain(dev, vm, evm_world, sorted(set(touched) | set(v_touched)),
+                 written, coinbase_fee, vm_coinbase[0], c_exports,
+                 args.seed + 6, card)
+    del vm, mem, evm_world, evm_oracle
     cs_err, cs_ms, cs_plain, cs_shapes, cs_kernel = time_k1(
         dev, [r[0] for r in c_storage.records], "chain storage programs",
         per_segment=False, outputs=[r[1] for r in c_storage.records])
@@ -2943,6 +3494,13 @@ def main() -> int:
         dev, [r[0] for r in c_resident.records], "chain resident executor",
         per_segment=False, outputs=[r[1] for r in c_resident.records])
     del c_storage, c_resident
+    vs_err, vs_ms, vs_plain, vs_shapes, vs_kernel = time_k1(
+        dev, [r[0] for r in v_storage.records], "vm storage programs",
+        per_segment=False, outputs=[r[1] for r in v_storage.records])
+    vr_err, vr_ms, vr_plain, vr_shapes, vr_kernel = time_k1(
+        dev, [r[0] for r in v_resident.records], "vm resident executor",
+        per_segment=False, outputs=[r[1] for r in v_resident.records])
+    del v_storage, v_resident
     e1_err, e1_ms, e1_plain, e1_shapes, e1_kernel = time_k1(
         dev, [r[0] for r in evm_planned.rec.records], "evm planned",
         per_segment=False, outputs=[r[1] for r in evm_planned.rec.records])
@@ -2959,6 +3517,21 @@ def main() -> int:
         seed=args.seed + 3)
     del diskdb
     log(f"after the mirror phase: peak RSS {rss_gib():.1f} GiB")
+    # the degradation ladder drilled on a small VM of its own, after the
+    # main paths (their loud counters, ops/device/* among them, must not
+    # have moved)
+    mark(t_start, "ladder drill")
+    (d_storage, d_resident, d_launches, d_coop, d_k2rec, d_k2, d_k2_coop,
+     d_pad) = phase_ladder_drill(dev, args.drill_accounts, args.seed + 8,
+                                 card)
+    ds_err, ds_ms, ds_plain, ds_shapes, ds_kernel = time_k1(
+        dev, [r[0] for r in d_storage.records + d_resident.records],
+        "ladder drill", per_segment=False,
+        outputs=[r[1] for r in d_storage.records + d_resident.records])
+    dk_err, dk_ms, dk_plain, dk_inputs, dk_kernel = check_and_time_k2(
+        d_k2rec, "ladder drill probes", d_pad, profile_reps=10)
+    del d_storage, d_resident, d_k2rec
+    mark(t_start, "watchdog drill")
     phase_watchdog_drill(dev, args.seed + 4)
     ran = defaultdict(int)
     if dev.type == "cuda":
@@ -2984,7 +3557,8 @@ def main() -> int:
     phase_fallback(dev, args.seed)
 
     k1_shapes = (g_shapes + cb_shapes + b_shapes + e1_shapes + cs_shapes
-                 + cr_shapes + rg_shapes + rb_shapes)
+                 + cr_shapes + vs_shapes + vr_shapes + rg_shapes + rb_shapes
+                 + ds_shapes)
     k1_bound, k1_by = k1_bound_ms(k1_shapes)
     rk_bound, rk_by = k1_bound_ms(rg_shapes + rb_shapes)
     log(f"K1 bound over the mirror's inputs {rk_bound:.4f} ms ({rk_by}; "
@@ -2992,20 +3566,20 @@ def main() -> int:
         f"{k1_bound_ms(rb_shapes)[0]:.4f} ms); K1 events {rg_ms:.4f} / "
         f"{rb_ms:.4f} ms")
     k1_launches = (g_launches + cb_launches + b_launches + evm_planned.k1
-                   + c_launches + m_launches)
+                   + c_launches + v_launches + m_launches + d_launches)
     k1_coop = (g_coop + cb_coop + b_coop + evm_planned.k1_coop + c_coop
-               + m_coop)
-    k2_inputs = bg_inputs + bb_inputs + e2_inputs
+               + v_coop + m_coop + d_coop)
+    k2_inputs = bg_inputs + bb_inputs + e2_inputs + dk_inputs
     k2_bound, k2_by = k2_bound_ms(k2_inputs)
-    k2_real, _ = k2_bound_ms(k2_inputs, bg_pad + bb_pad + e2_pad)
+    k2_real, _ = k2_bound_ms(k2_inputs, bg_pad + bb_pad + e2_pad + d_pad)
     log(f"K2 bound over the batched commits {k2_bound:.4f} ms ({k2_by}), "
         f"over their real lanes alone {k2_real:.4f} ms")
     log(f"launches on the main paths: K1 genesis {g_launches}, the chain's "
         f"mirror boot {cb_launches}, block {b_launches}, evm planned "
-        f"{evm_planned.k1}, chain inserts {c_launches}, mirrors "
-        f"{m_launches}; "
+        f"{evm_planned.k1}, chain inserts {c_launches}, vm blocks "
+        f"{v_launches}, mirrors {m_launches}, ladder drill {d_launches}; "
         f"K2 batched genesis {bg_launches}, batched block {bb_launches}, "
-        f"evm batched {evm_batched.k2}")
+        f"evm batched {evm_batched.k2}, ladder drill probes {d_k2}")
     log(f"peak RSS {rss_gib():.1f} GiB")
     left = descendants()
     check(not left, f"processes left at the end: {left}")
@@ -3018,33 +3592,35 @@ def main() -> int:
         "replaces": "coreth_tpu/ops/keccak_pallas.py:211",
         "launches": k1_launches,
         "max_abs_err": max(grid_err, g_err, cb_err, b_err, e1_err, cs_err,
-                           cr_err, rg_err, rb_err),
-        "ms": (g_ms + cb_ms + b_ms + e1_ms + cs_ms + cr_ms + rg_ms
-               + rb_ms),
+                           cr_err, vs_err, vr_err, rg_err, rb_err, ds_err),
+        "ms": (g_ms + cb_ms + b_ms + e1_ms + cs_ms + cr_ms + vs_ms + vr_ms
+               + rg_ms + rb_ms + ds_ms),
         "plain_ms": (g_plain + cb_plain + b_plain + e1_plain + cs_plain
-                     + cr_plain + rg_plain + rb_plain),
+                     + cr_plain + vs_plain + vr_plain + rg_plain + rb_plain
+                     + ds_plain),
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": None,
         "variants": variants_json(k1_launches, k1_coop, g_kernel,
                                   cb_kernel, b_kernel, e1_kernel, cs_kernel,
-                                  cr_kernel, rg_kernel, rb_kernel),
+                                  cr_kernel, vs_kernel, vr_kernel,
+                                  rg_kernel, rb_kernel, ds_kernel),
     }, {
         "name": "keccak_blocks",
         "route": "cuda",
         "source": "coreth_tpu_torch/ops/csrc/keccak_blocks.cu",
         "replaces": "coreth_tpu/ops/keccak_pallas.py:126",
-        "launches": bg_launches + bb_launches + evm_batched.k2,
-        "max_abs_err": max(grid2_err, bg_err, bb_err, e2_err),
-        "ms": bg_ms + bb_ms + e2_ms,
-        "plain_ms": bg_plain + bb_plain + e2_plain,
+        "launches": bg_launches + bb_launches + evm_batched.k2 + d_k2,
+        "max_abs_err": max(grid2_err, bg_err, bb_err, e2_err, dk_err),
+        "ms": bg_ms + bb_ms + e2_ms + dk_ms,
+        "plain_ms": bg_plain + bb_plain + e2_plain + dk_plain,
         "bound_ms": k2_bound,
         "bound_by": k2_by,
         "library_ms": None,
         "variants": variants_json(
-            bg_launches + bb_launches + evm_batched.k2,
-            bg_coop + bb_coop + evm_batched.k2_coop, bg_kernel, bb_kernel,
-            e2_kernel),
+            bg_launches + bb_launches + evm_batched.k2 + d_k2,
+            bg_coop + bb_coop + evm_batched.k2_coop + d_k2_coop, bg_kernel,
+            bb_kernel, e2_kernel, dk_kernel),
     }]}), flush=True)
     if dev.type != "cuda":
         return 0  # a rehearsal prints no result line

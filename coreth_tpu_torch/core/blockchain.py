@@ -32,11 +32,22 @@ mode (state_processor.py); insert_pipeline_depth > 0 hands insert_block
 to the staged pipeline (insert_pipeline.py), drained at accept, reject,
 set_preference and insert_block_manual and stopped at stop().
 
+The degradation ladder (ops/device.DeviceLadder, process-wide): the chain
+configures it from its device_* knobs and listens to it
+(_on_device_event: every device/* event goes into the flight recorder,
+and a promotion after a takeover reboots the mirror on the device).
+take_over_host() also demotes the ladder, whose probes then decide when
+the device earned its way back; nothing else demotes it, and a device
+fault of a laddered dispatch reaches insert_block like any other
+(device_max_retries is refused but at 0). The listener leaves at stop().
+
+Event feed: subscribe_chain_event (canonical head changes: an insert
+that extends the preference, a reorg), fn(block, logs); the VM's tx pool
+re-anchors on it.
+
 Not ported, each raising NotImplementedError by name when asked for (no
-knob is ignored): the degradation ladder (device_call_timeout,
-device_max_retries, device_probe_interval, device_promote_after away from
-their defaults; ROADMAP "Still to port", item 5), the mesh-sharded mirror
-(resident_mesh_devices > 0; item 6) and the bintrie shadow
+knob is ignored): the mesh-sharded mirror (resident_mesh_devices > 0;
+ROADMAP "Still to port", item 6) and the bintrie shadow
 (state_backend="bintrie-shadow"; item 10).
 """
 
@@ -46,7 +57,7 @@ import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 from .. import rlp
 from ..device import DEVICE_FAULTS, DeviceLike, DeviceWedgedError, resolve
@@ -181,11 +192,18 @@ class CacheConfig:
     # per-chain flight recorder: ring size of retained per-block phase
     # records (metrics/flight.py; served by debug_blockFlightRecord)
     flight_recorder_size: int = 64
-    # --- the degradation ladder's knobs: not ported (ROADMAP "Still to
-    # port", item 5); any value but these defaults raises ---
+    # --- the degradation ladder's knobs (ops/device.DeviceLadder) ---
+    # per-call watchdog deadline (seconds) for laddered device dispatches;
+    # 0 disables the watchdog: dispatches run inline with no extra thread
     device_call_timeout: float = 0.0
-    device_max_retries: int = 1
+    # retries of a failed laddered dispatch: the port retries none (a
+    # device fault reaches the caller; ROADMAP Queue 3), so anything but
+    # 0 raises
+    device_max_retries: int = 0
+    # seconds between background health probes while demoted; <= 0 means
+    # a demoted device is never re-promoted
     device_probe_interval: float = 5.0
+    # consecutive healthy probes required for re-promotion
     device_promote_after: int = 3
     # resident-mirror spot check (device root vs host keccak oracle)
     # every K committed inserts; 0 disables
@@ -251,9 +269,6 @@ def _refuse_not_ported(cfg: CacheConfig) -> None:
     of a part the port does not have that is set away from its default:
     a chain never runs with a knob silently ignored."""
     items = (
-        ("5 (the degradation ladder)",
-         ("device_call_timeout", "device_max_retries",
-          "device_probe_interval", "device_promote_after")),
         ("6 (multi-GPU)", ("resident_mesh_devices",)),
         ("10 (the bintrie shadow)", ("shadow_check_interval",)),
     )
@@ -272,6 +287,11 @@ def _refuse_not_ported(cfg: CacheConfig) -> None:
         raise ValueError(
             f"unknown state-backend {cfg.state_backend!r} "
             "(expected 'mpt' or 'bintrie-shadow')")
+    if cfg.device_max_retries != 0:
+        raise ValueError(
+            f"CacheConfig.device_max_retries={cfg.device_max_retries!r}: "
+            "the port retries no device dispatch; a device fault reaches "
+            "the caller (ROADMAP Queue 3)")
 
 
 # counter/timer families snapshotted around each insert so the flight
@@ -490,6 +510,9 @@ class BlockChain:
         else:
             self.trie_writer = NoPruningTrieWriter(state_database.triedb)
 
+        # subscription feeds
+        self._chain_feed: List[Callable] = []
+
         # genesis
         self.genesis_block = self._setup_genesis(genesis)
 
@@ -513,6 +536,21 @@ class BlockChain:
         self._insert_recs: Dict[bytes, dict] = {}  # guarded-by: _insert_recs_mu
         self._insert_recs_mu = threading.Lock()
 
+        # device degradation ladder (ops/device.py): configure the
+        # process-wide ladder from this chain's knobs and pipe its
+        # demote/probation/promote events into the flight recorder
+        from ..ops.device import default_ladder
+
+        self._ladder = default_ladder()
+        self._ladder.configure(
+            call_timeout=cache_config.device_call_timeout,
+            probe_interval=cache_config.device_probe_interval,
+            promote_after=cache_config.device_promote_after,
+        )
+        self._ladder.add_listener(self._on_device_event)
+        # set by take_over_host; a later ladder re-promotion reboots the
+        # (then host-mode) mirror back onto the device
+        self._mirror_degraded = False
         self._spot_check_countdown = cache_config.resident_spot_check_interval
 
         # crash consistency: the insert tail orders body-before-head, so
@@ -865,15 +903,48 @@ class BlockChain:
     def take_over_host(self, why: str = "asked by the caller") -> None:
         """Move the resident mirror to the host after its device stopped
         answering (ResidentAccountMirror.take_over_host, under chainmu so
-        no insert runs beside it) and note the takeover in the flight
-        recorder. The port's only way off the device: nothing calls it by
-        itself. The reference also demotes its degradation ladder here
-        (ROADMAP "Still to port", item 5)."""
+        no insert runs beside it), note the takeover in the flight
+        recorder and demote the degradation ladder: the takeover's wedged
+        device is the one the ladder tracks, and its probes decide when
+        the device earned its way back (then _on_device_event reboots the
+        mirror on it; coreth_tpu/core/blockchain.py:888-896). The port's
+        only way off the device: nothing calls it by itself."""
         with self.chainmu:
             if self.mirror is None:
                 raise ChainError("no resident mirror to take over")
             self.mirror.take_over_host(why)
+            self._mirror_degraded = True
             self.flight_recorder.note_event("mirror/takeover", why=why)
+        self._ladder.demote(f"resident mirror takeover: {why}")
+
+    def _on_device_event(self, kind: str, fields: dict) -> None:
+        """DeviceLadder listener: every ladder transition lands in the
+        flight recorder's event ring, and a re-promotion after a mirror
+        takeover reboots the mirror onto the device. Runs on whichever
+        thread tripped the ladder, never under the ladder's own lock
+        (ops/device._notify), so taking chainmu here cannot invert against
+        a dispatch under it. A reboot that fails is counted
+        (chain/mirror/reboot_error), logged at error level and noted in
+        the flight recorder; the mirror then stays on the host."""
+        self.flight_recorder.note_event("device/" + kind, **fields)
+        if kind == "promote" and self._mirror_degraded:
+            self._mirror_degraded = False
+            # the takeover pinned the mirror's trie to host mode one-way;
+            # residency only returns through a rebuild
+            with self.chainmu:
+                try:
+                    self.reboot_mirror()
+                    self.flight_recorder.note_event("mirror/reboot")
+                except Exception as e:
+                    from ..log import error, get_logger
+                    from ..metrics import count_drop
+
+                    count_drop("chain/mirror/reboot_error")
+                    self.flight_recorder.note_event(
+                        "mirror/reboot_error", error=repr(e))
+                    error(get_logger("chain"), "resident mirror reboot "
+                          "after re-promotion failed; it stays on the host",
+                          error=repr(e))
 
     def _spot_check_mirror(self) -> None:
         """Periodic device-vs-host cross-check of the resident mirror
@@ -1280,9 +1351,15 @@ class BlockChain:
         self._write_block(block, receipts, statedb._deferred_snap_update,
                           rec=rec)
 
-        # new tip if it extends the current preference
+        # new tip if it extends the current preference; the chain feed only
+        # fires for head changes — non-canonical siblings must not reset
+        # the tx pool onto a losing fork
         if block.parent_hash == self.current_block.hash():
             self._write_canonical(block)
+            if self._chain_feed:
+                logs = [lg for r in receipts for lg in r.logs]
+                for fn in self._chain_feed:
+                    fn(block, logs)
 
     def _write_block(self, block: Block, receipts: List[Receipt],
                      snap_update: Optional[tuple] = None,
@@ -1801,14 +1878,27 @@ class BlockChain:
         self.current_block = new_head
         self._publish_read_view()
         rawdb.write_head_block_hash(self.diskdb, new_head.hash())
+        # a reorg is a head change: downstream (the tx pool) re-anchors on
+        # the new fork, as for an insert that extends the preference
+        if self._chain_feed:
+            receipts = self.get_receipts(new_head.hash()) or []
+            logs = [lg for r in receipts for lg in r.logs]
+            for fn in self._chain_feed:
+                fn(new_head, logs)
+
+    # -------------------------------------------------------------- events
+
+    def subscribe_chain_event(self, fn: Callable) -> None:
+        self._chain_feed.append(fn)
 
     # ------------------------------------------------------------ lifecycle
 
     def stop(self) -> None:
         """Retire the insert pipeline and the shard pool, drain the
-        acceptor queue and the insert tail, retire both workers, then the
-        trie writer's shutdown (the resident writer's final export of the
-        last accepted block)."""
+        acceptor queue and the insert tail, retire both workers, leave the
+        degradation ladder's listeners, then the trie writer's shutdown
+        (the resident writer's final export of the last accepted
+        block)."""
         # the pipeline first: its commit worker feeds the acceptor/tail
         # queues being drained below
         if self.pipeline is not None:
@@ -1827,6 +1917,7 @@ class BlockChain:
             finally:
                 self._tail_queue.put(None)
                 self._tail_thread.join(timeout=5)
+        self._ladder.remove_listener(self._on_device_event)
         self.trie_writer.shutdown()
 
     def last_accepted_block(self) -> Block:

@@ -144,11 +144,26 @@ def _register_stop() -> None:
         atexit.register(stop_servers)
 
 
+# `shard-telemetry-enabled` knob (the VM sets it from its config): gates
+# the registry-merge of the worker-shipped ShardStats deltas (the
+# piggyback itself always rides the reply, one small dict per dispatch,
+# and the flight-record per-worker stamp stays on)
+_telemetry_enabled = True
+
+
+def set_telemetry_enabled(on: bool) -> None:
+    global _telemetry_enabled
+    _telemetry_enabled = bool(on)
+
+
 def _merge_worker_stats(raw: Dict[int, dict]) -> None:
     """Fold one dispatch's worker ShardStats snapshots into the parent
     registry under exec/shard/worker/<i>/*. Called exactly once per
     fully-successful dispatch (a failed dispatch merges nothing, so a
-    crash/respawn can never double-count)."""
+    crash/respawn can never double-count); nothing while the telemetry
+    switch is off."""
+    if not _telemetry_enabled:
+        return
     for i, snap in raw.items():
         prefix = f"exec/shard/worker/{i}/"
         for k, n in snap.get("counts", {}).items():

@@ -11,7 +11,9 @@ CUDA error (KernelLaunchError, torch's CUDA errors) and a kernel or native
 library that did not build (BuildError). They are never a block's fault
 and never a failed speculation: every path that catches exceptions to
 fall back (the speculative execution modes, the insert pipeline's commit
-stage) lets them through to its caller.
+stage) lets them through to its caller, and so does the degradation
+ladder's dispatch (ops/device.DeviceLadder), which finishes no device
+call on the host.
 """
 
 from __future__ import annotations

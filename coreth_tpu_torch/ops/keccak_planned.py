@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve
-from .device import BatchedModeKeccak
+from .device import DeviceLadder, LadderedKeccak
 from .keccak_fused import SegmentSpec
 from .keccak_torch import MASK32, WORDS_PER_BLOCK, default_batched_keccak, \
     to_int32
@@ -221,21 +221,31 @@ def default_planned_commit(device: DeviceLike = None) -> PlannedCommit:
     return pc
 
 
-class PlannedMode(BatchedModeKeccak):
-    """Marker handed to Trie / StateTrie as `batch_keccak`: Trie.hash takes
-    the planned path when `unhashed >= BATCH_THRESHOLD`. Counterpart of
-    coreth_tpu/ops/device.py:PlannedModeKeccak, without the degradation
-    ladder: a device error propagates.
+class PlannedMode(LadderedKeccak):
+    """Marker handed to Trie / StateTrie as `batch_keccak`: Trie.hash and
+    StateDB.intermediate_root take the planned path when `planned` and
+    `unhashed >= BATCH_THRESHOLD`. Counterpart of
+    coreth_tpu/ops/device.py:PlannedModeKeccak.
 
-    As there, it is the "batched" seam too (a BatchedModeKeccak on the
-    commit's device: kernel K2 on CUDA), so the planned fallbacks'
-    BatchedHasher and every other consumer of the seam call it as a plain
-    batch keccak, msgs -> digests."""
+    `planned` is a dynamic property, not a class attribute: while the
+    degradation ladder is demoted it reads False, which flips both
+    consumers (they getattr the marker per call) to their host-routed
+    paths mid-run. Host and device hashing are bit-exact, so the only
+    observable change is where the keccak runs.
 
-    planned = True
+    As there, it is the "batched" seam too (a LadderedKeccak on the
+    commit's device: kernel K2 on CUDA, the host batch keccak while
+    demoted), so the planned fallbacks' BatchedHasher and every other
+    consumer of the seam call it as a plain batch keccak, msgs ->
+    digests."""
 
     def __init__(self, commit: Optional[PlannedCommit] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 ladder: Optional[DeviceLadder] = None):
         self.commit = commit if commit is not None else \
             default_planned_commit(device)
-        super().__init__(default_batched_keccak(self.commit.device))
+        super().__init__(default_batched_keccak(self.commit.device), ladder)
+
+    @property
+    def planned(self) -> bool:
+        return self._ladder.healthy

@@ -49,6 +49,7 @@ from ..core import rawdb
 from ..metrics import default_registry as _metrics
 from ..metrics.spans import span
 from ..native import keccak256
+from ..ops.device import DeviceDegradedError
 from ..trie import planned as _planned
 from ..trie.encoding import key_to_hex
 from ..trie.hasher import BATCH_THRESHOLD, Hasher
@@ -103,9 +104,16 @@ def intermediate_root(account_trie: StateTrie, changed: Changed,
     keccak. `device` is forwarded to the planned programs, where the
     marker's own commit decides.
 
-    A kernel failure in a planned program raises: the reference's
-    degradation ladder (ROADMAP "Still to port", item 5) is not ported.
-    Only TooManySegments keeps its reference fallback."""
+    A planned program runs under the degradation ladder
+    (ops/device.default_ladder). While a caller has the ladder demoted
+    (BlockChain.take_over_host) the marker reads `planned` False, and a
+    dispatch refused in between (DeviceDegradedError) takes the
+    reference's host-routed paths, as TooManySegments does
+    (coreth_tpu/state/statedb.py:549-583,598-641): the storage tries and
+    the account trie hash through their own Trie.hash, whose
+    BatchedHasher runs on the host batch keccak. Any error of the device
+    call itself (a device fault, a BuildError) raises: the ladder never
+    finishes a failed kernel on the host."""
     planned = getattr(batch_keccak, "planned", False)
     resident = getattr(account_trie, "resident", False)
     if planned and est is None:
@@ -150,10 +158,12 @@ def planned_intermediate_root(account_trie: StateTrie, changed: Changed,
     executor's segment table is counted in trie.planned.planned_fallbacks:
     each storage trie heals its hole through its own hash(), and the
     account trie through its own hash() (Trie.hash: re-planned alone, then
-    BatchedHasher if that overflows too, or the CPU Hasher below
-    BATCH_THRESHOLD), as coreth_tpu/state/statedb.py:641-665 does. A device
-    error heals the holes on the recursive CPU Hasher and propagates. Pass
-    a fresh `builder` to read its plan and digests afterwards."""
+    BATCH_THRESHOLD), as coreth_tpu/state/statedb.py:641-665 does; so is
+    a dispatch the degradation ladder refused (DeviceDegradedError: a
+    caller demoted it; not counted there), whose tries then hash on the
+    host. Any other error
+    heals the holes on the recursive CPU Hasher and propagates. Pass a
+    fresh `builder` to read its plan and digests afterwards."""
     builder = builder if builder is not None else PlannedGraphBuilder()
     holes = {}
     patched: List[Tuple[bytes, Account, object, StateTrie]] = []
@@ -181,11 +191,12 @@ def planned_intermediate_root(account_trie: StateTrie, changed: Changed,
     builder.add_account_trie(inner.root, holes)
     try:
         root = builder.run(planned, device)
-    except TooManySegments:
+    except (TooManySegments, DeviceDegradedError) as e:
         # heal each hole with its trie's own hash(), then hash the account
         # trie through its own Trie.hash, which re-plans it alone and
-        # falls back to BatchedHasher in turn
-        _planned.planned_fallbacks += 1
+        # falls back to BatchedHasher in turn (host-routed once demoted)
+        if isinstance(e, TooManySegments):
+            _planned.planned_fallbacks += 1
         _heal_root_holes(account_trie, patched, force_cpu=False)
         return account_trie.hash()
     except BaseException:
@@ -220,8 +231,10 @@ def batch_storage_roots(changed: Changed, planned=None, device=None) -> int:
     nodes carry their hashes and its Account.root is the trie's root, so a
     later tr.hash() is a cache hit. `planned` is the PlannedCommit to run
     (else the default one of `device`: None is CUDA). A graph too large for
-    the segment table (TooManySegments) leaves every trie untouched for its
-    own hash(); there are no holes to heal. Returns the tries hashed."""
+    the segment table (TooManySegments), or a dispatch the degradation
+    ladder refused (DeviceDegradedError: a caller demoted it), leaves every trie untouched for
+    its own hash() (host-routed once demoted); there are no holes to
+    heal. Returns the tries hashed."""
     builder = PlannedGraphBuilder()
     pending = []
     for addr in sorted(changed):
@@ -232,7 +245,7 @@ def batch_storage_roots(changed: Changed, planned=None, device=None) -> int:
         return 0
     try:
         builder.run(planned, device)
-    except TooManySegments:
+    except (TooManySegments, DeviceDegradedError):
         return 0
     for acct, handle, tr in pending:
         acct.root = builder.digest(handle)

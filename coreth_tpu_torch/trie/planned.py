@@ -330,7 +330,13 @@ class PlannedGraphBuilder:
         holes, returns the final (account) root digest.
 
         Raises TooManySegments when the graph exceeds the executor's
-        segment table; nothing is modified then."""
+        segment table; nothing is modified then. The device round trip
+        runs under the degradation ladder (ops/device.default_ladder, as
+        coreth_tpu/trie/planned.py:351-360 does): while a caller has the
+        ladder demoted the dispatch raises DeviceDegradedError, and
+        callers take the host-routed level hashers as they do on
+        TooManySegments; an error of the device call itself reaches the
+        caller (no retry, no demotion)."""
         t0 = time.perf_counter()
         built = self.build()
         self.plan_ms = (time.perf_counter() - t0) * 1e3
@@ -342,8 +348,12 @@ class PlannedGraphBuilder:
 
             planned = default_planned_commit(device)
         self.plan = (specs, flat_words, dst, child, shift, root_pos)
-        _root, dig = planned.run(specs, flat_words, dst, child, shift,
-                                 root_pos, want_digests=True)
+        from ..ops.device import default_ladder
+
+        _root, dig = default_ladder().dispatch(
+            lambda: planned.run(specs, flat_words, dst, child, shift,
+                                root_pos, want_digests=True),
+            "planned device commit")
         self.digests = dig
         digs = np.ascontiguousarray(dig).view(np.uint8).reshape(-1, 32)
         for n, gid in self._hashed:

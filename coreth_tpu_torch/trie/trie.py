@@ -234,12 +234,15 @@ class Trie:
     def hash(self) -> bytes:
         """Root hash (coreth_tpu/trie/trie.py:225-258). With at least
         BATCH_THRESHOLD unhashed updates and a batch keccak: a PlannedMode
-        marker hashes the dirty nodes in one planned device commit, and a
-        graph with more segments than the executor's table goes to the
-        BatchedHasher on the marker instead, counted in
-        trie.planned.planned_fallbacks; any other batch keccak runs the
-        BatchedHasher, one batch per level. Otherwise the recursive CPU
-        Hasher. A device error propagates."""
+        marker (while the degradation ladder is healthy) hashes the dirty
+        nodes in one planned device commit, and a graph with more segments
+        than the executor's table (counted in
+        trie.planned.planned_fallbacks) or a dispatch the ladder refused
+        (DeviceDegradedError: a caller demoted it) goes to the
+        BatchedHasher on the marker instead, which runs on the host batch
+        keccak while demoted; any
+        other batch keccak runs the BatchedHasher, one batch per level.
+        Otherwise the recursive CPU Hasher."""
         if self.root is None:
             return EMPTY_ROOT
         if isinstance(self.root, HashNode):
@@ -247,12 +250,15 @@ class Trie:
         bk = self._batch_keccak
         if bk is not None and self.unhashed >= BATCH_THRESHOLD:
             if getattr(bk, "planned", False):
+                from ..ops.device import DeviceDegradedError
                 from . import planned
 
                 try:
                     h = planned.PlannedHasher(bk.commit).hash_root(self.root)
                 except planned.TooManySegments:
                     planned.planned_fallbacks += 1
+                    h = BatchedHasher(bk).hash_root(self.root)
+                except DeviceDegradedError:
                     h = BatchedHasher(bk).hash_root(self.root)
             else:
                 h = BatchedHasher(bk).hash_root(self.root)

@@ -277,6 +277,81 @@ chain.stop()
 back = StateDB(blocks[-1].root, Database(TrieDatabase(disk)))
 assert back.get_state(contract, b"\x00" * 32) == b"\x2a" * 32
 assert back.get_nonce(senders[0]) == 2
+
+# the VM: booted from JSON config bytes on the CPU, an atomic import and a
+# transfer built, verified and accepted; then a block of 60 transfers to
+# fresh accounts whose planned dispatch fails (the error reaches
+# build_block, the head stays), then built again after the caller demotes
+# the degradation ladder, landing on the host
+import json
+from coreth_tpu_torch import fault
+from coreth_tpu_torch.ops.device import default_ladder
+from coreth_tpu_torch.vm import atomic_tx
+from coreth_tpu_torch.vm.shared_memory import Element, Memory, Requests
+from coreth_tpu_torch.vm.vm import VM, SnowContext
+
+mem = Memory()
+vm = VM()
+vm.initialize(SnowContext(shared_memory=mem), MemoryDB(),
+              Genesis(config=cfg, alloc=chain_alloc),
+              config_bytes=json.dumps({"device-probe-interval": 0,
+                                       "insert-pipeline-depth": 1}).encode(),
+              device="cpu")
+assert vm.sync_handler is None and vm.blockchain.pipeline is not None
+# a block every 10 s of chain time (tip 0 pays no block gas cost then)
+vm.miner.clock = lambda: vm.blockchain.current_block.time + 10
+ctx = vm.ctx
+utxo = atomic_tx.UTXO(tx_id=b"\x07" * 32, output_index=0,
+                      asset_id=ctx.avax_asset_id, amount=5 * 10**9,
+                      address=senders[0])
+mem.new_shared_memory(ctx.x_chain_id).apply({ctx.chain_id: Requests(
+    put_requests=[Element(utxo.utxo_id(), utxo.encode(), [senders[0]])])})
+imp = atomic_tx.Tx(atomic_tx.ImportTx(
+    network_id=ctx.network_id, blockchain_id=ctx.chain_id,
+    source_chain=ctx.x_chain_id, imported_inputs=[utxo],
+    outs=[atomic_tx.EVMOutput(b"\xdd" * 20, 4 * 10**9, ctx.avax_asset_id)]))
+imp.sign([keys[0]])
+vm.issue_atomic_tx(imp)
+vm.issue_tx(signer.sign(Transaction(
+    type=2, chain_id=cfg.chain_id, nonce=0, max_fee=10**12, gas=21000,
+    to=b"\xde" * 20, value=7), keys[1]))
+blk = vm.build_block()
+blk.verify()
+vm.set_preference(blk.id())
+blk.accept()
+vm.blockchain.drain_acceptor_queue()
+assert vm.last_accepted().id() == blk.id() and len(blk.atomic_txs) == 1
+st = vm.blockchain.state()
+assert st.get_balance(b"\xdd" * 20) == 4 * 10**18
+assert st.get_balance(b"\xde" * 20) == 7
+assert not mem.new_shared_memory(ctx.chain_id).indexed(
+    ctx.x_chain_id, [senders[0]])[0]
+for j, k in enumerate(keys):
+    vm.issue_tx(signer.sign(Transaction(
+        type=2, chain_id=cfg.chain_id, nonce=int(j == 1), max_fee=10**12,
+        gas=21000, to=(0x9000 + j).to_bytes(20, "big"), value=j + 1), k))
+head = vm.last_accepted().id()
+fault.set_failpoint("ops/device/dispatch", "raise")
+try:
+    vm.build_block()
+    raise AssertionError("the failed dispatch did not reach build_block")
+except fault.FailpointError:
+    pass
+fault.clear_all()
+assert default_ladder().healthy and vm.blockchain.current_block.hash() == head
+default_ladder().demote("the caller took the host")
+blk = vm.build_block()
+blk.verify()
+blk.accept()
+vm.blockchain.drain_acceptor_queue()
+assert len(blk.eth_block.transactions) == 60
+assert not default_ladder().healthy
+assert [e["event"] for e in vm.blockchain.flight_recorder.events()
+        ].count("device/demote") == 1
+st = vm.blockchain.state()
+assert st.get_balance((0x9000 + 59).to_bytes(20, "big")) == 60
+vm.shutdown()
+default_ladder().reset()
 leaked = [m for m in sys.modules if refused(m)]
 assert not leaked, leaked
 print("ISOLATED-OK")
@@ -331,7 +406,13 @@ def test_no_source_imports_jax_or_coreth_tpu():
                 "core/bloom_index.py", "core/blockchain.py",
                 "core/mvcc.py", "core/parallel_exec.py",
                 "core/exec_shards.py", "core/shard_worker.py",
-                "core/insert_pipeline.py", "metrics/shardstats.py"):
+                "core/insert_pipeline.py", "metrics/shardstats.py",
+                "ops/device.py", "core/txpool.py", "miner/worker.py",
+                "vm/shared_memory.py", "vm/atomic_tx.py", "vm/mempool.py",
+                "vm/atomic_trie.py", "vm/atomic_backend.py",
+                "vm/block_verification.py", "vm/block.py",
+                "vm/block_builder.py", "vm/plumbing.py", "vm/config.py",
+                "vm/vm.py"):
         assert os.path.join("coreth_tpu_torch", mod) in names, mod
     assert not bad, bad
 

@@ -280,8 +280,14 @@ class Chains:
 
 @pytest.fixture(autouse=True)
 def _clear_port_failpoints():
+    """The port's failpoints and its degradation ladder are process-global
+    (a chain's take_over_host demotes the ladder): each case ends with
+    both cleared."""
     yield
     fault.clear_all()
+    from coreth_tpu_torch.ops.device import default_ladder
+
+    default_ladder().reset()
 
 
 def _linear_chain(c):
@@ -666,11 +672,39 @@ def _genesis():
                    alloc={ADDR1: GenesisAccount(balance=FUND)})
 
 
+@pytest.mark.parametrize("knob,value,want", [
+    ("device_call_timeout", 1.0, ("call_timeout", 1.0)),
+    ("device_max_retries", 3, ("refused", "Queue 3")),
+    ("device_probe_interval", 0.0, ("probe_interval", 0.0)),
+    ("device_promote_after", 1, ("promote_after", 1)),
+])
+def test_ladder_knobs_configure_the_ladder(knob, value, want):
+    """The knobs of the degradation ladder (item 5) are honoured: the chain
+    configures the process ladder from them and listens to it until
+    stop(). device_max_retries is refused but at 0: the port retries no
+    device dispatch (ROADMAP Queue 3)."""
+    from coreth_tpu_torch.ops.device import default_ladder
+
+    lad = default_ladder()
+    try:
+        if want[0] == "refused":
+            with pytest.raises(ValueError, match=want[1]):
+                BlockChain(MemoryDB(), CacheConfig(**{knob: value}),
+                           params.TEST_CHAIN_CONFIG, _genesis(),
+                           new_dummy_engine(), device="cpu")
+            return
+        chain = BlockChain(MemoryDB(), CacheConfig(**{knob: value}),
+                           params.TEST_CHAIN_CONFIG, _genesis(),
+                           new_dummy_engine(), device="cpu")
+        assert lad.status()[want[0]] == want[1]
+        assert chain._on_device_event in lad._listeners
+        chain.stop()
+        assert chain._on_device_event not in lad._listeners
+    finally:
+        lad.reset()
+
+
 @pytest.mark.parametrize("knob,value,item", [
-    ("device_call_timeout", 1.0, "item 5"),
-    ("device_max_retries", 3, "item 5"),
-    ("device_probe_interval", 0.0, "item 5"),
-    ("device_promote_after", 1, "item 5"),
     ("resident_mesh_devices", 4, "item 6"),
     ("state_backend", "bintrie-shadow", "item 10"),
     ("shadow_check_interval", 4, "item 10"),

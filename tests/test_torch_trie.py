@@ -16,7 +16,7 @@ from coreth_tpu.trie.trie import Trie as JTrie
 from coreth_tpu_torch import rlp
 from coreth_tpu_torch.native import keccak256_batch
 from coreth_tpu_torch.ops import keccak_planned
-from coreth_tpu_torch.ops.device import BatchedModeKeccak, get_batch_keccak
+from coreth_tpu_torch.ops.device import LadderedKeccak, get_batch_keccak
 from coreth_tpu_torch.ops.keccak_planned import PlannedCommit, PlannedMode
 from coreth_tpu_torch.ops.keccak_torch import BatchedKeccak
 from coreth_tpu_torch.state.account import Account
@@ -260,7 +260,7 @@ def test_trie_hash_takes_batched_path_above_threshold(monkeypatch):
     for k, v in items:
         jt.update(k, v)
     mode = get_batch_keccak("batched", device="cpu")
-    assert isinstance(mode, BatchedModeKeccak)
+    assert isinstance(mode, LadderedKeccak)
     launches = mode.batched.launches
     t = trie_from_items(items, batch_keccak=mode)
     assert t.hash() == jt.hash()
