@@ -152,7 +152,7 @@ Phases (each passes or the script exits non-zero):
      programs record every K1 input): A resident (lean rows, pipeline depth
      2, watchdog on), B template residency (watchdog on), C the native
      host twin; each genesis root equals the oracle's. Then block 1 (the
-     block of phase 7) and --blocks (16) seeded blocks as StateDB
+     block of phase 7) and --blocks (8) seeded blocks as StateDB
      operations on a StateDB over each mirror and StateDB.commit(
      block_hash=, parent_block_hash=), accepted two blocks behind through
      each mirror's ResidentTrieWriter; A's MirrorStateTrie carries the
@@ -187,6 +187,36 @@ Phases (each passes or the script exits non-zero):
      counters, ops/device/* among them, must all be 0; after it
      demotions 1, promotions 1, dispatch errors 2. Its K1 launches and
      the probes' K2 launches are held against the plain versions
+  8c. commitment VM: a VM of its own over --shadow-accounts (100,000)
+     accounts (the main world's shape: 1 contract per 1,000 accounts with
+     100 slots, 1,500 keyed), booted from JSON {"state-backend":
+     "bintrie-shadow", "shadow-check-interval": 2} with the chain's other
+     defaults (the mirror on "auto"), on a genesis whose config enables
+     TpuKeccakConfig(timestamp=0) and holds two forwarder contracts
+     (STATICCALL the precompile with the calldata, store keccak256 of the
+     return data in a slot of their own per call). Every state commit also
+     advances the bintrie shadow: at 64 updates or more through its
+     planned commit, one K1 segment a depth level. --shadow-blocks (3)
+     blocks through vm_block, each the EVM phase's mix with its transfers
+     trimmed for two keccak256Batch(bytes[]) calls of 128 seeded 512-byte
+     messages (the precompile hashes them on K2 through the VM's device
+     seam). Every MPT root equals the oracle's (the forwarders' slots from
+     the host batch keccak); the shadow root of the genesis and of every
+     block equals bintrie.reference_root over a content map built from
+     the oracle's world; build and verify commit the same transition with
+     the same bintrie root; the canonical rebuild ran; no quarantine,
+     shadow error, loud, fallback or ops/device/* counter moves. Then one
+     direct contract.run of the first call's messages equals the host
+     batch keccak; witnesses of 100 seeded accounts and 100 absent keys
+     verify against the last shadow root; MPTBackend.prove / verify agree
+     for the same accounts at the head's (resident) root; a range proof of
+     1,000 consecutive account leaves is accepted and refused with one leaf
+     dropped. Every K1 input of the phase (the shadow's, the MPT genesis,
+     the mirror boot, the storage programs, the resident executor) and
+     every K2 input of the precompile is recorded and held against the
+     plain versions; the launches are logged by source, with the
+     bintrie/planned counters and the chain/commit/mpt and
+     chain/commit/bintrie timers
   9. watchdog drill: a 2,000-key mirror whose executor hangs once: the
      commit raises DeviceWedgedError with the applied stack unchanged and
      nothing on the host; the drill then asks for the host
@@ -212,6 +242,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import gc
 import json
 import os
@@ -228,6 +259,9 @@ import numpy as np
 import torch
 
 from coreth_tpu_torch import fault, params, rlp
+from coreth_tpu_torch.bintrie import shadow as shadow_mod
+from coreth_tpu_torch.bintrie import witness as bwitness
+from coreth_tpu_torch.bintrie.tree import reference_root
 from coreth_tpu_torch.consensus.dummy import new_dummy_engine
 from coreth_tpu_torch.core import types as types_mod
 from coreth_tpu_torch.core.blockchain import BlockChain
@@ -248,6 +282,9 @@ from coreth_tpu_torch.ops.device import default_ladder, get_batch_keccak
 from coreth_tpu_torch.ops.keccak_planned import MAX_SEGMENTS, PlannedCommit, \
     PlannedMode, default_planned_commit
 from coreth_tpu_torch.metrics import default_registry, spans
+from coreth_tpu_torch.precompile import TPU_KECCAK_ADDR, TpuKeccakConfig, \
+    function_selector
+from coreth_tpu_torch.precompile import tpu_keccak
 from coreth_tpu_torch.ops.keccak_resident import ResidentExecutor
 from coreth_tpu_torch.ops.keccak_staged import segment_keccak_plain
 from coreth_tpu_torch.ops.keccak_torch import RATE, BatchedKeccak, \
@@ -263,7 +300,9 @@ from coreth_tpu_torch.trie import hasher as hasher_mod
 from coreth_tpu_torch.trie import planned as planned_mod
 from coreth_tpu_torch.trie.hasher import Hasher
 from coreth_tpu_torch.trie.iterator import iterate_leaves
-from coreth_tpu_torch.trie.node import EMPTY_ROOT
+from coreth_tpu_torch.trie.node import EMPTY_ROOT, ProofError
+from coreth_tpu_torch.trie.proof import prove as mpt_prove
+from coreth_tpu_torch.trie.proof_range import verify_range_proof
 from coreth_tpu_torch.trie.planned import PlannedGraphBuilder
 from coreth_tpu_torch.trie.resident_mirror import ResidentAccountMirror
 from coreth_tpu_torch.trie.secure import StateTrie
@@ -3344,6 +3383,430 @@ def phase_ladder_drill(dev, n_accounts, seed, card):
             pad)
 
 
+# ------------------------------------------------- the commitment VM phase
+
+# the commitment VM's JSON config (phase 8c): the dual-root shadow beside
+# the MPT, its canonical-rebuild check every second commit
+SHADOW_CONFIG = {"state-backend": "bintrie-shadow",
+                 "shadow-check-interval": 2}
+# BASELINE config 5's call: keccak256Batch(bytes[]) over 128 messages of
+# 512 bytes (64 KiB), about 1.2M gas, mostly calldata
+SHADOW_CALLS = 2
+SHADOW_MSGS = 128
+SHADOW_MSG_BYTES = 512
+SHADOW_CALL_GAS = 1_400_000
+SHADOW_CALL_PLAN = 1_300_000
+# the forwarder contracts' one genesis slot (their code never touches it)
+FWD_GENESIS_SLOT = b"\xff" * 32
+
+
+def forwarder_code(target: bytes) -> bytes:
+    """Hand-assembled: STATICCALL `target` with the calldata, revert if it
+    fails, else n = sload(0) + 1, sstore(0, n), sstore(n,
+    keccak256(returndata)): each call's digests reach the state root in a
+    slot of their own."""
+    return bytes.fromhex(
+        "366000600037"                  # calldatacopy(0, 0, calldatasize)
+        "60006000366000"                # retSize retOff argsSize argsOff
+        "73") + target + bytes.fromhex(
+        "5afa"                          # gas staticcall
+        "15603e57"                      # iszero -> 62 (revert)
+        "3d600060003e"                  # returndatacopy(0, 0, rds)
+        "3d600020"                      # keccak256(0, rds)
+        "600054600101"                  # sload(0) + 1
+        "8060005555"                    # sstore(0, n); sstore(n, h)
+        "00"                            # stop
+        "5b60006000fd")                 # 62: revert(0, 0)
+
+
+def batch_calldata(msgs) -> bytes:
+    """keccak256Batch(bytes[]) calldata: the selector, then the ABI
+    encoding of `bytes[]` (offset, count, one offset a message relative to
+    the array's content, then each length and its bytes zero-padded)."""
+    heads, tail = [], []
+    pos = 32 * len(msgs)
+    for m in msgs:
+        heads.append(pos.to_bytes(32, "big"))
+        chunk = len(m).to_bytes(32, "big") + m + bytes(-len(m) % 32)
+        tail.append(chunk)
+        pos += len(chunk)
+    return (function_selector("keccak256Batch(bytes[])")
+            + (32).to_bytes(32, "big") + len(msgs).to_bytes(32, "big")
+            + b"".join(heads) + b"".join(tail))
+
+
+def add_account(world: World, addr, nonce=0, code=b"", storage=None) -> int:
+    """Append an account to `world` (before its Oracle is built); returns
+    its index."""
+    world.addrs.append(addr)
+    world.nonce.append(nonce)
+    world.balance.append(0)
+    world.code_hash.append(keccak256(code))
+    i = len(world.addrs) - 1
+    if code:
+        world.code[i] = code
+    if storage:
+        world.storage[i] = dict(storage)
+    return i
+
+
+def shadow_content(world: World, coinbase=None) -> dict:
+    """The bintrie shadow's key -> value-hash map of `world` (and the
+    miner's coinbase once it holds fees), built apart from the port's
+    tries: each account
+    under keccak256(address) with its fixed-width payload
+    (shadow.encode_account), each slot under shadow.storage_key(keccak256
+    (address), keccak256(slot key)) with the hash of its 32-byte value."""
+    keys = keccak256_batch(world.addrs, threads=8)
+    payloads = [shadow_mod.encode_account(world.nonce[i], world.balance[i],
+                                          world.code_hash[i], False)
+                for i in range(len(world.addrs))]
+    content = dict(zip(keys, keccak256_batch(payloads, threads=8)))
+    if coinbase is not None:
+        content[keccak256(VM_COINBASE)] = keccak256(
+            shadow_mod.encode_account(0, coinbase, EMPTY_CODE_HASH, False))
+    for c, slots in world.storage.items():
+        for k, v in slots.items():
+            content[shadow_mod.storage_key(keys[c], keccak256(k))] = \
+                keccak256(v)
+    return content
+
+
+def precompile_transactions(world: World, n_blocks, callers, fwds, seed):
+    """Per block SHADOW_CALLS signed calls of keccak256Batch through the
+    forwarders (caller j -> forwarder j), each over SHADOW_MSGS seeded
+    messages of SHADOW_MSG_BYTES: [[_EvmTx]] whose `writes` are the
+    forwarder's slots (the counter, then keccak256 of the ABI-encoded host
+    digests at slot n). Returns (blocks, [[messages]] per call)."""
+    cfg = params.TEST_CHAIN_CONFIG
+    signer = Signer(cfg.chain_id)
+    rng = np.random.default_rng(seed)
+    blocks, msgs_all = [], []
+    for b in range(n_blocks):
+        txs = []
+        for j, ((i, key), f) in enumerate(zip(callers, fwds)):
+            raw = rng.bytes(SHADOW_MSGS * SHADOW_MSG_BYTES)
+            msgs = [raw[k * SHADOW_MSG_BYTES:(k + 1) * SHADOW_MSG_BYTES]
+                    for k in range(SHADOW_MSGS)]
+            msgs_all.append(msgs)
+            ret = tpu_keccak.encode_bytes32_array(
+                keccak256_batch(msgs, threads=8))
+            n = b + 1
+            writes = {normalize_state_key(bytes(32)): n.to_bytes(32, "big"),
+                      normalize_state_key(n.to_bytes(32, "big")):
+                          keccak256(ret)}
+            tx = Transaction(type=2, chain_id=cfg.chain_id,
+                             nonce=world.nonce[i] + b, max_priority_fee=0,
+                             max_fee=EVM_MAX_FEE, gas=SHADOW_CALL_GAS,
+                             to=world.addrs[f], value=0,
+                             data=batch_calldata(msgs))
+            txs.append(_EvmTx(signer.sign(tx, key).encode(), i, f, 0,
+                              writes))
+        blocks.append(txs)
+    return blocks, msgs_all
+
+
+def _timer(name):
+    t = default_registry.timer(name)
+    return t.count(), t.total()
+
+
+def phase_commitment(dev, n_accounts, n_blocks, seed, card):
+    """The commitment VM (module docstring, phase 8c): a VM of its own over
+    `n_accounts` accounts booted from SHADOW_CONFIG on a genesis whose
+    config enables TpuKeccakConfig(timestamp=0); `n_blocks` blocks of the
+    EVM phase's mix, trimmed for two keccak256Batch calls, through
+    vm_block. Returns (the shadow's K1 records, the phase's other K1
+    records: the MPT genesis, the mirror boot, the storage programs and
+    the resident executor; K1 launches, of them cooperative, the
+    precompile's K2 recorder, K2 launches, of them cooperative, K2's
+    padding lanes)."""
+    t_phase = time.perf_counter()
+    lad = default_ladder()
+    names = LOUD + LOUD_DEVICE + OPTION_FALLBACKS + (
+        "chain/commit/bintrie/quarantines", "chain/commit/bintrie/unanchored",
+        "state/shadow/error", "chain/mirror/quarantines")
+    before = {n: default_registry.counter(n).count() for n in names}
+    check(lad.healthy and lad.status()["call_timeout"] is None,
+          f"commitment: the ladder is not at its defaults: {lad.status()}")
+    t0 = time.perf_counter()
+    world = World(n_accounts, max(1, n_accounts // 1000), 100, seed,
+                  n_keyed=EVM_KEYED)
+    n_calls = min(EVM_CALLS, len(world.storage))
+    n_transfers = (int(EVM_FILL * params.CORTINA_GAS_LIMIT)
+                   - n_calls * EVM_CALL_PLAN
+                   - SHADOW_CALLS * SHADOW_CALL_PLAN) // 21000
+    check((n_calls + n_transfers) * n_blocks + SHADOW_CALLS
+          <= len(world.keyed), "commitment: too few keyed senders")
+    mix = evm_transactions(world, n_blocks, seed + 1,
+                           n_transfers=n_transfers)
+    # the precompile's account as the genesis commit leaves it, and the
+    # forwarders (added after the mix was planned: never a transfer's
+    # receiver or a store-and-log call's contract)
+    add_account(world, TPU_KECCAK_ADDR, nonce=1, code=b"\x01")
+    fwd_code = forwarder_code(TPU_KECCAK_ADDR)
+    fwds = [add_account(world, b"\xfd" * 19 + bytes([j + 1]), code=fwd_code,
+                        storage={normalize_state_key(FWD_GENESIS_SLOT):
+                                 b"\x01" * 32})
+            for j in range(SHADOW_CALLS)]
+    callers = world.keyed[-SHADOW_CALLS:]
+    calls, msgs_all = precompile_transactions(world, n_blocks, callers,
+                                              fwds, seed + 2)
+    signed = [m + c for m, c in zip(mix, calls)]
+    oracle = Oracle(world)
+    setup_s = time.perf_counter() - t0
+    log(f"commitment: world of {len(world.addrs)} accounts "
+        f"({len(world.storage) - SHADOW_CALLS} contracts x 100 slots, "
+        f"{len(world.keyed)} keyed, the precompile's account and "
+        f"{SHADOW_CALLS} forwarders), the oracle and {n_blocks} blocks of "
+        f"{len(signed[0])} transactions ({n_calls} store-and-log calls, "
+        f"{n_transfers} transfers, {SHADOW_CALLS} keccak256Batch calls of "
+        f"{SHADOW_MSGS} x {SHADOW_MSG_BYTES} B) in {setup_s:.1f} s")
+
+    genesis = genesis_alloc(world)
+    genesis.config = dataclasses.replace(
+        params.TEST_CHAIN_CONFIG,
+        precompile_upgrades=(TpuKeccakConfig(timestamp=0),))
+    cfg = dict(SHADOW_CONFIG)
+    if dev.type != "cuda":
+        cfg["resident-account-trie"] = True
+    rec_shadow, rec_gmpt = _K1Recorder(), _K1Recorder()
+    shadow_init = shadow_mod.ShadowCommitment.__init__
+
+    def init(self, *a, **kw):
+        kw["executor"] = PlannedCommit(seg_impl=rec_shadow, device=dev)
+        shadow_init(self, *a, **kw)
+
+    pc = default_planned_commit(dev)
+    pc_impl = pc._impl
+    pc._impl = rec_gmpt
+    keccak_cuda.reset_counts()
+    lanes0 = default_registry.counter("bintrie/planned/lanes").count()
+    commits0 = default_registry.counter("bintrie/planned/commits").count()
+    mpt0, bin0 = _timer("chain/commit/mpt"), _timer("chain/commit/bintrie")
+    vm = VM()
+    t0 = time.perf_counter()
+    try:
+        with _ChainBoot() as boot, mock.patch.object(
+                shadow_mod.ShadowCommitment, "__init__", init):
+            vm.initialize(SnowContext(shared_memory=Memory()), MemoryDB(),
+                          genesis, config_bytes=json.dumps(cfg).encode(),
+                          device=dev)
+    finally:
+        pc._impl = pc_impl
+    boot_ms = (time.perf_counter() - t0) * 1e3
+    vm.miner.clock = chain_clock(vm)
+    chain = vm.blockchain
+    shadow = chain.state_database.shadow
+    mirror = chain.mirror
+    mpt1, bin1 = _timer("chain/commit/mpt"), _timer("chain/commit/bintrie")
+    g_shadow = len(rec_shadow.records)
+    g_lanes = (default_registry.counter("bintrie/planned/lanes").count()
+               - lanes0)
+    check(chain.genesis_block.root == oracle.root(),
+          "commitment: genesis root != the oracle's")
+    check(mirror is not None and not mirror.host_mode,
+          "commitment: the mirror is not on the device")
+    content = shadow_content(world)
+    t0 = time.perf_counter()
+    want = reference_root(content, hashed_values=True)
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    check(shadow is not None and not shadow.quarantined
+          and shadow.root_for(chain.genesis_block.root) == want,
+          "commitment: the genesis shadow root != reference_root of the "
+          "oracle's content")
+    check(g_shadow > 0, "commitment: the genesis shadow launched no K1")
+    log(f"commitment genesis: VM.initialize(config_bytes="
+        f"{json.dumps(cfg)}, device={dev.type}) {boot_ms:.1f} ms; "
+        f"chain/commit/mpt {(mpt1[1] - mpt0[1]) * 1e3:.1f} ms, "
+        f"chain/commit/bintrie {(bin1[1] - bin0[1]) * 1e3:.1f} ms "
+        f"(ratio {(bin1[1] - bin0[1]) / (mpt1[1] - mpt0[1]):.3f}); the "
+        f"shadow's planned commit: {g_shadow} K1 launches over {g_lanes} "
+        f"lanes; MPT genesis K1 launches {len(rec_gmpt.records)}, mirror "
+        f"boot {len(boot.rec.records)}; the shadow root "
+        f"{want.hex()} == reference_root of the oracle's content "
+        f"({len(content)} keys, {ref_ms:.1f} ms); {card}")
+
+    rec_storage, rec_resident, rec_k2 = (_K1Recorder(), _K1Recorder(),
+                                         _K2Recorder())
+    mode = PlannedMode(PlannedCommit(seg_impl=rec_storage, device=dev))
+    chain.state_database.triedb.batch_keccak = mode
+    mirror.ex.seg_impl = rec_resident
+    bk = mode.batched
+    bk_impl = bk.impl
+    bk.impl = rec_k2
+    bk.reset_totals()
+    planned_mod.planned_fallbacks = 0
+    coinbase = [0]
+    recs = (rec_storage, rec_resident, rec_shadow)
+    per_block = []
+    try:
+        for b, txs in enumerate(signed):
+            c0 = shadow.status()["commits"]
+            k2a = len(rec_k2.records)
+            m0 = _timer("chain/commit/mpt")
+            b0 = _timer("chain/commit/bintrie")
+            vmb, _r, _t, _w, st = vm_block(
+                vm, world, oracle, txs, coinbase, recs,
+                label=f"commitment block {b + 1}", dev=dev)
+            m1 = _timer("chain/commit/mpt")
+            b1 = _timer("chain/commit/bintrie")
+            eth = vmb.eth_block
+            t0 = time.perf_counter()
+            want = reference_root(shadow_content(world, coinbase[0]),
+                                  hashed_values=True)
+            ref_ms = (time.perf_counter() - t0) * 1e3
+            got = shadow.root_for(eth.header.root)
+            check(got == want and not shadow.quarantined,
+                  f"commitment block {eth.number}: shadow root "
+                  f"{got.hex() if got else None} != reference_root "
+                  f"{want.hex()} of the oracle's content")
+            commits = shadow.status()["commits"] - c0
+            check(commits == 2, f"commitment block {eth.number}: the shadow "
+                  f"committed {commits} times over build and verify")
+            k2 = len(rec_k2.records) - k2a
+            mpt_ms = (m1[1] - m0[1]) * 1e3
+            bin_ms = (b1[1] - b0[1]) * 1e3
+            per_block.append((mpt_ms, bin_ms))
+            log(f"commitment block {eth.number}: {len(eth.transactions)} "
+                f"transactions, gas used {eth.header.gas_used}; build_block "
+                f"{st['build']:.1f} ms, verify {st['verify']:.1f} ms; K1 "
+                f"launches (storage programs, resident executor, shadow): "
+                f"build {st['build_k1']}, verify {st['verify_k1']}; the "
+                f"precompile's K2 launches {k2}; shadow commits {commits} "
+                f"(build and verify: one transition, the same bintrie "
+                f"root); chain/commit/mpt "
+                f"{mpt_ms:.1f} ms over {m1[0] - m0[0]} commits, "
+                f"chain/commit/bintrie {bin_ms:.1f} ms over {b1[0] - b0[0]}"
+                f" (ratio {bin_ms / mpt_ms:.3f}); root == the oracle's, "
+                f"shadow root {want.hex()} == reference_root "
+                f"({ref_ms:.1f} ms); {card}")
+        # one direct call of the contract on the head state: the same
+        # messages, the seam of the state's TrieDatabase (K2)
+        head = chain.state()
+        k2a = len(rec_k2.records)
+        # the contract reads only the EVM's statedb (for the device seam)
+        ret, left = TpuKeccakConfig(timestamp=0).contract().run(
+            argparse.Namespace(statedb=head), world.addrs[callers[0][0]],
+            TPU_KECCAK_ADDR, batch_calldata(msgs_all[0]), 10**7, True)
+        check(ret == tpu_keccak.encode_bytes32_array(
+            keccak256_batch(msgs_all[0], threads=8))
+              and len(rec_k2.records) == k2a + 1
+              and left == 10**7 - tpu_keccak.batch_gas(msgs_all[0]),
+              "commitment: contract.run != the host batch keccak")
+    finally:
+        bk.impl = bk_impl
+    k1, k1_coop = keccak_cuda.launches, keccak_cuda.launches_coop
+    k2, k2_coop = keccak_cuda.blocks_launches, keccak_cuda.blocks_launches_coop
+    pad = bk.padded_lanes - bk.lanes
+    status = shadow.status()
+    check(status["commits"] >= 2 and not status["quarantined"],
+          f"commitment: shadow status {status}")
+    check(planned_mod.planned_fallbacks == 0, "commitment: planned fallback")
+    cuda = dev.type == "cuda"
+    mpt_recs = (rec_gmpt.records + boot.rec.records + rec_storage.records
+                + rec_resident.records)
+    check(not cuda or (k1 == len(mpt_recs) + len(rec_shadow.records)
+                       and k2 == len(rec_k2.records)),
+          f"commitment: K1 {k1} launches, {len(mpt_recs)} + "
+          f"{len(rec_shadow.records)} recorded; K2 {k2}, "
+          f"{len(rec_k2.records)} recorded")
+    check(len(rec_shadow.records) > g_shadow and rec_k2.records,
+          "commitment: no shadow K1 launch in the blocks, or no K2 launch "
+          "by the precompile")
+    check(all(w.shape[1] == 1 for w, _o, _v in rec_shadow.records),
+          "commitment: a shadow segment of more than one block")
+    if cuda:
+        for rec, label in ((rec_shadow, "commitment shadow"),
+                           (rec_storage, "commitment storage programs"),
+                           (rec_resident, "commitment resident executor")):
+            ran = check_variants(rec, label)
+            log(f"{label}: every K1 launch ran the variant its shape calls "
+                f"for (" + ", ".join(f"{VARIANT_NAME[v]} {n}"
+                                     for v, n in ran.items()) + ")")
+        ran = check_variants_k2(rec_k2, "commitment precompile")
+        log("commitment precompile: every K2 launch ran the variant its "
+            "lane count calls for (" + ", ".join(
+                f"{VARIANT_NAME[v]} {n}" for v, n in ran.items()) + ")")
+
+    # witnesses against the last shadow root; MPT proofs and a range proof
+    # against the head's root
+    rng = np.random.default_rng(seed + 3)
+    last = chain.current_block.header.root
+    broot = shadow.root_for(last)
+    present = [int(i) for i in rng.choice(len(world.addrs), 100,
+                                          replace=False)]
+    t0 = time.perf_counter()
+    for i in present:
+        key = keccak256(world.addrs[i])
+        w = bwitness.prove(shadow.store, broot, key)
+        check(bwitness.verify_witness(broot, key, w) == (
+            True, shadow_mod.encode_account(world.nonce[i], world.balance[i],
+                                            world.code_hash[i], False)),
+              f"commitment: witness of account {i}")
+    for _ in range(100):
+        key = rng.bytes(32)
+        check(bwitness.verify_witness(
+            broot, key, bwitness.prove(shadow.store, broot, key))
+              == (False, None), "commitment: absence witness")
+    wit_ms = (time.perf_counter() - t0) * 1e3
+    backend = chain.state_database.backend
+    t0 = time.perf_counter()
+    for i in present:
+        key = keccak256(world.addrs[i])
+        proof = backend.prove(last, key)
+        check(backend.verify(last, key, proof) == (
+            True, world.account(i, oracle.root_of(i)).encode()),
+              f"commitment: MPT proof of account {i}")
+    proof_ms = (time.perf_counter() - t0) * 1e3
+    keys = sorted(oracle.keys)
+    index = {k: i for i, k in enumerate(oracle.keys)}
+    start = int(rng.integers(0, len(keys) - 1000))
+    rk = keys[start:start + 1000]
+    rv = [world.account(index[k], oracle.root_of(index[k])).encode()
+          for k in rk]
+    trie = backend.walkable(last).trie
+    edge = {keccak256(blob): blob for k in (rk[0], rk[-1])
+            for blob in mpt_prove(trie, k)}
+    t0 = time.perf_counter()
+    more = verify_range_proof(last, rk[0], rk[-1], rk, rv, edge)
+    range_ms = (time.perf_counter() - t0) * 1e3
+    check(more is True, "commitment: the range proof was not accepted")
+    try:
+        verify_range_proof(last, rk[0], rk[-1], rk[:500] + rk[501:],
+                           rv[:500] + rv[501:], edge)
+        check(False, "commitment: a range with a leaf dropped was accepted")
+    except ProofError:
+        pass
+    moved = {n: default_registry.counter(n).count() - before[n]
+             for n in names}
+    check(not any(moved.values()), f"commitment: counters moved {moved}")
+    check(lad.healthy and not mirror.host_mode,
+          "commitment: the ladder is demoted or the mirror on the host")
+    vm.shutdown()
+    lanes = default_registry.counter("bintrie/planned/lanes").count() - lanes0
+    commits = (default_registry.counter("bintrie/planned/commits").count()
+               - commits0)
+    mpt_all = sum(m for m, _ in per_block)
+    bin_all = sum(b for _, b in per_block)
+    log(f"commitment: launches by source: K1 shadow genesis {g_shadow}, "
+        f"shadow blocks {len(rec_shadow.records) - g_shadow}, MPT genesis "
+        f"{len(rec_gmpt.records)}, mirror boot {len(boot.rec.records)}, "
+        f"storage programs {len(rec_storage.records)}, resident executor "
+        f"{len(rec_resident.records)}; K2 precompile {len(rec_k2.records)} "
+        f"({bk.lanes} messages, {pad} padding lanes); bintrie/planned/"
+        f"commits {commits}, /lanes {lanes}; blocks' chain/commit/bintrie "
+        f"/ chain/commit/mpt = {bin_all:.1f} / {mpt_all:.1f} ms = "
+        f"{bin_all / mpt_all:.3f}; shadow {status}; 100 witnesses present "
+        f"and 100 absent verified in {wit_ms:.1f} ms, 100 MPT proofs "
+        f"through MPTBackend in {proof_ms:.1f} ms, a range proof of 1,000 "
+        f"leaves accepted in {range_ms:.1f} ms and refused with one leaf "
+        f"dropped; no loud counter moved; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    return (rec_shadow.records, mpt_recs, k1, k1_coop, rec_k2, k2, k2_coop,
+            pad)
+
+
 def variants_json(launches: int, coop: int, *kernel_ms: dict) -> dict:
     """Per variant: main-path launches and kernel ms in the profiler's
     trace summed over the commits (None where a trace held no device time
@@ -3364,7 +3827,7 @@ def main() -> int:
     ap.add_argument("--contracts", type=int, default=1_000)
     ap.add_argument("--slots", type=int, default=100)
     ap.add_argument("--seed", type=int, default=20)
-    ap.add_argument("--blocks", type=int, default=16,
+    ap.add_argument("--blocks", type=int, default=8,
                     help="resident blocks after the first, one rejected")
     ap.add_argument("--evm-blocks", type=int, default=4,
                     help="blocks of signed transactions through the EVM")
@@ -3376,6 +3839,11 @@ def main() -> int:
                          "VM after the chain phase")
     ap.add_argument("--drill-accounts", type=int, default=2_000,
                     help="accounts of the ladder drill's own VM")
+    ap.add_argument("--shadow-accounts", type=int, default=100_000,
+                    help="accounts of the commitment VM (the bintrie "
+                         "shadow and the keccak precompile)")
+    ap.add_argument("--shadow-blocks", type=int, default=3,
+                    help="blocks through the commitment VM")
     ap.add_argument("--device", default="cuda",
                     help="'cpu' rehearses with the plain versions")
     args = ap.parse_args()
@@ -3531,6 +3999,26 @@ def main() -> int:
     dk_err, dk_ms, dk_plain, dk_inputs, dk_kernel = check_and_time_k2(
         d_k2rec, "ladder drill probes", d_pad, profile_reps=10)
     del d_storage, d_resident, d_k2rec
+    # the commitment VM: the bintrie shadow's planned commits (K1) and the
+    # keccak precompile (K2) on a VM of its own
+    mark(t_start, "commitment")
+    (cm_shadow, cm_mpt, cm_k1, cm_k1_coop, cm_k2rec, cm_k2, cm_k2_coop,
+     cm_pad) = phase_commitment(dev, args.shadow_accounts,
+                                args.shadow_blocks, args.seed + 9, card)
+    sh_err, sh_ms, sh_plain, sh_shapes, sh_kernel = time_k1(
+        dev, [r[0] for r in cm_shadow], "commitment shadow",
+        per_segment=False, outputs=[r[1] for r in cm_shadow])
+    sh_bound, sh_by = k1_bound_ms(sh_shapes)
+    log(f"commitment shadow: {len(sh_shapes)} K1 launches over "
+        f"{sum(p for p, _ in sh_shapes)} lanes, bound {sh_bound:.4f} ms "
+        f"({sh_by})")
+    cm_err, cm_ms, cm_plain, cm_shapes, cm_kernel = time_k1(
+        dev, [r[0] for r in cm_mpt], "commitment MPT", per_segment=False,
+        outputs=[r[1] for r in cm_mpt])
+    del cm_shadow, cm_mpt
+    ck_err, ck_ms, ck_plain, ck_inputs, ck_kernel = check_and_time_k2(
+        cm_k2rec, "commitment precompile", cm_pad, profile_reps=10)
+    del cm_k2rec
     mark(t_start, "watchdog drill")
     phase_watchdog_drill(dev, args.seed + 4)
     ran = defaultdict(int)
@@ -3558,7 +4046,7 @@ def main() -> int:
 
     k1_shapes = (g_shapes + cb_shapes + b_shapes + e1_shapes + cs_shapes
                  + cr_shapes + vs_shapes + vr_shapes + rg_shapes + rb_shapes
-                 + ds_shapes)
+                 + ds_shapes + sh_shapes + cm_shapes)
     k1_bound, k1_by = k1_bound_ms(k1_shapes)
     rk_bound, rk_by = k1_bound_ms(rg_shapes + rb_shapes)
     log(f"K1 bound over the mirror's inputs {rk_bound:.4f} ms ({rk_by}; "
@@ -3566,20 +4054,24 @@ def main() -> int:
         f"{k1_bound_ms(rb_shapes)[0]:.4f} ms); K1 events {rg_ms:.4f} / "
         f"{rb_ms:.4f} ms")
     k1_launches = (g_launches + cb_launches + b_launches + evm_planned.k1
-                   + c_launches + v_launches + m_launches + d_launches)
+                   + c_launches + v_launches + m_launches + d_launches
+                   + cm_k1)
     k1_coop = (g_coop + cb_coop + b_coop + evm_planned.k1_coop + c_coop
-               + v_coop + m_coop + d_coop)
-    k2_inputs = bg_inputs + bb_inputs + e2_inputs + dk_inputs
+               + v_coop + m_coop + d_coop + cm_k1_coop)
+    k2_inputs = bg_inputs + bb_inputs + e2_inputs + dk_inputs + ck_inputs
     k2_bound, k2_by = k2_bound_ms(k2_inputs)
-    k2_real, _ = k2_bound_ms(k2_inputs, bg_pad + bb_pad + e2_pad + d_pad)
+    k2_real, _ = k2_bound_ms(k2_inputs, bg_pad + bb_pad + e2_pad + d_pad
+                             + cm_pad)
     log(f"K2 bound over the batched commits {k2_bound:.4f} ms ({k2_by}), "
         f"over their real lanes alone {k2_real:.4f} ms")
     log(f"launches on the main paths: K1 genesis {g_launches}, the chain's "
         f"mirror boot {cb_launches}, block {b_launches}, evm planned "
         f"{evm_planned.k1}, chain inserts {c_launches}, vm blocks "
-        f"{v_launches}, mirrors {m_launches}, ladder drill {d_launches}; "
+        f"{v_launches}, mirrors {m_launches}, ladder drill {d_launches}, "
+        f"commitment VM {cm_k1} (of them the shadow {len(sh_shapes)}); "
         f"K2 batched genesis {bg_launches}, batched block {bb_launches}, "
-        f"evm batched {evm_batched.k2}, ladder drill probes {d_k2}")
+        f"evm batched {evm_batched.k2}, ladder drill probes {d_k2}, the "
+        f"keccak precompile {cm_k2}")
     log(f"peak RSS {rss_gib():.1f} GiB")
     left = descendants()
     check(not left, f"processes left at the end: {left}")
@@ -3592,35 +4084,39 @@ def main() -> int:
         "replaces": "coreth_tpu/ops/keccak_pallas.py:211",
         "launches": k1_launches,
         "max_abs_err": max(grid_err, g_err, cb_err, b_err, e1_err, cs_err,
-                           cr_err, vs_err, vr_err, rg_err, rb_err, ds_err),
+                           cr_err, vs_err, vr_err, rg_err, rb_err, ds_err,
+                           sh_err, cm_err),
         "ms": (g_ms + cb_ms + b_ms + e1_ms + cs_ms + cr_ms + vs_ms + vr_ms
-               + rg_ms + rb_ms + ds_ms),
+               + rg_ms + rb_ms + ds_ms + sh_ms + cm_ms),
         "plain_ms": (g_plain + cb_plain + b_plain + e1_plain + cs_plain
                      + cr_plain + vs_plain + vr_plain + rg_plain + rb_plain
-                     + ds_plain),
+                     + ds_plain + sh_plain + cm_plain),
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": None,
         "variants": variants_json(k1_launches, k1_coop, g_kernel,
                                   cb_kernel, b_kernel, e1_kernel, cs_kernel,
                                   cr_kernel, vs_kernel, vr_kernel,
-                                  rg_kernel, rb_kernel, ds_kernel),
+                                  rg_kernel, rb_kernel, ds_kernel,
+                                  sh_kernel, cm_kernel),
     }, {
         "name": "keccak_blocks",
         "route": "cuda",
         "source": "coreth_tpu_torch/ops/csrc/keccak_blocks.cu",
         "replaces": "coreth_tpu/ops/keccak_pallas.py:126",
-        "launches": bg_launches + bb_launches + evm_batched.k2 + d_k2,
-        "max_abs_err": max(grid2_err, bg_err, bb_err, e2_err, dk_err),
-        "ms": bg_ms + bb_ms + e2_ms + dk_ms,
-        "plain_ms": bg_plain + bb_plain + e2_plain + dk_plain,
+        "launches": bg_launches + bb_launches + evm_batched.k2 + d_k2
+        + cm_k2,
+        "max_abs_err": max(grid2_err, bg_err, bb_err, e2_err, dk_err,
+                           ck_err),
+        "ms": bg_ms + bb_ms + e2_ms + dk_ms + ck_ms,
+        "plain_ms": bg_plain + bb_plain + e2_plain + dk_plain + ck_plain,
         "bound_ms": k2_bound,
         "bound_by": k2_by,
         "library_ms": None,
         "variants": variants_json(
-            bg_launches + bb_launches + evm_batched.k2 + d_k2,
-            bg_coop + bb_coop + evm_batched.k2_coop + d_k2_coop, bg_kernel,
-            bb_kernel, e2_kernel, dk_kernel),
+            bg_launches + bb_launches + evm_batched.k2 + d_k2 + cm_k2,
+            bg_coop + bb_coop + evm_batched.k2_coop + d_k2_coop + cm_k2_coop,
+            bg_kernel, bb_kernel, e2_kernel, dk_kernel, ck_kernel),
     }]}), flush=True)
     if dev.type != "cuda":
         return 0  # a rehearsal prints no result line

@@ -45,10 +45,15 @@ Event feed: subscribe_chain_event (canonical head changes: an insert
 that extends the preference, a reorg), fn(block, logs); the VM's tx pool
 re-anchors on it.
 
-Not ported, each raising NotImplementedError by name when asked for (no
-knob is ignored): the mesh-sharded mirror (resident_mesh_devices > 0;
-ROADMAP "Still to port", item 6) and the bintrie shadow
-(state_backend="bintrie-shadow"; item 10).
+The dual-root shadow (state_backend="bintrie-shadow"): the chain mounts a
+bintrie/shadow.ShadowCommitment on its Database before the genesis
+commit, on the chain's device, with _note_shadow_event as its quarantine
+hook; StateDB.commit feeds it. An error of its planned commit (kernel K1)
+reaches insert_block / build_block like any other device error.
+
+Not ported, raising NotImplementedError by name when asked for (no knob
+is ignored): the mesh-sharded mirror (resident_mesh_devices > 0; ROADMAP
+"Still to port", item 6).
 """
 
 from __future__ import annotations
@@ -232,9 +237,10 @@ class CacheConfig:
     # they raise TailStalled instead of blocking forever. 0 = unbounded
     tail_join_timeout: float = 0.0
     # --- commitment backend ---
-    # "mpt": consensus Merkle-Patricia trie only (default). The bintrie
-    # shadow ("bintrie-shadow") is not ported (ROADMAP "Still to port",
-    # item 10) and raises; so does any shadow_check_interval but 16
+    # "mpt": consensus Merkle-Patricia trie only (default).
+    # "bintrie-shadow": also mount the binary-Merkle shadow beside it
+    # (bintrie/shadow.py), never consensus; its canonical-rebuild check
+    # runs every shadow_check_interval commits (0 disables)
     state_backend: str = "mpt"
     shadow_check_interval: int = 16
     # block-insert SLO budget (seconds): inserts slower than this are
@@ -270,7 +276,6 @@ def _refuse_not_ported(cfg: CacheConfig) -> None:
     a chain never runs with a knob silently ignored."""
     items = (
         ("6 (multi-GPU)", ("resident_mesh_devices",)),
-        ("10 (the bintrie shadow)", ("shadow_check_interval",)),
     )
     for item, knobs in items:
         for knob in knobs:
@@ -279,11 +284,7 @@ def _refuse_not_ported(cfg: CacheConfig) -> None:
                 raise NotImplementedError(
                     f"CacheConfig.{knob}={val!r} is not ported (ROADMAP "
                     f"'Still to port', item {item})")
-    if cfg.state_backend == "bintrie-shadow":
-        raise NotImplementedError(
-            "state-backend 'bintrie-shadow' is not ported (ROADMAP 'Still "
-            "to port', item 10)")
-    if cfg.state_backend != "mpt":
+    if cfg.state_backend not in ("mpt", "bintrie-shadow"):
         raise ValueError(
             f"unknown state-backend {cfg.state_backend!r} "
             "(expected 'mpt' or 'bintrie-shadow')")
@@ -458,6 +459,17 @@ class BlockChain:
                                               device),
             ))
         self.state_database = state_database
+
+        # dual-root shadow mount, before genesis setup, so the genesis
+        # commit anchors the shadow at the empty tree. The event hook
+        # finds the flight recorder at call time: it is constructed
+        # further down, and quarantines only come from later commits.
+        if cache_config.state_backend == "bintrie-shadow":
+            from ..bintrie.shadow import ShadowCommitment
+
+            state_database.shadow = ShadowCommitment(
+                check_interval=cache_config.shadow_check_interval,
+                note_event=self._note_shadow_event, device=device)
 
         self.chainmu = threading.RLock()
 
@@ -916,6 +928,14 @@ class BlockChain:
             self._mirror_degraded = True
             self.flight_recorder.note_event("mirror/takeover", why=why)
         self._ladder.demote(f"resident mirror takeover: {why}")
+
+    def _note_shadow_event(self, kind: str, **fields) -> None:
+        """ShadowCommitment event hook (coreth_tpu/core/blockchain.py:856):
+        installed before the flight recorder exists, so it resolves the
+        recorder at call time."""
+        rec = getattr(self, "flight_recorder", None)
+        if rec is not None:
+            rec.note_event(kind, **fields)
 
     def _on_device_event(self, kind: str, fields: dict) -> None:
         """DeviceLadder listener: every ladder transition lands in the

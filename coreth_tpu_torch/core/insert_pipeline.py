@@ -124,6 +124,11 @@ class _OverlayBase:
         self.barriers = barriers
         self.deeper = deeper
 
+    @property
+    def batch_keccak(self):
+        """The committed state's device seam, from the bottom reader."""
+        return self.deeper.batch_keccak
+
     def account(self, addr: bytes) -> Optional[tuple]:
         """(nonce, balance, code_hash, is_multi_coin) or None (absent)."""
         if addr in self.accounts:

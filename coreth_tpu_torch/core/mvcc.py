@@ -191,6 +191,11 @@ class _BaseReader:
         self.slots: Dict[Tuple[bytes, bytes], bytes] = {}
         self.codes: Dict[bytes, bytes] = {}
 
+    @property
+    def batch_keccak(self):
+        """The parent StateDB's device seam (StateDB.batch_keccak)."""
+        return self.sdb.batch_keccak
+
     def account(self, addr: bytes) -> Optional[tuple]:
         """(nonce, balance, code_hash, is_multi_coin) or None (absent)."""
         with self.lock:
@@ -315,6 +320,13 @@ class VersionedStateView:
         self.transient: Dict[Tuple[bytes, bytes], bytes] = {}
         self.access_list = AccessList()
         self.this_tx_hash = b"\x00" * 32
+
+    @property
+    def batch_keccak(self):
+        """The device seam of the state under the view (StateDB.
+        batch_keccak through the base reader), None where the base has
+        none: a shard worker's base never touches the device."""
+        return getattr(self.base, "batch_keccak", None)
 
     # ------------------------------------------------------ journal mirror
 

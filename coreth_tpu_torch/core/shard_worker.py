@@ -127,9 +127,12 @@ def _adopt_parent_main() -> None:
 class _PipeBase:
     """`_BaseReader`-shaped read source that answers from the prefetch
     cache and serves misses over the pipe. Memoised: each (kind, key) is
-    one round-trip for the life of the exec request."""
+    one round-trip for the life of the exec request. It has no device
+    seam: a stateful precompile's batch hashes on the host here, since a
+    worker never touches the device."""
 
     __slots__ = ("conn", "accounts", "slots", "codes", "stats")
+    batch_keccak = None
 
     def __init__(self, conn, prefetch, stats=None):
         self.conn = conn

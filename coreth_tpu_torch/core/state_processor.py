@@ -9,9 +9,10 @@ shards of `exec_shards` (`exec_shards_n`, CORETH_TPU_EVM_EXEC_SHARDS),
 checked first, and the thread-parallel Block-STM of `parallel_exec`
 (`parallel_workers`, CORETH_TPU_EVM_PARALLEL). The env overrides are read
 per block. A speculative failure runs the serial loop from pristine state
-(the fold is the modes' only StateDB mutation and it runs last); a device
-fault (device.DEVICE_FAULTS) is never a speculative failure and reaches
-the caller.
+(the fold is the modes' only StateDB mutation and it runs last). A device
+fault (device.DEVICE_FAULTS: the batch keccak precompile's device seam, a
+speculative base read) is neither a speculative failure nor, in the
+serial loop, a ProcessorError: it reaches the caller as it is.
 
 Counterpart of coreth_tpu/core/state_processor.py.
 """
@@ -225,6 +226,8 @@ class StateProcessor:
                         self.config, self.chain, evm, gp, statedb, header, tx,
                         used_gas, block.hash(),
                     )
+                except DEVICE_FAULTS:
+                    raise
                 except Exception as e:
                     raise ProcessorError(
                         f"could not apply tx {i} [{tx.hash().hex()}]: {e}"

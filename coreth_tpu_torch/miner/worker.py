@@ -9,6 +9,9 @@ atomic txs via the VM callback). finalize_and_assemble's
 StateDB.intermediate_root is the block's device commit: the storage tries
 in one planned program on K1 (under the degradation ladder) and, on a
 resident chain, the account trie previewed on the mirror's executor (K1).
+A transaction that fails to apply is skipped, unless the failure is a
+device fault (device.DEVICE_FAULTS, e.g. of the batch keccak precompile's
+device seam): that is no fault of the transaction, so it fails the build.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from ..consensus.dummy import calc_base_fee
 from ..core.state_processor import apply_transaction, new_block_context
 from ..core.state_transition import GasPool
 from ..core.types import Block, Header, Transaction
+from ..device import DEVICE_FAULTS
 
 BLACKHOLE_ADDR = b"\x01" + b"\x00" * 19
 
@@ -136,6 +140,8 @@ class Worker:
                 receipt = apply_transaction(
                     self.config, self.chain, evm, gp, statedb, header, tx, used_gas
                 )
+            except DEVICE_FAULTS:
+                raise
             except Exception:
                 # unminable tx: reverted and skipped — the reference logs
                 # every commitTransaction failure; we count them

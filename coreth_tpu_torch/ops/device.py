@@ -52,6 +52,9 @@ Queue 3):
   DeviceWedgedError without starting while it has not, so no two calls
   share the caller's stream or the executor's buffers. One abandoned
   while parked on the dispatch failpoint never starts once released.
+- Dispatches serialise on one lock of the ladder: Block-STM's threads and
+  the insert pipeline's stages reach the same seams (a BatchedKeccak's
+  totals, a PlannedCommit's timing fields) from several threads.
 """
 
 from __future__ import annotations
@@ -121,6 +124,8 @@ class DeviceLadder:
         # the done event of the last call the watchdog abandoned, until a
         # dispatch sees it set
         self._abandoned: Optional[threading.Event] = None  # guarded-by: _lock
+        # held by a dispatch from its start to its end (module docstring)
+        self._dispatch_mu = threading.RLock()
 
     # ---- configuration / wiring -----------------------------------------
 
@@ -200,11 +205,11 @@ class DeviceLadder:
     def dispatch(self, fn: Callable, what: str, *args):
         """Run one device call under the ladder. While the ladder is
         demoted the call is refused with DeviceDegradedError and the
-        caller takes its host path. Otherwise fn(*args) runs, under the
-        watchdog when call_timeout is set (a call past its deadline raises
-        DeviceWedgedError). Every error of the call reaches the caller as
-        it is: no retry, no demotion (module docstring); all but a
-        BuildError count ops/device/dispatch_errors."""
+        caller takes its host path. Otherwise fn(*args) runs, one dispatch
+        at a time, under the watchdog when call_timeout is set (a call
+        past its deadline raises DeviceWedgedError). Every error of the
+        call reaches the caller as it is: no retry, no demotion (module
+        docstring); all but a BuildError count ops/device/dispatch_errors."""
         from ..metrics import default_registry
 
         with self._lock:
@@ -214,11 +219,12 @@ class DeviceLadder:
                     f"({self.last_error})")
             timeout = self.call_timeout
         try:
-            self._join_abandoned(what, timeout)
-            if timeout is None:
-                failpoint(FP_DISPATCH)
-                return fn(*args)
-            return self._watchdogged(fn, args, timeout, what)
+            with self._dispatch_mu:
+                self._join_abandoned(what, timeout)
+                if timeout is None:
+                    failpoint(FP_DISPATCH)
+                    return fn(*args)
+                return self._watchdogged(fn, args, timeout, what)
         except BuildError:
             raise
         except Exception:

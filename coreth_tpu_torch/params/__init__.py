@@ -5,9 +5,8 @@ ChainConfig carries Ethereum fork block numbers plus the Avalanche fork
 timestamps (ApricotPhase1-6/Pre6/Post6, Banff, Cortina, DUpgrade —
 params/config.go:514-535); Rules snapshots the active forks for one
 (block number, timestamp). Protocol constants from avalanche_params.go
-and protocol_params.go. Stateful precompiles are not ported (ROADMAP
-"Still to port", item 9): a config that enables one raises where the
-reference would configure it.
+and protocol_params.go. Stateful precompiles (precompile/) register
+through `precompile_upgrades` and activate in check_configure_precompiles.
 """
 
 from __future__ import annotations
@@ -110,12 +109,11 @@ class ChainConfig:
                                     block_header, statedb) -> None:
         """Activate any precompile whose timestamp falls in the
         parent->block transition (config.go:1092-1101); called from the
-        processor, the miner, and genesis construction. Stateful
-        precompiles are not ported, so an enabled one raises."""
-        if self.enabled_stateful_precompiles():
-            raise NotImplementedError(
-                "stateful precompiles are not ported (ROADMAP 'Still to "
-                "port', item 9)")
+        processor, the miner, and genesis construction."""
+        from ..precompile import check_configure
+
+        for cfg in self.enabled_stateful_precompiles():
+            check_configure(self, parent_ts, block_header, cfg, statedb)
 
     # ---- per-block fork checks ------------------------------------------
 

@@ -3,8 +3,9 @@ counterpart of coreth_tpu/state/database.py.
 
 Opens account/storage tries against the TrieDatabase (which owns the batch
 keccak every trie hashes with) and caches contract code read through rawdb.
-The reference's dual-root shadow is not ported (ROADMAP "Still to port",
-item 10).
+`shadow` is the dual-root shadow (bintrie/shadow.ShadowCommitment) that
+StateDB.commit feeds, None until a chain with state_backend
+"bintrie-shadow" mounts one.
 """
 
 from __future__ import annotations
@@ -28,6 +29,9 @@ class Database:
         # the resident mirror installs onto backend.mirror (the `mirror`
         # property below)
         self.backend = MPTBackend(triedb)
+        # the dual-root shadow, mounted by the chain for "bintrie-shadow";
+        # it never affects the consensus (MPT) root
+        self.shadow = None
         self._code_cache: Dict[bytes, bytes] = {}
         self._code_cache_size = 0
 

@@ -36,12 +36,17 @@ except on a resident account trie.
 fold_tx_writes is the one way a speculative write-set reaches the StateDB
 (core/parallel_exec.py, core/exec_shards.py, core/insert_pipeline.py).
 
-Not ported (ROADMAP "Still to port", item 10): the bintrie shadow and the
-expensive timers.
+With a dual-root shadow mounted on the Database (`db.shadow`,
+bintrie/shadow.ShadowCommitment), commit collects the block's account and
+storage update stream while the MPT flushes and feeds it to the shadow,
+under the `chain/commit/mpt` and `chain/commit/bintrie` timers.
+
+Not ported (ROADMAP "Still to port", item 10): the expensive timers.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Set, Tuple
 
 from .. import rlp
@@ -291,6 +296,13 @@ class StateDB:
         # Tree.update args stashed by commit(defer_snap=True) for the
         # chain's insert-tail worker
         self._deferred_snap_update = None
+
+    @property
+    def batch_keccak(self):
+        """The device seam this state's tries hash with (the TrieDatabase's
+        batch keccak; None for device-hasher "off"): the stateful
+        precompiles hash their batches through it."""
+        return self.db.triedb.batch_keccak
 
     # ------------------------------------------------------------ object mgmt
 
@@ -758,12 +770,23 @@ class StateDB:
         by `block_hash` on top of `parent_block_hash`'s; defer_snap=True
         stashes the Tree.update arguments as `_deferred_snap_update`
         instead, and the caller applies them before anyone opens a
-        StateDB on the new root (the chain's insert tail)."""
+        StateDB on the new root (the chain's insert tail).
+
+        With a shadow on the Database (and not quarantined), the account
+        and storage writes flushed here, and the destructs, go to
+        `shadow.on_commit(original_root, root, updates, block_hash)` after
+        the MPT commit (coreth_tpu/state/statedb.py:709-770)."""
+        shadow = getattr(self.db, "shadow", None)
+        updates: Optional[list] = (
+            [] if shadow is not None and not shadow.quarantined else None)
+        t_mpt = time.perf_counter()
         self.intermediate_root(delete_empty)
         merged = MergedNodeSet()
         for addr in sorted(self._objects_dirty):
             obj = self._objects[addr]
             if obj.deleted:
+                if updates is not None:
+                    updates.append(("destruct", obj.addr_hash))
                 continue
             if obj.dirty_code:
                 rawdb.write_code(self.db.diskdb, obj.data.code_hash, obj.code)
@@ -777,6 +800,12 @@ class StateDB:
                 for k, v in obj.snap_flush.items():
                     stor[keccak256(k)] = (rlp.encode(v.lstrip(b"\x00"))
                                           if v != ZERO32 else b"")
+            if updates is not None:
+                d = obj.data
+                updates.append(("account", obj.addr_hash, (
+                    d.nonce, d.balance, d.code_hash, d.is_multi_coin)))
+                for k, v in obj.snap_flush.items():
+                    updates.append(("storage", obj.addr_hash, keccak256(k), v))
             obj.snap_flush = {}
         if getattr(self.trie, "resident", False):
             root, acct_set = self.trie.commit_block(block_hash,
@@ -788,6 +817,11 @@ class StateDB:
         self._objects_dirty = set()
         if root != self.original_root and merged.sets:
             self.db.triedb.update(root, self.original_root, merged)
+        _metrics.timer("chain/commit/mpt").update(time.perf_counter() - t_mpt)
+        if updates is not None:
+            with _metrics.timer("chain/commit/bintrie").time():
+                shadow.on_commit(self.original_root, root, updates,
+                                 block_hash)
         self._deferred_snap_update = None
         if self.snaps is not None and self.snap is not None:
             # identical-root blocks still need their (empty) diff layer:

@@ -9,8 +9,8 @@ gating.
 Every knob that no module of the port reads raises NotImplementedError
 from validate(), naming its ROADMAP item, when set away from its default
 (NOT_PORTED): the knobs of parts the port does not have (the RPC server,
-gossip, state sync, the keystore, the profilers, the mesh, the bintrie
-shadow) and those of config.go that neither package's VM or chain reads.
+gossip, state sync, the keystore, the profilers, the mesh) and those of
+config.go that neither package's VM or chain reads.
 A VM never boots with a knob silently ignored; keys Config does not know
 are ignored, as the reference ignores them. device-max-retries is
 refused but at 0: the port retries no device dispatch (ROADMAP Queue 3).
@@ -540,8 +540,6 @@ NOT_PORTED = (
       "metrics_http_host", "metrics_http_port")),
     ("10 (utils/racecheck.py: lock telemetry)", ("lock_slow_hold_budget",)),
     ("6 (multi-GPU)", ("resident_mesh_devices",)),
-    ("10 (the bintrie shadow backend)",
-     ("state_backend", "shadow_check_interval")),
     ("10 (config.go knobs that neither package's VM or chain reads)",
      ("trie_clean_cache", "trie_dirty_commit_target", "snapshot_cache",
       "accepted_cache_size", "preimages_enabled", "snapshot_async",

@@ -16,13 +16,13 @@ degradation ladder, and on CUDA its account trie on the mirror's executor
 on K1; the chain's four device_* knobs configure the ladder.
 
 Left out, each with its ROADMAP "Still to port" item: the inbound sync
-server (`sync_handler` is None; SyncHandler waits for item 10, sync, with
-trie/proof.py, item 9); the cross-chain eth_call both ways
-(handle_cross_chain_request and cross_chain_eth_call raise, item 10: the
-eth backend); the keystore, the external signer, the continuous and
-sampling profilers, the metrics endpoint and the lock telemetry, whose
-knobs raise in vm/config.py (items 8 and 10); the RPC surface (vm/api.py,
-item 10).
+server (`sync_handler` is None; SyncHandler waits for item 10, sync; its
+proofs, trie/proof.py and proof_range.py, are ported); the cross-chain
+eth_call both ways (handle_cross_chain_request and cross_chain_eth_call
+raise, item 10: the eth backend); the keystore, the external signer,
+the continuous and sampling profilers, the metrics endpoint and the lock
+telemetry, whose knobs raise in vm/config.py (items 8 and 10); the RPC
+surface (vm/api.py, item 10).
 """
 
 from __future__ import annotations

@@ -541,7 +541,10 @@ def _drop_root(chain, block):
 def test_populate_missing_tries_heals_like_reference():
     """An archival chain (pruning=False) with root nodes deleted, two of
     them consecutive: both heal the same blocks, forward; the healed
-    states read; a second scan heals nothing."""
+    states read; a second scan heals nothing. The read-ahead warms every
+    transaction's sender: the reference's calls a method Transaction
+    lacks, so each warm counts one chain/warm/sender_recover_error, while
+    the port recovers them and counts none (ROADMAP Queue 3)."""
     p = Pair(pruning=False)
     blocks = p.blocks(12)
     for b in blocks:
@@ -552,7 +555,12 @@ def test_populate_missing_tries_heals_like_reference():
     for chain in (p.ref, p.port):
         for b in holes:
             _drop_root(chain, b)
+    warmed = sum(len(b.transactions) for b in blocks)
+    before = counts("chain/warm/sender_recover_error")
     assert p.both("populate_missing_tries", 1, parallelism=4) == (4, 4)
+    after = counts("chain/warm/sender_recover_error")
+    assert (after[0] - before[0], after[1] - before[1]) == (warmed, 0)
+    assert warmed == 12
     for b in holes:
         for chain in (p.ref, p.port):
             assert chain.has_state(b.root)

@@ -352,6 +352,73 @@ st = vm.blockchain.state()
 assert st.get_balance((0x9000 + 59).to_bytes(20, "big")) == 60
 vm.shutdown()
 default_ladder().reset()
+
+# the commitment shadow and the batch keccak precompile: a bintrie planned
+# commit and a witness; a shadow chain on a genesis that enables the
+# precompile, whose block calls it with 64 messages through the device
+# seam; an MPT proof through the commitment seam and a range proof
+import dataclasses
+from coreth_tpu_torch.bintrie import (BinaryTrie, NodeStore, prove as wprove,
+                                      reference_root, verify_witness)
+from coreth_tpu_torch.bintrie.planned import commit_planned
+from coreth_tpu_torch.native import keccak256
+from coreth_tpu_torch.ops.keccak_torch import default_batched_keccak
+from coreth_tpu_torch.precompile import (TPU_KECCAK_ADDR, TpuKeccakConfig,
+                                         function_selector)
+from coreth_tpu_torch.trie import prove, verify_range_proof
+from coreth_tpu_torch.trie.trie import Trie
+
+bt = BinaryTrie(NodeStore())
+content = {rng.randbytes(32): rng.randbytes(9) for _ in range(200)}
+for k, v in content.items():
+    bt.update(k, v)
+broot = commit_planned(bt, device="cpu")
+assert broot == reference_root(content)
+k0 = next(iter(content))
+assert verify_witness(broot, k0, wprove(bt.store, broot, k0)) == \
+    (True, content[k0])
+
+pcfg = dataclasses.replace(cfg, precompile_upgrades=(
+    TpuKeccakConfig(timestamp=0),))
+msgs = [rng.randbytes(40) for _ in range(64)]
+heads, tail = b"", b""
+for m in msgs:
+    heads += (32 * 64 + len(tail)).to_bytes(32, "big")
+    tail += len(m).to_bytes(32, "big") + m + b"\x00" * (-len(m) % 32)
+calldata = (function_selector("keccak256Batch(bytes[])")
+            + (32).to_bytes(32, "big") + (64).to_bytes(32, "big") + heads
+            + tail)
+disk = MemoryDB()
+tdb = TrieDatabase(disk, batch_keccak=get_batch_keccak("planned", "cpu"))
+pgen = Genesis(config=pcfg, alloc=chain_alloc).commit(disk, Database(tdb))
+pblocks, preceipts = generate_chain(
+    pcfg, pgen, new_dummy_engine(), Database(tdb), 1,
+    gen=lambda i, bg: bg.add_tx(signer.sign(Transaction(
+        type=2, chain_id=cfg.chain_id, nonce=0, max_fee=10**12,
+        gas=300_000, to=TPU_KECCAK_ADDR, data=calldata), keys[0])))
+assert preceipts[0][0].status == 1
+calls = default_batched_keccak("cpu").calls
+chain = BlockChain(MemoryDB(), CacheConfig(state_backend="bintrie-shadow"),
+                   pcfg, Genesis(config=pcfg, alloc=chain_alloc),
+                   new_dummy_engine(), device="cpu")
+chain.insert_block(pblocks[0])
+assert default_batched_keccak("cpu").calls == calls + 1
+shadow = chain.state_database.shadow
+assert shadow.root_for(pblocks[0].root) is not None and not shadow.quarantined
+backend = chain.state_database.backend
+key = keccak256(senders[0])
+assert backend.verify(pblocks[0].root, key,
+                      backend.prove(pblocks[0].root, key))[0]
+chain.stop()
+t = Trie()
+leaves = sorted((rng.randbytes(32), rng.randbytes(5)) for _ in range(50))
+for k, v in leaves:
+    t.update(k, v)
+edge = {keccak256(b): b for k in (leaves[3][0], leaves[20][0])
+        for b in prove(t, k)}
+assert verify_range_proof(t.hash(), leaves[3][0], leaves[20][0],
+                          [k for k, _ in leaves[3:21]],
+                          [v for _, v in leaves[3:21]], edge) is True
 leaked = [m for m in sys.modules if refused(m)]
 assert not leaked, leaked
 print("ISOLATED-OK")
@@ -412,7 +479,11 @@ def test_no_source_imports_jax_or_coreth_tpu():
                 "vm/atomic_trie.py", "vm/atomic_backend.py",
                 "vm/block_verification.py", "vm/block.py",
                 "vm/block_builder.py", "vm/plumbing.py", "vm/config.py",
-                "vm/vm.py"):
+                "vm/vm.py", "precompile/__init__.py",
+                "precompile/tpu_keccak.py", "bintrie/__init__.py",
+                "bintrie/tree.py", "bintrie/planned.py", "bintrie/witness.py",
+                "bintrie/backend.py", "bintrie/shadow.py", "trie/proof.py",
+                "trie/proof_range.py", "state/commitment.py"):
         assert os.path.join("coreth_tpu_torch", mod) in names, mod
     assert not bad, bad
 

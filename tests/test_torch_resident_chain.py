@@ -706,14 +706,35 @@ def test_ladder_knobs_configure_the_ladder(knob, value, want):
 
 @pytest.mark.parametrize("knob,value,item", [
     ("resident_mesh_devices", 4, "item 6"),
-    ("state_backend", "bintrie-shadow", "item 10"),
-    ("shadow_check_interval", 4, "item 10"),
 ])
 def test_not_ported_knobs_raise(knob, value, item):
     cfg = CacheConfig(**{knob: value})
     with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
         BlockChain(MemoryDB(), cfg, params.TEST_CHAIN_CONFIG, _genesis(),
                    new_dummy_engine(), device="cpu")
+
+
+@pytest.mark.parametrize("knobs,shadow,interval", [
+    ({"state_backend": "bintrie-shadow"}, True, 16),
+    ({"state_backend": "bintrie-shadow", "shadow_check_interval": 4},
+     True, 4),
+    ({"shadow_check_interval": 4}, False, None),
+])
+def test_shadow_knobs_mount_the_shadow(knobs, shadow, interval):
+    """The knobs of the bintrie shadow (item 10's bintrie, which raised
+    here before it landed) boot a chain: "bintrie-shadow" mounts a
+    ShadowCommitment with the interval asked for, anchored by the genesis
+    commit; the interval alone mounts nothing, as in the reference."""
+    chain = BlockChain(MemoryDB(), CacheConfig(**knobs),
+                       params.TEST_CHAIN_CONFIG, _genesis(),
+                       new_dummy_engine(), device="cpu")
+    sh = chain.state_database.shadow
+    assert (sh is not None) == shadow
+    if shadow:
+        assert sh.check_interval == interval
+        assert sh.root_for(chain.genesis_block.root) is not None
+        assert sh.status()["commits"] == 1 and not sh.quarantined
+    chain.stop()
 
 
 @pytest.mark.parametrize("knob,value", [

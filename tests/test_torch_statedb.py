@@ -498,32 +498,27 @@ def test_genesis_on_card_equals_cpu(mode):
 
 def test_what_is_not_ported_raises():
     """The parts of the slice left for later items raise instead of
-    running something else: the bintrie shadow under the state layer (the
-    snapshot tree, which raised here before, landed with the chain), the
-    resident mirror's mesh rung, an enabled stateful precompile. (The
-    speculative execution modes, which raised here before, landed with
-    item 3b.3: the processor keeps its knob.)"""
-    from coreth_tpu_torch.consensus.dummy import new_dummy_engine
-    from coreth_tpu_torch.core.blockchain import BlockChain, CacheConfig
+    running something else: the resident mirror's mesh rung. (The
+    snapshot tree landed with the chain, the speculative execution modes
+    with item 3b.3, and the bintrie shadow under the state layer and the
+    stateful precompiles, which raised here before, with item 9: a
+    genesis with an enabled precompile now commits its activation.)"""
     from coreth_tpu_torch.core.types import Block, Header
+    from coreth_tpu_torch.precompile import TPU_KECCAK_ADDR, TpuKeccakConfig
     from coreth_tpu_torch.trie.resident_mirror import ResidentAccountMirror
 
-    with pytest.raises(NotImplementedError, match="item 10"):
-        BlockChain(MemoryDB(), CacheConfig(state_backend="bintrie-shadow"),
-                   params.TEST_CHAIN_CONFIG,
-                   genesis.Genesis(config=params.TEST_CHAIN_CONFIG),
-                   new_dummy_engine(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):
         ResidentAccountMirror([(b"\x01" * 32, b"v")], mesh_devices=2,
                               device="cpu")
 
-    class Upgrade:
-        timestamp = 0
     cfg = params.avalanche_local_chain_config()
-    cfg.precompile_upgrades = (Upgrade(),)
-    g = genesis.Genesis(config=cfg)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        g.commit(MemoryDB(), Database(TrieDatabase(MemoryDB())))
+    cfg.precompile_upgrades = (TpuKeccakConfig(timestamp=0),)
+    diskdb = MemoryDB()
+    blk = genesis.Genesis(config=cfg).commit(
+        diskdb, Database(TrieDatabase(diskdb)))
+    sdb = StateDB(blk.root, Database(TrieDatabase(diskdb)))
+    assert sdb.get_nonce(TPU_KECCAK_ADDR) == 1
+    assert sdb.get_code(TPU_KECCAK_ADDR) == b"\x01"
     # transactions landed with item 3b.1: a block with one round-trips;
     # the speculative execution modes landed with item 3b.3
     from coreth_tpu_torch.core.state_processor import StateProcessor

@@ -444,7 +444,7 @@ def test_vm_boots_from_config_bytes():
     ("metrics-http-enabled", True, "item 8"),
     ("lock-slow-hold-budget", 0.5, "item 10"),
     ("resident-mesh-devices", 4, "item 6"),
-    ("state-backend", "bintrie-shadow", "item 10"),
+    ("rpc-batch-limit", 10, "item 10"),
     ("eth-apis", ["eth", "debug"], "item 10"),
     ("rpc-max-workers", 2, "item 10"),
     ("regossip-frequency", 5.0, "item 10"),
