@@ -22,6 +22,9 @@ Phases (each passes or the script exits non-zero):
   4b. the variant sweep: both variants of K1 and K2 at B in SWEEP_B x L in
      (1, 4) on CUDA events and in the profiler's trace, and the crossover
      that sets kCoopMaxLanes
+  4c. the world and its CPU oracle, then gc.freeze(): the harness's own
+     objects leave the garbage collector's view, so the port's pauses
+     measured after it do not traverse them
   5. planned genesis, through the VM: the 1M-account world (1,000
      contracts x 100 storage slots, each with the hand-assembled
      store-and-log code STORE_AND_LOG; 1,500 plain accounts at addresses
@@ -152,14 +155,14 @@ Phases (each passes or the script exits non-zero):
      programs record every K1 input): A resident (lean rows, pipeline depth
      2, watchdog on), B template residency (watchdog on), C the native
      host twin; each genesis root equals the oracle's. Then block 1 (the
-     block of phase 7) and --blocks (8) seeded blocks as StateDB
+     block of phase 7) and --blocks (4) seeded blocks as StateDB
      operations on a StateDB over each mirror and StateDB.commit(
      block_hash=, parent_block_hash=), accepted two blocks behind through
      each mirror's ResidentTrieWriter; A's MirrorStateTrie carries the
      oracle's root as expected_root from block 2, so its commits pipeline;
      a sibling of the middle block is verified on all three and rejected
      through reject_trie. Every root equals the oracle's. A's writer
-     exports at commit_interval 8 and at shutdown; a fresh TrieDatabase
+     exports at commit_interval 4 and at shutdown; a fresh TrieDatabase
      over the store then reads back every account the last block touched,
      999 others and every slot the blocks wrote. A.spot_check() passes, A
      and B end on the device, and no device wedge, takeover, fallback or
@@ -187,7 +190,7 @@ Phases (each passes or the script exits non-zero):
      counters, ops/device/* among them, must all be 0; after it
      demotions 1, promotions 1, dispatch errors 2. Its K1 launches and
      the probes' K2 launches are held against the plain versions
-  8c. commitment VM: a VM of its own over --shadow-accounts (100,000)
+  8c. commitment VM: a VM of its own over --shadow-accounts (50,000)
      accounts (the main world's shape: 1 contract per 1,000 accounts with
      100 slots, 1,500 keyed), booted from JSON {"state-backend":
      "bintrie-shadow", "shadow-check-interval": 2} with the chain's other
@@ -217,6 +220,25 @@ Phases (each passes or the script exits non-zero):
      plain versions; the launches are logged by source, with the
      bintrie/planned counters and the chain/commit/mpt and
      chain/commit/bintrie timers
+  8d. mesh and legacy executors: a trie of --mesh-accounts (100,000)
+     seeded leaves and 3 blocks of 2,000 updates (the native host
+     planner's root of each state the oracle), on meshes of width 1 on
+     the card and width 4 on [cuda:0] * 4 (and on min(count, 4) real
+     devices when the machine has several): parallel.ShardedKeccak of
+     4,000 messages (K2 per shard) against the host keccak, commit_step's
+     digests and checksum, planned_commit_over_mesh (K1 per shard and
+     segment) of the trie, and a ResidentAccountMirror(mesh_devices=...)
+     over the blocks, every root the oracle's, then take_over_host() one
+     rung a call (width 4: mesh -> single device -> host; width 1:
+     host), a block committed on each rung. Then a block's plan through
+     CommitPlan.execute_device (fused_commit: K2 a segment) and
+     execute_staged (StagedCommit: K1 a segment), root and every real
+     lane's digest the host's; and a BlockChain in device-hasher "fused"
+     (the mirror off, so the account trie too goes through FusedHasher)
+     over a 2,000-account genesis taking 2 blocks of 154 transactions
+     made on the CPU Hasher, every root the header's. Every K1 and K2
+     launch of the phase goes through a recorder and is held against the
+     plain versions; the phase's wall and launches are printed
   9. watchdog drill: a 2,000-key mirror whose executor hangs once: the
      commit raises DeviceWedgedError with the applied stack unchanged and
      nothing on the host; the drill then asks for the host
@@ -258,13 +280,13 @@ from unittest import mock
 import numpy as np
 import torch
 
-from coreth_tpu_torch import fault, params, rlp
+from coreth_tpu_torch import fault, params, parallel, rlp
 from coreth_tpu_torch.bintrie import shadow as shadow_mod
 from coreth_tpu_torch.bintrie import witness as bwitness
 from coreth_tpu_torch.bintrie.tree import reference_root
 from coreth_tpu_torch.consensus.dummy import new_dummy_engine
 from coreth_tpu_torch.core import types as types_mod
-from coreth_tpu_torch.core.blockchain import BlockChain
+from coreth_tpu_torch.core.blockchain import BlockChain, CacheConfig
 from coreth_tpu_torch.core import exec_shards
 from coreth_tpu_torch.core.bloom_index import BloomIndexer
 from coreth_tpu_torch.core.chain_makers import generate_chain
@@ -1411,14 +1433,16 @@ def phase_block(dev, world: World, diskdb, tdb, parent, block, want,
 
 
 class _BlocksRecorder:
-    """BatchedKeccak impl that launches K2 (keccak_cuda.keccak256_blocks,
-    which counts the launch) and keeps each input and output."""
+    """BatchedKeccak impl that launches K2 (`launch`, default
+    keccak_cuda.keccak256_blocks, which counts the launch) and keeps each
+    input and output."""
 
-    def __init__(self):
+    def __init__(self, launch=None):
+        self.launch = launch
         self.records = []
 
     def __call__(self, words, nblocks):
-        out = keccak_cuda.keccak256_blocks(words, nblocks)
+        out = (self.launch or keccak_cuda.keccak256_blocks)(words, nblocks)
         self.records.append((words, nblocks, out))
         return out
 
@@ -1853,13 +1877,13 @@ class MirrorRun:
 
     A  resident, lean rows, pipeline_depth 2 (blocks after the first carry
        the oracle's root as MirrorStateTrie.expected_root), watchdog on;
-       its writer exports at commit_interval 8 and at shutdown
+       its writer exports at commit_interval 4 and at shutdown
     B  template residency, watchdog on
     C  the native host twin (prefer_host=True)
     A's and B's executors record every K1 input (_K1Recorder)."""
 
     NAMES = ("C", "B", "A")  # C first: its root is the one A pipelines on
-    INTERVAL = 8
+    INTERVAL = 4  # one interval export at the default --blocks (4)
 
     def __init__(self, dev, diskdb, items, timeout):
         self.dev = dev
@@ -2290,8 +2314,8 @@ class _K2Recorder(_BlocksRecorder):
     """_BlocksRecorder that also keeps the variant each launch ran (none on
     the CPU)."""
 
-    def __init__(self):
-        super().__init__()
+    def __init__(self, launch=None):
+        super().__init__(launch)
         self.ran = []
 
     def __call__(self, words, nblocks):
@@ -3807,6 +3831,215 @@ def phase_commitment(dev, n_accounts, n_blocks, seed, card):
             pad)
 
 
+MESH_WIDTH = 4  # the virtual mesh on the one card: [cuda:0] * 4
+
+
+def _mesh_blocks(rng, state: dict, n_blocks: int, n_updates: int):
+    """Seeded update batches of the mesh phase: replace 60%, insert 30%,
+    delete 10%; `state` follows them. Returns (batches, oracle roots), the
+    roots from the native host planner over each full state."""
+    batches, roots = [], []
+    for _ in range(n_blocks):
+        keys = list(state)
+        b = []
+        for _ in range(n_updates):
+            r = rng.random()
+            if r < 0.6:
+                b.append((keys[int(rng.integers(len(keys)))],
+                          rng.bytes(int(rng.integers(70, 110)))))
+            elif r < 0.9:
+                b.append((rng.bytes(32), rng.bytes(int(rng.integers(70,
+                                                                     110)))))
+            else:
+                b.append((keys[int(rng.integers(len(keys)))], b""))
+        for k, v in b:
+            if v:
+                state[k] = v
+            else:
+                state.pop(k, None)
+        batches.append(b)
+        roots.append(plan_from_items(sorted(state.items())).execute_cpu())
+    return batches, roots
+
+
+def phase_mesh_legacy(dev, n_accounts, seed, card):
+    """The mesh and the legacy executors (module docstring, phase 8d).
+    Every K1 and K2 launch goes through one recorder each (the wrappers
+    keccak_cuda.segment_keccak and keccak256_blocks replaced by recorders
+    that call them while the phase builds and runs its executors). Returns
+    (K1 recorder, K2 recorder, K1 launches, of them cooperative, K2
+    launches, of them cooperative, K2's padding lanes)."""
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    rng = np.random.default_rng(seed)
+    state = {rng.bytes(32): rng.bytes(int(rng.integers(70, 110)))
+             for _ in range(n_accounts)}
+    items = sorted(state.items())
+    boot_root = plan_from_items(items).execute_cpu()
+    batches, roots = _mesh_blocks(rng, dict(state), 3, 2_000)
+    rec1 = _K1Recorder(launch=keccak_cuda.segment_keccak)
+    rec2 = _K2Recorder(launch=keccak_cuda.keccak256_blocks)
+    # (name, the mirror's device argument: one device named gives a
+    # virtual mesh on it, None the first n CUDA devices)
+    meshes = [(f"width 1 on {dev}", 1, dev),
+              (f"width {MESH_WIDTH} on [{dev}] * {MESH_WIDTH}", MESH_WIDTH,
+               dev)]
+    if cuda and torch.cuda.device_count() > 1:
+        n = min(torch.cuda.device_count(), MESH_WIDTH)
+        meshes.append((f"width {n} on cuda:0..{n - 1}", n, None))
+    log(f"mesh: meshes {[name for name, _, _ in meshes]} (the card count "
+        f"{torch.cuda.device_count() if cuda else 0})")
+    msgs = [rng.bytes(int(n)) for n in rng.integers(0, 600, 4000)]
+    want_digests = keccak256_batch(msgs, threads=8)
+    pad = 0
+    keccak_cuda.reset_counts()
+    with mock.patch.object(keccak_cuda, "segment_keccak", rec1), \
+            mock.patch.object(keccak_cuda, "keccak256_blocks", rec2):
+        for name, width, on in meshes:
+            mesh = parallel.make_mesh(width, device=on)
+            t0 = time.perf_counter()
+            sk = parallel.ShardedKeccak(mesh)
+            check(sk.digests(msgs) == want_digests,
+                  f"mesh {name}: ShardedKeccak != the host keccak")
+            target = mesh.size * 8
+            while target < len(msgs):
+                target *= 2
+            pad += target - len(msgs)
+            words, nblocks = pack_messages(msgs[:1024])
+            out, checksum = parallel.commit_step(mesh)(words, nblocks)
+            host = int32_to_words(out)
+            check(digest_words_to_bytes(host) == want_digests[:1024]
+                  and int(checksum) == int(np.sum(host, dtype=np.uint32)),
+                  f"mesh {name}: commit_step digests or checksum")
+            plan = plan_from_items(items)
+            runner = parallel.planned_commit_over_mesh(mesh)
+            check(plan.execute_planned(runner) == boot_root,
+                  f"mesh {name}: planned_commit_over_mesh root")
+            sharded_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            m = ResidentAccountMirror(items, mesh_devices=width, device=on)
+            check(m.shards == width and not m.host_mode
+                  and m.root_of(m.GENESIS) == boot_root,
+                  f"mesh {name}: mirror genesis root or shards")
+            parent = m.GENESIS
+            for i, (b, want) in enumerate(zip(batches, roots)):
+                h = block_hash(900 + i)
+                check(m.verify(parent, h, b) == want,
+                      f"mesh {name}: mirror block {i + 1} root != oracle")
+                parent = h
+            lanes = list(m.ex.last_shard_lanes)
+            gather = m.ex.last_gather_bytes_modeled
+            mirror_ms = (time.perf_counter() - t0) * 1e3
+            rungs = []
+            while not m.host_mode:
+                t0 = time.perf_counter()
+                rungs.append((m.take_over_host("mesh phase: one rung"),
+                              m.shards, (time.perf_counter() - t0) * 1e3))
+                b = batches[0]
+                check(m.verify(m.GENESIS, block_hash(950 + len(rungs)), b)
+                      == roots[0], f"mesh {name}: root on rung {rungs[-1]}")
+            check([r for r, _, _ in rungs] == (["device", "host"]
+                                               if width > 1 else ["host"]),
+                  f"mesh {name}: rungs {rungs}")
+            log(f"mesh {name}: ShardedKeccak of {len(msgs)} messages, "
+                f"commit_step of 1,024 and planned_commit_over_mesh of "
+                f"{len(items)} leaves {sharded_ms:.1f} ms; mirror boot + "
+                f"{len(batches)} blocks of {len(batches[0])} updates "
+                f"{mirror_ms:.1f} ms (last commit's lanes per shard "
+                f"{lanes}, modeled gather {gather} B); take_over_host "
+                + ", ".join(f"-> {r} ({n} shard(s), {ms:.1f} ms)"
+                            for r, n, ms in rungs)
+                + "; every root the oracle's")
+
+        # the legacy executors on a block's plan
+        after = dict(state)
+        for b in batches[:1]:
+            for k, v in b:
+                if v:
+                    after[k] = v
+                else:
+                    after.pop(k, None)
+        plan = plan_from_items(sorted(after.items()))
+        want_root, want_dig, real = plan.execute_cpu_digests(threads=8)
+        t0 = time.perf_counter()
+        f_root, f_dig = plan.execute_device(device=dev)
+        fused_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        s_root, s_dig = plan.execute_staged(device=dev)
+        staged_ms = (time.perf_counter() - t0) * 1e3
+        check(f_root == s_root == want_root == roots[0],
+              "legacy: fused / staged root != the host oracle's")
+        check(np.array_equal(f_dig[real], want_dig[real])
+              and np.array_equal(s_dig[real], want_dig[real]),
+              "legacy: a real lane's digest differs from the host's")
+        n_seg = len(plan.export()[0])
+        log(f"legacy: a block's plan ({len(after)} leaves, {n_seg} "
+            f"segments, {plan.total_lanes} lanes): fused_commit "
+            f"{fused_ms:.1f} ms, StagedCommit {staged_ms:.1f} ms; roots and "
+            f"every real lane's digest the host's")
+
+        # a chain in device-hasher "fused" (the account trie too: the
+        # mirror off), its blocks made on the CPU Hasher
+        world = World(2_000, 4, 20, seed + 1, n_keyed=300)
+        signed = evm_transactions(world, 2, seed + 2, n_calls=4,
+                                  n_transfers=150)
+        maker_disk = MemoryDB()
+        maker = Database(TrieDatabase(maker_disk))
+        gen_block = genesis_alloc(world).commit(maker_disk, maker)
+        blocks, _ = generate_chain(
+            params.TEST_CHAIN_CONFIG, gen_block, new_dummy_engine(), maker,
+            2, gen=lambda i, bg: [bg.add_tx(Transaction.decode(t.blob))
+                                  for t in signed[i]])
+        fused_before = len(rec2.records)
+        t0 = time.perf_counter()
+        chain = BlockChain(MemoryDB(), CacheConfig(
+            device_hasher="fused", resident_account_trie=False),
+            params.TEST_CHAIN_CONFIG, genesis_alloc(world),
+            new_dummy_engine(), device=dev)
+        check(isinstance(chain.state_database.triedb.batch_keccak,
+                         device_mod.FusedModeKeccak)
+              and chain.genesis_block.root == gen_block.root,
+              "fused chain: marker or genesis root")
+        per_block = []
+        for b in blocks:
+            t1 = time.perf_counter()
+            pb = Block.decode(b.encode())
+            chain.insert_block(pb)
+            chain.accept(pb)
+            check(chain.current_block.root == b.root,
+                  "fused chain: root != the CPU Hasher's")
+            per_block.append((time.perf_counter() - t1) * 1e3)
+        chain.drain_acceptor_queue()
+        chain.stop()
+        chain_ms = (time.perf_counter() - t0) * 1e3
+        check(len(rec2.records) > fused_before,
+              "fused chain: no K2 launch by the fused commits")
+        log(f"fused chain: genesis of {len(world.addrs)} accounts and "
+            f"{len(blocks)} blocks of {len(signed[0])} transactions, every "
+            f"root the CPU Hasher's; insert + accept "
+            + ", ".join(f"{ms:.1f}" for ms in per_block)
+            + f" ms; {len(rec2.records) - fused_before} K2 launches; "
+            f"{chain_ms:.1f} ms in all")
+    k1, k1_coop = keccak_cuda.launches, keccak_cuda.launches_coop
+    k2, k2_coop = keccak_cuda.blocks_launches, keccak_cuda.blocks_launches_coop
+    check(len(rec1.records) > 0 and len(rec2.records) > 0,
+          "mesh: a kernel of the phase was not launched")
+    check(not cuda or (k1 == len(rec1.records) and k2 == len(rec2.records)),
+          f"mesh: K1 {k1} launches, {len(rec1.records)} recorded; K2 {k2}, "
+          f"{len(rec2.records)} recorded")
+    if cuda:
+        for label, ran in (("mesh K1", check_variants(rec1, "mesh K1")),
+                           ("mesh K2", check_variants_k2(rec2, "mesh K2"))):
+            log(f"{label}: every launch ran the variant its shape calls for ("
+                + ", ".join(f"{VARIANT_NAME[v]} {n}" for v, n in ran.items())
+                + ")")
+    log(f"mesh and legacy executors: phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    log(f"mesh and legacy executors: launches K1 {len(rec1.records)}, K2 "
+        f"{len(rec2.records)} (of them ShardedKeccak padding lanes {pad})")
+    return rec1, rec2, k1, k1_coop, k2, k2_coop, pad
+
+
 def variants_json(launches: int, coop: int, *kernel_ms: dict) -> dict:
     """Per variant: main-path launches and kernel ms in the profiler's
     trace summed over the commits (None where a trace held no device time
@@ -3827,7 +4060,7 @@ def main() -> int:
     ap.add_argument("--contracts", type=int, default=1_000)
     ap.add_argument("--slots", type=int, default=100)
     ap.add_argument("--seed", type=int, default=20)
-    ap.add_argument("--blocks", type=int, default=8,
+    ap.add_argument("--blocks", type=int, default=4,
                     help="resident blocks after the first, one rejected")
     ap.add_argument("--evm-blocks", type=int, default=4,
                     help="blocks of signed transactions through the EVM")
@@ -3839,11 +4072,13 @@ def main() -> int:
                          "VM after the chain phase")
     ap.add_argument("--drill-accounts", type=int, default=2_000,
                     help="accounts of the ladder drill's own VM")
-    ap.add_argument("--shadow-accounts", type=int, default=100_000,
+    ap.add_argument("--shadow-accounts", type=int, default=50_000,
                     help="accounts of the commitment VM (the bintrie "
                          "shadow and the keccak precompile)")
     ap.add_argument("--shadow-blocks", type=int, default=3,
                     help="blocks through the commitment VM")
+    ap.add_argument("--mesh-accounts", type=int, default=100_000,
+                    help="leaves of the mesh phase's account trie")
     ap.add_argument("--device", default="cuda",
                     help="'cpu' rehearses with the plain versions")
     args = ap.parse_args()
@@ -3871,8 +4106,13 @@ def main() -> int:
     # the EVM phase's chain starts at genesis: its own snapshots
     evm_world = world.snapshot()
     evm_oracle = oracle.snapshot(evm_world)
+    # the script's own world and oracle (millions of tracked objects) leave
+    # the collector's view: the port's garbage-collector pauses measured
+    # below then traverse the port's objects, not this harness's
+    gc.freeze()
     log(f"genesis: CPU oracle (independent tries) "
-        f"{time.perf_counter() - t0:.1f} s; peak RSS {rss_gib():.1f} GiB")
+        f"{time.perf_counter() - t0:.1f} s; peak RSS {rss_gib():.1f} GiB; "
+        f"{gc.get_freeze_count()} objects frozen out of the collector")
 
     # planned path (K1): Genesis.commit inside the chain's construction,
     # which boots the resident mirror (K1) and the snapshot tree
@@ -4019,6 +4259,17 @@ def main() -> int:
     ck_err, ck_ms, ck_plain, ck_inputs, ck_kernel = check_and_time_k2(
         cm_k2rec, "commitment precompile", cm_pad, profile_reps=10)
     del cm_k2rec
+    # the mesh (sharded K1/K2 launches, the mirror's mesh rung) and the
+    # legacy executors (fused: K2, staged: K1) on a world of their own
+    mark(t_start, "mesh and legacy executors")
+    ml_rec1, ml_rec2, ml_k1, ml_k1_coop, ml_k2, ml_k2_coop, ml_pad = \
+        phase_mesh_legacy(dev, args.mesh_accounts, args.seed + 10, card)
+    ml_err, ml_ms, ml_plain, ml_shapes, ml_kernel = time_k1(
+        dev, [r[0] for r in ml_rec1.records], "mesh and legacy K1",
+        per_segment=False, outputs=[r[1] for r in ml_rec1.records])
+    mk_err, mk_ms, mk_plain, mk_inputs, mk_kernel = check_and_time_k2(
+        ml_rec2, "mesh and legacy K2", ml_pad, profile_reps=10)
+    del ml_rec1, ml_rec2
     mark(t_start, "watchdog drill")
     phase_watchdog_drill(dev, args.seed + 4)
     ran = defaultdict(int)
@@ -4046,7 +4297,7 @@ def main() -> int:
 
     k1_shapes = (g_shapes + cb_shapes + b_shapes + e1_shapes + cs_shapes
                  + cr_shapes + vs_shapes + vr_shapes + rg_shapes + rb_shapes
-                 + ds_shapes + sh_shapes + cm_shapes)
+                 + ds_shapes + sh_shapes + cm_shapes + ml_shapes)
     k1_bound, k1_by = k1_bound_ms(k1_shapes)
     rk_bound, rk_by = k1_bound_ms(rg_shapes + rb_shapes)
     log(f"K1 bound over the mirror's inputs {rk_bound:.4f} ms ({rk_by}; "
@@ -4055,23 +4306,25 @@ def main() -> int:
         f"{rb_ms:.4f} ms")
     k1_launches = (g_launches + cb_launches + b_launches + evm_planned.k1
                    + c_launches + v_launches + m_launches + d_launches
-                   + cm_k1)
+                   + cm_k1 + ml_k1)
     k1_coop = (g_coop + cb_coop + b_coop + evm_planned.k1_coop + c_coop
-               + v_coop + m_coop + d_coop + cm_k1_coop)
-    k2_inputs = bg_inputs + bb_inputs + e2_inputs + dk_inputs + ck_inputs
+               + v_coop + m_coop + d_coop + cm_k1_coop + ml_k1_coop)
+    k2_inputs = (bg_inputs + bb_inputs + e2_inputs + dk_inputs + ck_inputs
+                 + mk_inputs)
     k2_bound, k2_by = k2_bound_ms(k2_inputs)
     k2_real, _ = k2_bound_ms(k2_inputs, bg_pad + bb_pad + e2_pad + d_pad
-                             + cm_pad)
+                             + cm_pad + ml_pad)
     log(f"K2 bound over the batched commits {k2_bound:.4f} ms ({k2_by}), "
         f"over their real lanes alone {k2_real:.4f} ms")
     log(f"launches on the main paths: K1 genesis {g_launches}, the chain's "
         f"mirror boot {cb_launches}, block {b_launches}, evm planned "
         f"{evm_planned.k1}, chain inserts {c_launches}, vm blocks "
         f"{v_launches}, mirrors {m_launches}, ladder drill {d_launches}, "
-        f"commitment VM {cm_k1} (of them the shadow {len(sh_shapes)}); "
-        f"K2 batched genesis {bg_launches}, batched block {bb_launches}, "
-        f"evm batched {evm_batched.k2}, ladder drill probes {d_k2}, the "
-        f"keccak precompile {cm_k2}")
+        f"commitment VM {cm_k1} (of them the shadow {len(sh_shapes)}), "
+        f"mesh and legacy executors {ml_k1}; K2 batched genesis "
+        f"{bg_launches}, batched block {bb_launches}, evm batched "
+        f"{evm_batched.k2}, ladder drill probes {d_k2}, the keccak "
+        f"precompile {cm_k2}, mesh and legacy executors {ml_k2}")
     log(f"peak RSS {rss_gib():.1f} GiB")
     left = descendants()
     check(not left, f"processes left at the end: {left}")
@@ -4085,12 +4338,12 @@ def main() -> int:
         "launches": k1_launches,
         "max_abs_err": max(grid_err, g_err, cb_err, b_err, e1_err, cs_err,
                            cr_err, vs_err, vr_err, rg_err, rb_err, ds_err,
-                           sh_err, cm_err),
+                           sh_err, cm_err, ml_err),
         "ms": (g_ms + cb_ms + b_ms + e1_ms + cs_ms + cr_ms + vs_ms + vr_ms
-               + rg_ms + rb_ms + ds_ms + sh_ms + cm_ms),
+               + rg_ms + rb_ms + ds_ms + sh_ms + cm_ms + ml_ms),
         "plain_ms": (g_plain + cb_plain + b_plain + e1_plain + cs_plain
                      + cr_plain + vs_plain + vr_plain + rg_plain + rb_plain
-                     + ds_plain + sh_plain + cm_plain),
+                     + ds_plain + sh_plain + cm_plain + ml_plain),
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": None,
@@ -4098,25 +4351,29 @@ def main() -> int:
                                   cb_kernel, b_kernel, e1_kernel, cs_kernel,
                                   cr_kernel, vs_kernel, vr_kernel,
                                   rg_kernel, rb_kernel, ds_kernel,
-                                  sh_kernel, cm_kernel),
+                                  sh_kernel, cm_kernel, ml_kernel),
     }, {
         "name": "keccak_blocks",
         "route": "cuda",
         "source": "coreth_tpu_torch/ops/csrc/keccak_blocks.cu",
         "replaces": "coreth_tpu/ops/keccak_pallas.py:126",
         "launches": bg_launches + bb_launches + evm_batched.k2 + d_k2
-        + cm_k2,
+        + cm_k2 + ml_k2,
         "max_abs_err": max(grid2_err, bg_err, bb_err, e2_err, dk_err,
-                           ck_err),
-        "ms": bg_ms + bb_ms + e2_ms + dk_ms + ck_ms,
-        "plain_ms": bg_plain + bb_plain + e2_plain + dk_plain + ck_plain,
+                           ck_err, mk_err),
+        "ms": bg_ms + bb_ms + e2_ms + dk_ms + ck_ms + mk_ms,
+        "plain_ms": (bg_plain + bb_plain + e2_plain + dk_plain + ck_plain
+                     + mk_plain),
         "bound_ms": k2_bound,
         "bound_by": k2_by,
         "library_ms": None,
         "variants": variants_json(
-            bg_launches + bb_launches + evm_batched.k2 + d_k2 + cm_k2,
-            bg_coop + bb_coop + evm_batched.k2_coop + d_k2_coop + cm_k2_coop,
-            bg_kernel, bb_kernel, e2_kernel, dk_kernel, ck_kernel),
+            bg_launches + bb_launches + evm_batched.k2 + d_k2 + cm_k2
+            + ml_k2,
+            bg_coop + bb_coop + evm_batched.k2_coop + d_k2_coop + cm_k2_coop
+            + ml_k2_coop,
+            bg_kernel, bb_kernel, e2_kernel, dk_kernel, ck_kernel,
+            mk_kernel),
     }]}), flush=True)
     if dev.type != "cuda":
         return 0  # a rehearsal prints no result line

@@ -51,9 +51,12 @@ commit, on the chain's device, with _note_shadow_event as its quarantine
 hook; StateDB.commit feeds it. An error of its planned commit (kernel K1)
 reaches insert_block / build_block like any other device error.
 
-Not ported, raising NotImplementedError by name when asked for (no knob
-is ignored): the mesh-sharded mirror (resident_mesh_devices > 0; ROADMAP
-"Still to port", item 6).
+The mesh-sharded mirror (resident_mesh_devices = n > 0): the mirror's
+store and arenas split by rows over n mesh positions on the chain's
+device argument (parallel.make_mesh: the first n CUDA devices for None,
+n positions on the one device named). take_over_host() walks it down one
+rung a call: mesh -> single device (the ladder stays healthy), then
+single device -> host.
 """
 
 from __future__ import annotations
@@ -160,8 +163,9 @@ class CacheConfig:
     snapshot_limit: int = 256
     # the device seam of the chain's own TrieDatabase (when the caller
     # gives no state_database): "auto"/"planned" one device program per
-    # commit (K1), "batched" level by level (K2), "off" the recursive CPU
-    # hasher everywhere (ops/device.get_batch_keccak)
+    # commit (K1), "batched" level by level (K2), "fused" one fused commit
+    # per large trie (K2 per segment), "off" the recursive CPU hasher
+    # everywhere (ops/device.get_batch_keccak)
     device_hasher: str = "auto"
     # device-resident account trie: per-block account hashing runs as one
     # resident commit on the mirror (ops/keccak_resident.py) instead of
@@ -224,8 +228,10 @@ class CacheConfig:
     # arenas + store resident, so uploads carry only fresh leaf content.
     # Excludes pipelining (the per-commit absorb IS a sync)
     resident_template_residency: bool = False
-    # mesh-sharded resident commits: not ported (ROADMAP "Still to port",
-    # item 6); anything but 0 raises
+    # mesh-sharded resident commits: shard the mirror's digest store +
+    # row arenas over this many mesh positions (0 = unsharded). The
+    # caller's take_over_host() demotes mesh -> single-device resident ->
+    # host, each rung bit-exact against the host oracle
     resident_mesh_devices: int = 0
     # storage-lean node rows (SonicDB-style fixed-width records): fresh
     # single-block nodes upload as 72-byte content-only records (+ 4 B
@@ -267,23 +273,9 @@ class CacheConfig:
     db_retry_budget: int = 2
 
 
-_DEFAULT_CACHE_CONFIG = CacheConfig()
-
-
-def _refuse_not_ported(cfg: CacheConfig) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for every knob
-    of a part the port does not have that is set away from its default:
-    a chain never runs with a knob silently ignored."""
-    items = (
-        ("6 (multi-GPU)", ("resident_mesh_devices",)),
-    )
-    for item, knobs in items:
-        for knob in knobs:
-            val = getattr(cfg, knob)
-            if val != getattr(_DEFAULT_CACHE_CONFIG, knob):
-                raise NotImplementedError(
-                    f"CacheConfig.{knob}={val!r} is not ported (ROADMAP "
-                    f"'Still to port', item {item})")
+def _check_cache_config(cfg: CacheConfig) -> None:
+    """Refuse the knob values the port does not run: an unknown state
+    backend, and device retries (ROADMAP Queue 3)."""
     if cfg.state_backend not in ("mpt", "bintrie-shadow"):
         raise ValueError(
             f"unknown state-backend {cfg.state_backend!r} "
@@ -425,7 +417,7 @@ class BlockChain:
         probe and the mirror."""
         from ..trie.triedb import TrieDatabase
 
-        _refuse_not_ported(cache_config)
+        _check_cache_config(cache_config)
         self.device = device
         self.diskdb = diskdb
         self.cache_config = cache_config
@@ -891,6 +883,7 @@ class BlockChain:
             pipeline_depth=self.cache_config.resident_pipeline_depth,
             template_residency=(
                 self.cache_config.resident_template_residency),
+            mesh_devices=self.cache_config.resident_mesh_devices,
             lean_rows=self.cache_config.resident_lean_rows,
             device=self.device,
         )
@@ -912,22 +905,29 @@ class BlockChain:
             return
         self._boot_mirror()
 
-    def take_over_host(self, why: str = "asked by the caller") -> None:
-        """Move the resident mirror to the host after its device stopped
+    def take_over_host(self, why: str = "asked by the caller") -> str:
+        """Move the resident mirror one rung down after its device stopped
         answering (ResidentAccountMirror.take_over_host, under chainmu so
-        no insert runs beside it), note the takeover in the flight
-        recorder and demote the degradation ladder: the takeover's wedged
-        device is the one the ladder tracks, and its probes decide when
-        the device earned its way back (then _on_device_event reboots the
+        no insert runs beside it) and return the rung it landed on. A
+        mesh-sharded mirror lands on a single device (flight event
+        mirror/mesh_demotion; the ladder stays as it is). Otherwise it
+        lands on the host: note the takeover in the flight recorder and
+        demote the degradation ladder, whose probes decide when the
+        device earned its way back (then _on_device_event reboots the
         mirror on it; coreth_tpu/core/blockchain.py:888-896). The port's
         only way off the device: nothing calls it by itself."""
         with self.chainmu:
             if self.mirror is None:
                 raise ChainError("no resident mirror to take over")
-            self.mirror.take_over_host(why)
+            landed = self.mirror.take_over_host(why)
+            if landed == "device":
+                self.flight_recorder.note_event("mirror/mesh_demotion",
+                                                why=why)
+                return landed
             self._mirror_degraded = True
             self.flight_recorder.note_event("mirror/takeover", why=why)
         self._ladder.demote(f"resident mirror takeover: {why}")
+        return landed
 
     def _note_shadow_event(self, kind: str, **fields) -> None:
         """ShadowCommitment event hook (coreth_tpu/core/blockchain.py:856):
@@ -1221,11 +1221,11 @@ class BlockChain:
                 if (d := _metrics.timer(n).total() - timers0[n]) > 0.0
             }
             if mirror is not None:
-                # un-ragged across configs: the reference's unsharded
-                # commits emit an explicit shards=1 (the mesh, item 6, is
-                # not ported, so every commit here is unsharded)
-                rec["resident"]["shards"] = 1
-                _metrics.gauge("resident/shards").update(1)
+                # un-ragged across configs: unsharded commits emit an
+                # explicit shards=1, and gather_bytes=0 rides the
+                # counters dict
+                rec["resident"]["shards"] = mirror.shards
+                _metrics.gauge("resident/shards").update(mirror.shards)
             if mirror is not None and mirror.last_overlap_fraction > 0.0:
                 # overlap of the most recently DRAINED pipelined commit
                 # (drains lag dispatch by up to the window depth, so

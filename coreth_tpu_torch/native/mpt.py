@@ -4,8 +4,12 @@ planner (mpt.cpp, `plan_commit`) and the incremental trie (mpt_inc.cpp,
 
 `plan_commit(items)` lays a sorted (key32 -> value) leaf set out natively
 as the planned executor's word stream and patch tables; the plan runs on
-the host (`CommitPlan.execute_cpu`, threaded keccak: the oracle) or through
-ops/keccak_planned.PlannedCommit (`execute_planned`: kernel K1 on CUDA).
+the host (`CommitPlan.execute_cpu`, threaded keccak: the oracle), through
+ops/keccak_planned.PlannedCommit (`execute_planned`: kernel K1 on CUDA), or
+in the byte-space layout of the legacy executors (`export`): one fused
+commit (`execute_device`, ops/keccak_fused.fused_commit: K2 a segment) or
+one dispatch a segment (`execute_staged`, ops/keccak_staged.StagedCommit:
+K1 a segment).
 
 `IncrementalTrie` keeps a persistent native trie across commits and plans
 only the dirty subtree each time. Its commits run on the host
@@ -13,7 +17,9 @@ only the dirty subtree each time. Its commits run on the host
 native cache (`commit_device`), or device-resident through
 ops/keccak_resident.ResidentExecutor (`commit_resident`, `commit_template`,
 `commit_resident_dispatch`, `commit_resident_timed`), where digests and
-node rows stay on the card from commit to commit.
+node rows stay on the card from commit to commit; on a sharded executor
+(parallel.resident_executor_over_mesh) a template commit absorbs each
+shard's digests from its own store block.
 
 The device half of a resident commit may run under a watchdog
 (`timeout=`, `_run_with_watchdog`): a device that does not answer in time
@@ -24,10 +30,8 @@ worker thread; every native-trie mutation stays on the calling thread, so
 an abandoned worker never races that rehash.
 
 Both libraries are built with g++ into coreth_tpu_torch/_build/ at first
-use; a failed build raises. Not ported here: `CommitPlan.execute_device`
-and `execute_staged` (the legacy fused and staged executors) and the
-per-shard template absorb (ROADMAP "Still to port", items 7 and 6). The
-reference's phase timers are plain attributes: `last_plan_ms`,
+use; a failed build raises. The reference's phase timers are plain
+attributes: `last_plan_ms`,
 `last_export_ms`, `last_host_hash_ms` and `last_absorb_ms` of the last
 commit.
 
@@ -192,8 +196,8 @@ class CommitPlan:
 
     def export(self):
         """(specs, flat_msgs u8, nblocks i32[total_lanes], patch_lane,
-        patch_off, patch_child): the byte-space layout of the legacy fused
-        executor (ROADMAP "Still to port", item 7), kept for parity checks."""
+        patch_off, patch_child): the byte-space layout of the fused and
+        staged executors (execute_device, execute_staged)."""
         if self._exported is not None:
             return self._exported
         lib, h = self._lib, self._h
@@ -246,6 +250,31 @@ class CommitPlan:
                               self.root_pos)
         return root
 
+    def execute_device(self, impl=None, device=None) -> Tuple[bytes,
+                                                             np.ndarray]:
+        """One fused commit (ops/keccak_fused.fused_commit on `device`,
+        None: CUDA, kernel K2; or `impl`, a callable of its first six
+        arguments); returns (root, dig8 uint8[total_lanes, 32])."""
+        from ..ops.keccak_fused import fused_commit
+
+        specs, flat, nblocks, pl, po, pc = self.export()
+        if impl is None:
+            dig8 = fused_commit(specs, flat, nblocks, pl, po, pc,
+                                device=device)
+        else:
+            dig8 = np.asarray(impl(specs, flat, nblocks, pl, po, pc))
+        return dig8[self.root_pos].tobytes(), dig8
+
+    def execute_staged(self, staged=None, want_digests: bool = True,
+                       device=None):
+        """Per-segment dispatches (ops/keccak_staged.StagedCommit: `staged`,
+        else the default one of `device`, None: CUDA, kernel K1); returns
+        (root, dig8 | None)."""
+        runner = staged if staged is not None else _default_staged(device)
+        specs, flat, nblocks, pl, po, pc = self.export()
+        return runner.run(specs, flat, nblocks, pl, po, pc, self.root_pos,
+                          want_digests=want_digests)
+
     def execute_cpu(self, threads: int = 1) -> bytes:
         """Host execution (threaded keccak); returns the 32-byte root."""
         root = np.empty(32, dtype=np.uint8)
@@ -263,6 +292,12 @@ class CommitPlan:
         msg_len = np.empty(self.total_lanes, dtype=np.int32)
         self._lib.mpt_plan_msg_lens(self._h, msg_len)
         return root.tobytes(), dig, msg_len > 0
+
+
+def _default_staged(device=None):
+    from ..ops.keccak_staged import default_staged_commit
+
+    return default_staged_commit(device)
 
 
 def plan_commit(keys: np.ndarray, vals_blob: bytes,
@@ -662,14 +697,18 @@ class IncrementalTrie:
 
         return lambda: _guarded(sync, timeout, "resident drain")
 
-    def commit_template(self, executor, timeout: Optional[float] = None):
+    def commit_template(self, executor, timeout: Optional[float] = None,
+                        full_readback: bool = False):
         """Template-resident commit: the executor keeps this trie's row
         arenas and digest store across commits (uploads carry only fresh
-        content), and the commit's digest matrix is read back and absorbed
+        content), and the commit's digests are read back and absorbed
         into the host cache, so root() and export_nodes() stay valid. Pins
-        its own "template" mode. The whole matrix comes back in one
-        readback; the reference's per-shard absorb waits for multi-GPU
-        (ROADMAP "Still to port", item 6). With `timeout`, the run and the
+        its own "template" mode. Unsharded, the whole digest matrix comes
+        back in one readback. On a sharded executor each shard's digests
+        come back from its own store block (executor.shard_digests: no
+        full matrix crosses shards); full_readback=True takes the one
+        readback there too, counted as the measured gather
+        (executor.note_dig_gather). With `timeout`, the run and the
         readback go under the watchdog; the absorb stays on this thread."""
         if self.num_nodes == 0:
             self._pin_mode("template")
@@ -678,6 +717,9 @@ class IncrementalTrie:
         export = self._resident_export(executor, "template")
         if export is None:
             return self.root()
+        sharded = getattr(executor, "shards", 1) > 1
+        if sharded and not full_readback:
+            return self._absorb_shards(executor, export, timeout)
 
         def sync():
             executor.run(export)
@@ -685,6 +727,8 @@ class IncrementalTrie:
             return executor.host_digests()
 
         dig = _guarded(sync, timeout, "template commit")
+        if sharded:
+            executor.note_dig_gather(export)
         # strip the zero-sentinel row: the native absorb takes global lane
         # order, as the planned path's digest matrix
         dig8 = np.ascontiguousarray(dig[1:]).view(np.uint8).reshape(-1)
@@ -692,6 +736,35 @@ class IncrementalTrie:
         t0 = time.perf_counter()
         self._lib.mpt_inc_res_absorb(self._h, dig8, out)
         self.last_absorb_ms = _ms_since(t0)
+        if int(export["root_lane"]) < 0:
+            return self.root()  # the root is not among this plan's lanes
+        return out.tobytes()
+
+    def _absorb_shards(self, executor, export, timeout):
+        """commit_template's per-shard absorb: run, read each shard's
+        digests back, absorb them lane by lane."""
+        def sync():
+            executor.run(export)
+            failpoint("resident/before_absorb")
+            return executor.shard_digests(export)
+
+        parts = _guarded(sync, timeout, "template commit")
+        out = np.empty(32, np.uint8)
+        t0 = time.perf_counter()
+        for lanes_k, digs_k in parts:
+            if lanes_k.shape[0]:
+                self._lib.mpt_inc_res_absorb_lanes(
+                    self._h, np.ascontiguousarray(lanes_k, np.int32),
+                    np.ascontiguousarray(digs_k).view(np.uint8).reshape(-1),
+                    lanes_k.shape[0])
+        missed = int(self._lib.mpt_inc_res_absorb_finish(self._h, out))
+        self.last_absorb_ms = _ms_since(t0)
+        if missed:
+            # unabsorbed lanes stay dirty (the next plan re-hashes them),
+            # but a partial absorb means the shard split itself is wrong
+            raise RuntimeError(
+                f"per-shard absorb missed {missed} lane(s): the shard "
+                "partition does not cover the commit's store slots")
         if int(export["root_lane"]) < 0:
             return self.root()  # the root is not among this plan's lanes
         return out.tobytes()

@@ -2,9 +2,10 @@
 of coreth_tpu/ops/device.py.
 
 `get_batch_keccak(mode, device)` hands the tries their batch keccak: the
-planned marker (ops/keccak_planned.PlannedMode: one K1 program a commit)
-or the level-batched seam (LadderedKeccak over BatchedKeccak: K2). "off"
-keeps everything on the CPU hasher.
+planned marker (ops/keccak_planned.PlannedMode: one K1 program a commit),
+the fused marker (FusedModeKeccak: one fused commit a trie, K2 per
+segment) or the level-batched seam (LadderedKeccak over BatchedKeccak:
+K2). "off" keeps everything on the CPU hasher.
 
 The degradation ladder (`DeviceLadder`, one per process as in the
 reference) wraps every laddered device dispatch, with a watchdog when
@@ -52,6 +53,12 @@ Queue 3):
   DeviceWedgedError without starting while it has not, so no two calls
   share the caller's stream or the executor's buffers. One abandoned
   while parked on the dispatch failpoint never starts once released.
+- The fused mode is on the ladder like every other mode: its commit is a
+  DeviceLadder.dispatch, so its errors and the watchdog reach the caller,
+  and while demoted Trie.hash takes the level hasher on the host batch
+  keccak. The reference keeps it off the ladder for A/B comparison, a
+  reason that does not hold where the ladder neither retries nor falls
+  back.
 - Dispatches serialise on one lock of the ladder: Block-STM's threads and
   the insert pipeline's stages reach the same seams (a BatchedKeccak's
   totals, a PlannedCommit's timing fields) from several threads.
@@ -433,6 +440,33 @@ class LadderedKeccak:
             return _host_batch_keccak(msgs)
 
 
+class FusedModeKeccak(LadderedKeccak):
+    """Marker handed to Trie / StateTrie as `batch_keccak`: Trie.hash
+    takes the one-dispatch FusedHasher when `fused` and the dirty set is
+    at least BATCH_THRESHOLD nodes, with fused_commit as its fused impl.
+    Counterpart of coreth_tpu/ops/device.py:FusedModeKeccak. Still
+    callable as the plain batch keccak (K2 under the ladder), so every
+    other consumer of the seam works unchanged.
+
+    `fused` reads False while the ladder is demoted, which sends
+    Trie.hash to the BatchedHasher on the host batch keccak; the fused
+    commit itself is a ladder dispatch (module docstring)."""
+
+    @property
+    def fused(self) -> bool:
+        return self._ladder.healthy
+
+    def fused_commit(self, specs, flat, nblocks, patch_lane, patch_off,
+                     patch_child):
+        """ops/keccak_fused.fused_commit on the seam's device, under the
+        ladder (DeviceDegradedError while demoted)."""
+        from .keccak_fused import fused_commit
+
+        return self._ladder.dispatch(
+            fused_commit, "device fused commit", specs, flat, nblocks,
+            patch_lane, patch_off, patch_child, self.batched.device)
+
+
 def _resolve_seam(device: DeviceLike) -> BatchedKeccak:
     """The device's K2 seam, cached as the ladder's probe function. A
     failure counts ops/device/resolve_fail, keeps its cause for
@@ -464,7 +498,8 @@ def get_batch_keccak(mode: str = "auto", device: DeviceLike = None
                      and account trie in one device program (kernel K1);
                      the marker is still callable as a plain batch keccak
           "auto"     the same as "planned"
-          "fused"    not ported (ROADMAP "Still to port", legacy executors)
+          "fused"    the fused marker: each large trie commit in one fused
+                     commit (FusedHasher), K2 per segment
 
     `device` follows device.resolve: None is CUDA. Unlike the reference,
     "auto" does not fall back to CPU-only hashing when the device is
@@ -473,15 +508,13 @@ def get_batch_keccak(mode: str = "auto", device: DeviceLike = None
     through the process DeviceLadder."""
     if mode == "off":
         return None
-    if mode == "fused":
-        raise NotImplementedError(
-            "device-hasher 'fused' is not ported (ROADMAP 'Still to port', "
-            "item 7: legacy executors)")
-    if mode not in ("batched", "planned", "auto"):
+    if mode not in ("batched", "planned", "auto", "fused"):
         raise ValueError(f"unknown device-hasher mode {mode!r}")
     bk = _resolve_seam(device)
     if mode == "batched":
         return LadderedKeccak(bk)
+    if mode == "fused":
+        return FusedModeKeccak(bk)
     from .keccak_planned import PlannedMode
 
     return PlannedMode(device=bk.device)

@@ -1,9 +1,9 @@
 """Trie node hashing: the recursive CPU Hasher, the level-batched
-BatchedHasher and the planned builder's RLP helpers. Counterpart of
-coreth_tpu/trie/hasher.py (count_keccak_batch at :49, Hasher at :106,
-BatchedHasher at :152, collect_levels_with_paths at :210, new_hasher at
-:238, _keccak_pad at :321, the RLP writers at :447-482). The fused hasher
-is not ported.
+BatchedHasher, the one-dispatch FusedHasher and the planned builder's RLP
+helpers. Counterpart of coreth_tpu/trie/hasher.py (count_keccak_batch at
+:49, Hasher at :106, BatchedHasher at :152, collect_levels_with_paths at
+:210, new_hasher at :238, _keccak_pad at :321, FusedHasher at :332, the
+RLP writers at :447-482).
 
   Hasher         recursive CPU hasher over the native keccak (small dirty
                  sets, where a device round trip costs more than it saves)
@@ -11,8 +11,11 @@ is not ported.
                  hashes each level's node RLP as one batch through a
                  batch keccak (on CUDA: BatchedKeccak, kernel K2); the
                  digests feed the next level's RLP
+  FusedHasher    the whole dirty set in one fused commit
+                 (ops/keccak_fused.py: one upload, child digests patched
+                 into their parents on the device, kernel K2 per segment)
 
-Both are bit-exact: node RLP < 32 bytes is embedded in the parent instead
+All are bit-exact: node RLP < 32 bytes is embedded in the parent instead
 of hashed (coreth trie/hasher.go:160-175), and the root is always hashed.
 """
 
@@ -206,6 +209,118 @@ def _keccak_pad(msg: bytes) -> Tuple[bytes, int]:
     padded[n] ^= 0x01
     padded[-1] ^= 0x80
     return bytes(padded), blocks
+
+
+class FusedHasher:
+    """One-dispatch commit hashing (ops/keccak_fused.py consumer).
+
+    The entire dirty set — every level, every size bucket — ships to the
+    device as one transfer; child digests are patched into parent messages
+    on the device between levels. Bit-exact with Hasher/BatchedHasher.
+
+    fused_impl: a callable of ops/keccak_fused.fused_commit's first six
+    arguments (default: fused_commit on CUDA; the device-hasher "fused"
+    marker passes its laddered dispatch).
+
+    The builder is a single-pass writer: each node's encoded length is
+    cached when it is processed, so parents compute their RLP headers
+    arithmetically and write their body exactly once."""
+
+    def __init__(self, fused_impl=None):
+        self._impl = fused_impl
+
+    def hash_root(self, root) -> HashNode:
+        from ..ops.keccak_fused import FusedBatch
+
+        if not isinstance(root, (ShortNode, FullNode)):
+            raise TypeError("fused hasher needs a Short/Full root")
+        batch = FusedBatch()
+        # per-node info: (kind, payload) where kind is one of
+        #   "gid"   — hashed; payload = global digest index (33 enc bytes)
+        #   "embed" — embedded; payload = raw encoded bytes (no slots)
+        info: dict = {}
+        hashed_nodes: list = []
+
+        def child_len(c) -> int:
+            """Encoded length of a child reference."""
+            if c is None:
+                return 1
+            if isinstance(c, (HashNode, ValueNode)):
+                return _bytes_enc_len(bytes(c))
+            if c.flags.hash is not None:
+                return 33
+            kind, payload = info[id(c)]
+            return 33 if kind == "gid" else len(payload)
+
+        def write_child(c, out: bytearray, patches: list) -> None:
+            if c is None:
+                out.append(0x80)
+                return
+            if isinstance(c, (HashNode, ValueNode)):
+                _write_bytes(bytes(c), out)
+                return
+            if c.flags.hash is not None:
+                _write_bytes(c.flags.hash, out)
+                return
+            kind, payload = info[id(c)]
+            if kind == "gid":
+                out.append(0xA0)
+                patches.append((len(out), payload))
+                out.extend(b"\x00" * 32)
+            else:
+                out.extend(payload)
+
+        for level in collect_levels_with_paths(root):
+            msgs, nblocks, patches, nodes_here = [], [], [], []
+            for n, _path in level:
+                # payload length from cached child lengths
+                if isinstance(n, ShortNode):
+                    key_enc = hex_to_compact(n.key)
+                    payload_len = _bytes_enc_len(key_enc) + child_len(n.val)
+                else:
+                    payload_len = sum(child_len(n.children[i])
+                                      for i in range(16))
+                    v = n.children[16]
+                    payload_len += (_bytes_enc_len(bytes(v))
+                                    if isinstance(v, ValueNode) else 1)
+                total_len = _list_hdr_len(payload_len) + payload_len
+
+                buf = bytearray()
+                node_patches: list = []
+                _write_list_hdr(payload_len, buf)
+                if isinstance(n, ShortNode):
+                    _write_bytes(key_enc, buf)
+                    write_child(n.val, buf, node_patches)
+                else:
+                    for i in range(16):
+                        write_child(n.children[i], buf, node_patches)
+                    v = n.children[16]
+                    if isinstance(v, ValueNode):
+                        _write_bytes(bytes(v), buf)
+                    else:
+                        buf.append(0x80)
+
+                if total_len < 32 and n is not root:
+                    info[id(n)] = ("embed", bytes(buf))
+                    continue
+                padded, blocks = _keccak_pad(bytes(buf))
+                mi = len(msgs)
+                msgs.append(padded)
+                nblocks.append(blocks)
+                # patch offsets recorded during this node's write
+                for off, gid in node_patches:
+                    patches.append((mi, off, gid))
+                nodes_here.append(n)
+            level_gids = batch.add_level(msgs, nblocks, patches)
+            for n, g in zip(nodes_here, level_gids):
+                info[id(n)] = ("gid", g)
+                hashed_nodes.append((n, g))
+
+        digests = batch.run(self._impl)
+        for n, g in hashed_nodes:
+            n.flags.hash = digests[g]
+            n.flags.dirty = True
+        return HashNode(root.flags.hash)
 
 
 def _bytes_enc_len(b: bytes) -> int:

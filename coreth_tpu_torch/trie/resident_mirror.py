@@ -36,16 +36,32 @@ native threaded hasher for every commit, happens only when the caller
 passes prefer_host=True or sets CORETH_TPU_RESIDENT_HOST=1; the reference
 also starts there when no TPU resolves, the port never. A device that
 stops answering inside `device_timeout` raises DeviceWedgedError to the
-caller (counted in state/resident/device_wedges, with an error log) and
-leaves the applied stack as it was; every later device operation raises
-too, until the caller moves the mirror to the host with take_over_host()
+caller, and a device fault of a commit (device.DEVICE_FAULTS: a K1 launch
+error, a build error) raises as it is; either is counted in
+state/resident/device_wedges, with an error log, and leaves the applied
+stack as it was. The device's resident state is not trusted after it:
+every later device operation raises DeviceWedgedError, until the caller
+moves the mirror down a rung with take_over_host()
 (counted in state/resident/device_takeovers) or rebuilds it. Where the
 reference takes over on the host by itself, the port never moves work
 off the card unasked. The chain boots it (core/blockchain.py _boot_mirror,
 after the "auto" probe) and takes it over through
 BlockChain.take_over_host(), which notes the takeover in its flight
-recorder. The mesh rung (mesh_devices, the single-device demotion)
-waits for ROADMAP "Still to port", item 6.
+recorder.
+
+The mesh rung: with mesh_devices = n > 0 the executor's store and arenas
+are split by rows over make_mesh(n, device=device)
+(parallel.resident_executor_over_mesh: the first n CUDA devices when
+`device` is None, n positions on the one device named otherwise). The
+ladder is mesh -> single device -> host, one rung a take_over_host()
+call: from the mesh, the host oracle rehashes the trie, a fresh
+single-device executor recommits it, and the root must equal the
+oracle's (state/resident/mesh_demotions; a rebuild that fails or
+diverges counts state/resident/mesh_demotion_failures and lands on the
+host instead; a mesh spanning processes skips to the host,
+state/resident/mesh_demotion_cross_process_skips). The reference walks
+that ladder by itself when a commit wedges; the port raises the wedge
+and walks it only when asked (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -55,7 +71,7 @@ import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from ..device import DeviceLike, DeviceWedgedError
+from ..device import DEVICE_FAULTS, DeviceLike, DeviceWedgedError
 from ..fault import FailpointError, failpoint
 from ..fault import register as _register_failpoint
 from ..native.mpt import IncrementalTrie
@@ -102,10 +118,6 @@ class ResidentAccountMirror:
                  device: DeviceLike = None):
         import os
 
-        if mesh_devices and int(mesh_devices) > 0:
-            raise NotImplementedError(
-                "the mesh-sharded resident mirror is not ported (ROADMAP "
-                "'Still to port', item 6: multi-GPU)")
         if cpu_threads is None or int(cpu_threads) <= 0:
             from ..native import default_cpu_threads
 
@@ -125,9 +137,18 @@ class ResidentAccountMirror:
 
             default_registry.counter("state/resident/cpu_fastpath").inc(1)
         elif executor is None:
-            from ..ops.keccak_resident import ResidentExecutor
+            if mesh_devices and int(mesh_devices) > 0:
+                # MeshConfigError propagates: an impossible width is a
+                # configuration error, not a reason to run unsharded
+                from ..parallel import make_mesh, resident_executor_over_mesh
 
-            executor = ResidentExecutor(device=device)
+                executor = resident_executor_over_mesh(
+                    make_mesh(int(mesh_devices), device=device))
+            else:
+                from ..ops.keccak_resident import ResidentExecutor
+
+                executor = ResidentExecutor(device=device)
+        self.mesh_devices = int(mesh_devices or 0)
         self.ex = executor  # None in host mode unless the caller passed one
         # cross-commit device pipelining: up to [pipeline_depth] verified
         # commits may stay IN FLIGHT on the device, each optimistically
@@ -226,7 +247,7 @@ class ResidentAccountMirror:
                             self.ex, self.device_timeout)
                     return self.trie.commit_resident_timed(
                         self.ex, self.device_timeout)
-                except DeviceWedgedError as e:
+                except DEVICE_FAULTS as e:
                     raise self._wedge(e)
 
     def _commit_scope(self) -> bytes:  # guarded-by: _lock
@@ -235,7 +256,7 @@ class ResidentAccountMirror:
         the trie stays at the applied stack's head."""
         try:
             return self._commit_root()
-        except DeviceWedgedError:
+        except DEVICE_FAULTS:
             self.trie.rollback()
             raise
 
@@ -246,10 +267,12 @@ class ResidentAccountMirror:
                 "call take_over_host() or rebuild the mirror")
 
     def _wedge(self, e: Exception) -> Exception:  # guarded-by: _lock
-        """Mark the device as gone, the first time loudly (the
-        state/resident/device_wedges counter, an error log), and return
-        `e` for the caller to raise. The watchdog's abandoned worker may
-        still run on the executor, so nothing touches the device again:
+        """Mark the device as gone (a wedge, or a device fault that may
+        have left the executor's state half written), the first time
+        loudly (the state/resident/device_wedges counter, an error log),
+        and return `e` for the caller to raise. The watchdog's abandoned
+        worker may still run on the executor, so nothing touches the
+        device again:
         the mirror keeps its records and the host trie its values, and
         every later device operation raises until take_over_host()."""
         if self._wedged is None:
@@ -259,28 +282,108 @@ class ResidentAccountMirror:
             self._wedged = str(e)
             default_registry.counter("state/resident/device_wedges").inc(1)
             get_logger("state").error(
-                "resident device backend wedged (%s): the mirror raises "
-                "until take_over_host() or a rebuild", e)
+                "resident device backend wedged or failed (%r): the mirror "
+                "raises until take_over_host() or a rebuild", e)
         return e
 
+    @property
+    def shards(self) -> int:
+        """Shards behind the current rung (1 on the host, on a single
+        device, or after a mesh demotion): the flight record's un-ragged
+        `resident.shards`."""
+        if self.host_mode or self.ex is None:
+            return 1
+        return int(getattr(self.ex, "shards", 1))
+
     @_locked  # guarded-by: _lock
-    def take_over_host(self, why: str = "asked by the caller") -> None:
-        """Move this mirror to the host for good, on the caller's request
-        (the way on after a DeviceWedgedError, short of a rebuild):
-        rebuild the full host digest cache (the device store is
-        unreachable), settle any in-flight pipelined window there, and
-        degrade the next export to a full image. The mirror keeps ALL
-        state — records, journal, branch logic — so verify/accept/reject/
-        reorg continue with identical roots; only the hashing runs on the
-        CPU. Loud: the state/resident/device_takeovers counter and an
-        error log. In host mode already, a no-op."""
+    def take_over_host(self, why: str = "asked by the caller") -> str:
+        """Move this mirror one rung down, on the caller's request (the
+        way on after a DeviceWedgedError, short of a rebuild), and return
+        the rung it landed on: "device" after a mesh demotion
+        (_demote_mesh), else "host". On the host for good: rebuild the
+        full host digest cache (the device store is unreachable) and
+        degrade the next export to a full image (counted in
+        state/resident/device_takeovers, with an error log). Either way
+        any in-flight pipelined window settles on the landing rung. The
+        mirror keeps ALL state — records, journal, branch logic — so
+        verify/accept/reject/reorg continue with identical roots. In host
+        mode already, a no-op."""
         if self.host_mode:
-            return
+            return "host"
+        window, self._inflight = list(self._inflight), []
+        self._pipeline_gauge()
+        if self._demote_mesh(why):
+            landed = "device"
+        else:
+            self._take_over_host(why)
+            landed = "host"
+        self._replay_window(window)
+        return landed
+
+    def _demote_mesh(self, why: str) -> bool:  # guarded-by: _lock
+        """The mesh rung: from a sharded executor, rebuild residency on a
+        single device (the mesh's first) before giving up the device.
+        Host-oracle rehash (also the digest cache later exports read),
+        then abandon every device row and slot (rebase_residency), then a
+        full recommit on a fresh unsharded executor, which must equal the
+        oracle root. False (the caller lands on the host) at the bottom
+        device rung, on a mesh spanning processes, or when the rebuild
+        fails or diverges."""
+        if self.ex is None or int(getattr(self.ex, "shards", 1)) <= 1:
+            return False
         from ..log import get_logger
         from ..metrics import default_registry
 
-        window, self._inflight = list(self._inflight), []
-        self._pipeline_gauge()
+        if bool(getattr(self.ex, "spans_processes", False)):
+            # the single-device rung is a unilateral local rebuild: on a
+            # mesh spanning processes it would desync the others
+            default_registry.counter(
+                "state/resident/mesh_demotion_cross_process_skips").inc(1)
+            get_logger("state").error(
+                "mesh resident backend demoted (%s) on a mesh spanning "
+                "processes: the single-device rung is unavailable, "
+                "going to the host", why)
+            return False
+        get_logger("state").error(
+            "mesh resident backend demoted (%s): %d-shard mesh to a single "
+            "device: host oracle rehash, fresh residency, recommit of %d "
+            "nodes", why, int(self.ex.shards), self.trie.num_nodes)
+        try:
+            from ..ops.keccak_resident import ResidentExecutor
+
+            host_root = self.trie.rehash_host(threads=self._cpu_threads)
+            ex = ResidentExecutor(seg_impl=self.ex.seg_impl,
+                                  device=self.ex.device,
+                                  pipeline_depth=self.pipeline_depth)
+            self.trie.rebase_residency()
+            self.ex = ex
+            self._wedged = None  # the wedged executor is left behind
+            if self.template:
+                root = self.trie.commit_template(ex, self.device_timeout)
+            else:
+                root = self.trie.commit_resident_timed(
+                    ex, self.device_timeout)
+            if root != host_root:
+                raise MirrorError(
+                    "single-device recommit root does not match the host "
+                    "oracle")
+        except BaseException as rebuild_err:
+            default_registry.counter(
+                "state/resident/mesh_demotion_failures").inc(1)
+            get_logger("state").error(
+                "single-device rebuild failed (%s): going to the host",
+                rebuild_err)
+            return False
+        default_registry.counter("state/resident/mesh_demotions").inc(1)
+        # the device-era delta marks predate the demotion
+        self._export_degraded = True
+        self._dirty_since_export = True
+        return True
+
+    def _take_over_host(self, why: str) -> None:  # guarded-by: _lock
+        from ..log import get_logger
+        from ..metrics import default_registry
+
         default_registry.counter("state/resident/device_takeovers").inc(1)
         get_logger("state").error(
             "resident mirror moving to the host (%s): full rehash of %d "
@@ -295,11 +398,16 @@ class ResidentAccountMirror:
         # uncertainty
         self._export_degraded = True
         self._dirty_since_export = True
-        # recompute every in-flight commit's root serially on the host:
-        # rewind through the window's scopes and replay each batch,
-        # comparing against the header root it was recorded under.
-        # Bit-exact: the host hasher is the oracle the device was checked
-        # against all along.
+
+    def _replay_window(self, window) -> None:  # guarded-by: _lock
+        """Recompute every in-flight commit's root serially on the rung
+        just landed on: rewind through the window's scopes and replay
+        each batch, comparing against the header root it was recorded
+        under. Bit-exact: the host hasher is the oracle the device was
+        checked against all along, and a mesh demotion re-proved its
+        image against it."""
+        from ..metrics import default_registry
+
         for _ in window:
             self._applied.pop()
             self.trie.rollback()
@@ -347,7 +455,7 @@ class ResidentAccountMirror:
             self._check_device()
             resolve = self.trie.commit_resident_dispatch(
                 self.ex, self.device_timeout)
-        except DeviceWedgedError as e:
+        except DEVICE_FAULTS as e:
             # wedge at dispatch: close the current block's open scope, so
             # the window below it stays as it was
             self.trie.rollback()
@@ -379,7 +487,7 @@ class ResidentAccountMirror:
                 t0 = time.monotonic()
                 try:
                     root = ent["resolve"]()
-                except DeviceWedgedError as e:
+                except DEVICE_FAULTS as e:
                     raise self._wedge(e)
                 self._inflight.pop(0)
                 self._note_overlap(ent, t0)
@@ -489,7 +597,7 @@ class ResidentAccountMirror:
                 dev_root = self.trie.commit_resident_timed(
                     self.ex, self.device_timeout)
                 self._absorb_device_store("spot-check store readback")
-        except DeviceWedgedError as e:
+        except DEVICE_FAULTS as e:
             # not a divergence: the device stopped answering
             raise self._wedge(e)
         digs, blob, off = self.trie.export_nodes(delta=False)
@@ -957,7 +1065,7 @@ class ResidentAccountMirror:
                     self.trie.commit_resident_timed(
                         self.ex, self.device_timeout)
                     self._absorb_device_store("store readback")
-            except DeviceWedgedError as e:
+            except DEVICE_FAULTS as e:
                 raise self._wedge(e)
         try:
             digs, blob, off = self.trie.export_nodes(

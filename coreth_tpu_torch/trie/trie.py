@@ -3,8 +3,9 @@ coreth_tpu/trie/trie.py.
 
 Insert/delete/get with lazy node resolution through a NodeReader, hashing
 through the recursive CPU Hasher or, for large dirty sets, the planned
-device commit (trie/planned.py, under a PlannedMode marker) or the
-level-batched BatchedHasher (any other batch keccak), and commit into a
+device commit (trie/planned.py, under a PlannedMode marker), the fused
+commit (FusedHasher, under a FusedModeKeccak marker) or the level-batched
+BatchedHasher (any other batch keccak), and commit into a
 trienode.NodeSet.
 
 Writes after commit are rejected the same way the reference forbids them
@@ -16,7 +17,8 @@ from __future__ import annotations
 from typing import Iterable, Optional, Tuple
 
 from .encoding import key_to_hex, prefix_len
-from .hasher import BATCH_THRESHOLD, BatchedHasher, Hasher, node_to_bytes
+from .hasher import BATCH_THRESHOLD, BatchedHasher, FusedHasher, Hasher, \
+    node_to_bytes
 from .node import (
     EMPTY_ROOT,
     FullNode,
@@ -240,7 +242,9 @@ class Trie:
         trie.planned.planned_fallbacks) or a dispatch the ladder refused
         (DeviceDegradedError: a caller demoted it) goes to the
         BatchedHasher on the marker instead, which runs on the host batch
-        keccak while demoted; any
+        keccak while demoted; a FusedModeKeccak marker (while healthy)
+        hashes them in one fused commit (FusedHasher), going to the
+        BatchedHasher on a refused dispatch the same way; any
         other batch keccak runs the BatchedHasher, one batch per level.
         Otherwise the recursive CPU Hasher."""
         if self.root is None:
@@ -258,6 +262,15 @@ class Trie:
                 except planned.TooManySegments:
                     planned.planned_fallbacks += 1
                     h = BatchedHasher(bk).hash_root(self.root)
+                except DeviceDegradedError:
+                    h = BatchedHasher(bk).hash_root(self.root)
+            elif getattr(bk, "fused", False):
+                # one fused commit for the whole dirty set, child digests
+                # patched on the device between levels
+                from ..ops.device import DeviceDegradedError
+
+                try:
+                    h = FusedHasher(bk.fused_commit).hash_root(self.root)
                 except DeviceDegradedError:
                     h = BatchedHasher(bk).hash_root(self.root)
             else:

@@ -9,7 +9,7 @@ gating.
 Every knob that no module of the port reads raises NotImplementedError
 from validate(), naming its ROADMAP item, when set away from its default
 (NOT_PORTED): the knobs of parts the port does not have (the RPC server,
-gossip, state sync, the keystore, the profilers, the mesh) and those of
+gossip, state sync, the keystore, the profilers) and those of
 config.go that neither package's VM or chain reads.
 A VM never boots with a knob silently ignored; keys Config does not know
 are ignored, as the reference ignores them. device-max-retries is
@@ -154,12 +154,13 @@ class Config:
     # while the device keeps row arenas + digest store resident, so
     # uploads carry only fresh leaf content. Excludes pipelining
     resident_template_residency: bool = False
-    # mesh-sharded resident commits: shard the digest store + row arenas
-    # P('batch', None) over this many devices (the promoted MULTICHIP
-    # dryrun path). 0 = unsharded single-device executor (default);
-    # widths must divide the 16-lane planner bucket, so 1/2/4/8. A wedge
-    # demotes mesh -> single-device resident -> host, each rung
-    # bit-exact vs the host oracle
+    # mesh-sharded resident commits: split the mirror's digest store +
+    # row arenas by rows over this many mesh positions (parallel.
+    # make_mesh on the VM's device argument). 0 = unsharded single-device
+    # executor (default); widths must divide the 16-lane planner bucket,
+    # so 1/2/4/8. The caller's take_over_host() demotes mesh ->
+    # single-device resident -> host, each rung bit-exact vs the host
+    # oracle
     resident_mesh_devices: int = 0
     # native CPU hasher worker threads (plan execute + batch keccak);
     # 0 = auto (env CORETH_TPU_CPU_THREADS, else min(16, cores))
@@ -539,7 +540,6 @@ NOT_PORTED = (
      ("profiler_hz", "profiler_ring_size", "metrics_http_enabled",
       "metrics_http_host", "metrics_http_port")),
     ("10 (utils/racecheck.py: lock telemetry)", ("lock_slow_hold_budget",)),
-    ("6 (multi-GPU)", ("resident_mesh_devices",)),
     ("10 (config.go knobs that neither package's VM or chain reads)",
      ("trie_clean_cache", "trie_dirty_commit_target", "snapshot_cache",
       "accepted_cache_size", "preimages_enabled", "snapshot_async",

@@ -419,6 +419,37 @@ edge = {keccak256(b): b for k in (leaves[3][0], leaves[20][0])
 assert verify_range_proof(t.hash(), leaves[3][0], leaves[20][0],
                           [k for k, _ in leaves[3:21]],
                           [v for _, v in leaves[3:21]], edge) is True
+
+# the mesh and the legacy executors: ShardedKeccak and commit_step on a
+# virtual 4-position CPU mesh, the fused, staged and mesh-planned commits
+# of one plan, a 4-shard resident mirror walked down its ladder, and a
+# trie in device-hasher "fused"
+from coreth_tpu_torch.native.mpt import plan_from_items
+from coreth_tpu_torch.ops.keccak_torch import pack_messages
+from coreth_tpu_torch.parallel import (ShardedKeccak, commit_step, make_mesh,
+                                       planned_commit_over_mesh)
+from coreth_tpu_torch.trie.resident_mirror import ResidentAccountMirror
+
+mesh = make_mesh(4, device="cpu")
+mmsgs = [rng.randbytes(rng.randint(0, 300)) for _ in range(40)]
+assert ShardedKeccak(mesh).digests(mmsgs) == [keccak256(m) for m in mmsgs]
+mwords, mnb = pack_messages(mmsgs[:32])
+mout, msum = commit_step(mesh)(mwords, mnb)
+assert int(msum) == int(mout.long().sum()) % 2**32
+mitems = sorted({rng.randbytes(32): rng.randbytes(rng.randint(1, 90))
+                 for _ in range(300)}.items())
+mplan = plan_from_items(mitems)
+mroot = mplan.execute_cpu()
+assert mplan.execute_device(device="cpu")[0] == mroot
+assert mplan.execute_staged(device="cpu")[0] == mroot
+assert mplan.execute_planned(planned_commit_over_mesh(mesh)) == mroot
+mm = ResidentAccountMirror(mitems, mesh_devices=4, device="cpu")
+assert mm.root_of(mm.GENESIS) == mroot and mm.shards == 4
+assert mm.take_over_host() == "device" and mm.take_over_host() == "host"
+ft = Trie(batch_keccak=get_batch_keccak("fused", "cpu"))
+for k, v in mitems:
+    ft.update(k, v)
+assert ft.hash() == mroot
 leaked = [m for m in sys.modules if refused(m)]
 assert not leaked, leaked
 print("ISOLATED-OK")
@@ -483,7 +514,10 @@ def test_no_source_imports_jax_or_coreth_tpu():
                 "precompile/tpu_keccak.py", "bintrie/__init__.py",
                 "bintrie/tree.py", "bintrie/planned.py", "bintrie/witness.py",
                 "bintrie/backend.py", "bintrie/shadow.py", "trie/proof.py",
-                "trie/proof_range.py", "state/commitment.py"):
+                "trie/proof_range.py", "state/commitment.py",
+                "parallel/__init__.py", "ops/keccak_fused.py",
+                "ops/keccak_staged.py", "ops/keccak_resident.py",
+                "trie/hasher.py"):
         assert os.path.join("coreth_tpu_torch", mod) in names, mod
     assert not bad, bad
 
@@ -516,10 +550,17 @@ def test_entry_points_without_cuda_raise(monkeypatch):
         BatchedKeccak()
     with pytest.raises(RuntimeError):
         keccak256_batch([b"abc"])
-    for mode in ("batched", "planned", "auto"):
+    for mode in ("batched", "planned", "auto", "fused"):
         with pytest.raises(RuntimeError):
             get_batch_keccak(mode)
     assert get_batch_keccak("off") is None
+    from coreth_tpu_torch.ops.keccak_fused import fused_commit
+    from coreth_tpu_torch.ops.keccak_staged import StagedCommit
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StagedCommit()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fused_commit((), b"", [], [], [], [])
 
 
 def test_resident_entry_points_without_cuda_raise(monkeypatch):

@@ -283,8 +283,17 @@ def test_executor_refuses_a_second_trie_and_modes_are_pinned():
     with pytest.raises(ValueError, match="row limit"):
         t4.commit_resident(ResidentExecutor(device="cpu"))
     assert t4.commit_cpu() == _oracle({b"\x01" * 32: b"\x00" * 9000})
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ResidentExecutor(device="cpu", sharding=object())
+    # a sharded executor (the mesh, parallel.RowSharding) is one more
+    # executor of the same trie: its device is the sharding's first
+    from coreth_tpu_torch.parallel import RowSharding, make_mesh
+
+    sharding = RowSharding(make_mesh(2, device="cpu"))
+    t5 = IncrementalTrie(items)
+    ex5 = ResidentExecutor(device="cpu", sharding=sharding)
+    assert ex5.shards == 2
+    assert ex5.root_bytes(t5.commit_resident(ex5)) == t3.commit_cpu()
+    with pytest.raises(RuntimeError, match="another trie"):
+        IncrementalTrie(items).commit_resident(ex5)
 
 
 def test_pipelined_dispatch_with_rejected_block():

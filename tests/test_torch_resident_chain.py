@@ -20,9 +20,8 @@ flight recorder notes). The retried insert then lands, and the final
 roots and heads equal the reference chain's, which took over by itself.
 A wedge in the acceptor's interval export lands in acceptor_error.
 
-Beside them: "auto" is off with device="cpu"; each knob of a part that is
-not ported raises, naming its ROADMAP item; a device that does not
-resolve refuses the chain.
+Beside them: "auto" is off with device="cpu"; the mesh knob shards the
+port's mirror; a device that does not resolve refuses the chain.
 """
 
 import random
@@ -704,14 +703,21 @@ def test_ladder_knobs_configure_the_ladder(knob, value, want):
         lad.reset()
 
 
-@pytest.mark.parametrize("knob,value,item", [
-    ("resident_mesh_devices", 4, "item 6"),
-])
-def test_not_ported_knobs_raise(knob, value, item):
-    cfg = CacheConfig(**{knob: value})
-    with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
-        BlockChain(MemoryDB(), cfg, params.TEST_CHAIN_CONFIG, _genesis(),
-                   new_dummy_engine(), device="cpu")
+@pytest.mark.parametrize("width", [2, 4])
+def test_mesh_knob_matches_reference(width):
+    """resident_mesh_devices, which raised before the mesh was ported:
+    the port's chain shards its mirror `width` ways (virtual positions on
+    the chain's CPU device) and lands the reference's unsharded chain's
+    roots and states; the flight record says how many shards."""
+    c = Chains(port_knobs={"resident_mesh_devices": width})
+    assert c.port.mirror.shards == c.port.mirror.ex.shards == width
+    for b in c.blocks(3, tx_gen()):
+        c.do("insert_block", b)
+        c.check()
+        c.do("accept", b)
+    c.check()
+    assert c.port.flight_recorder.last(1)[0]["resident"]["shards"] == width
+    c.stop()
 
 
 @pytest.mark.parametrize("knobs,shadow,interval", [

@@ -515,14 +515,19 @@ def test_spans_record_each_commit():
 def test_device_rules(monkeypatch):
     """None is CUDA and raises without it; "cpu" and host mode only when
     asked (the argument, or CORETH_TPU_RESIDENT_HOST=1); the mesh rung
-    raises naming its ROADMAP item."""
+    takes the first n CUDA devices for None (none here: MeshConfigError)
+    and n positions on the device named."""
+    from coreth_tpu_torch.parallel import MeshConfigError
+
     items = [(b"\x01" * 32, b"v" * 40), (b"\x02" * 32, b"w")]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ResidentAccountMirror(items)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ResidentAccountMirror(items, mesh_devices=4, device="cpu")
+    with pytest.raises(MeshConfigError, match="only 0 CUDA device"):
+        ResidentAccountMirror(items, mesh_devices=4)
     want = _oracle(dict(items))
+    mesh = ResidentAccountMirror(items, mesh_devices=4, device="cpu")
+    assert mesh.shards == 4 and mesh.root_of(mesh.GENESIS) == want
     assert ResidentAccountMirror(items, device="cpu").root_of(
         ResidentAccountMirror.GENESIS) == want
     fastpath = _counter("state/resident/cpu_fastpath")

@@ -496,20 +496,37 @@ def test_genesis_on_card_equals_cpu(mode):
     assert stores[0] == stores[1]
 
 
-def test_what_is_not_ported_raises():
-    """The parts of the slice left for later items raise instead of
-    running something else: the resident mirror's mesh rung. (The
-    snapshot tree landed with the chain, the speculative execution modes
-    with item 3b.3, and the bintrie shadow under the state layer and the
-    stateful precompiles, which raised here before, with item 9: a
-    genesis with an enabled precompile now commits its activation.)"""
+def test_what_raised_before_now_runs():
+    """The parts of the state layer that raised before their items
+    landed run: the resident mirror's mesh rung (a StateDB block commit
+    over a 2-shard mirror lands the unsharded mirror's root), the
+    snapshot tree (with the chain), the speculative execution modes
+    (item 3b.3), and the bintrie shadow and the stateful precompiles
+    (item 9: a genesis with an enabled precompile commits its
+    activation)."""
     from coreth_tpu_torch.core.types import Block, Header
     from coreth_tpu_torch.precompile import TPU_KECCAK_ADDR, TpuKeccakConfig
+    from coreth_tpu_torch.trie.iterator import iterate_leaves
     from coreth_tpu_torch.trie.resident_mirror import ResidentAccountMirror
 
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ResidentAccountMirror([(b"\x01" * 32, b"v")], mesh_devices=2,
-                              device="cpu")
+    diskdb = MemoryDB()
+    tdb = TrieDatabase(diskdb)
+    gen = genesis.Genesis(config=params.TEST_CHAIN_CONFIG, alloc={
+        bytes([i]) * 20: genesis.GenesisAccount(balance=10**18 + i)
+        for i in range(1, 40)}).commit(diskdb, Database(tdb))
+    leaves = list(iterate_leaves(tdb.open_trie(gen.root)))
+    roots = []
+    for width in (0, 2):
+        db = Database(TrieDatabase(diskdb))
+        db.mirror = ResidentAccountMirror(leaves, mesh_devices=width,
+                                          device="cpu")
+        assert db.mirror.shards == max(1, width)
+        sdb = StateDB(gen.root, db)
+        for i in range(1, 6):
+            sdb.add_balance(bytes([i]) * 20, 7 * i)
+        roots.append(sdb.commit(True, block_hash=b"\x07" * 32,
+                                parent_block_hash=db.mirror.GENESIS))
+    assert roots[0] == roots[1] != gen.root
 
     cfg = params.avalanche_local_chain_config()
     cfg.precompile_upgrades = (TpuKeccakConfig(timestamp=0),)

@@ -284,11 +284,12 @@ def test_get_batch_keccak_modes():
     assert get_batch_keccak("off") is None
     assert get_batch_keccak("planned", device="cpu").planned
     assert get_batch_keccak("auto", device="cpu").planned
-    with pytest.raises(NotImplementedError, match="item 7"):
-        get_batch_keccak("fused", device="cpu")
+    fused = get_batch_keccak("fused", device="cpu")
+    assert fused.fused and not getattr(fused, "planned", False)
     with pytest.raises(ValueError):
         get_batch_keccak("turbo", device="cpu")
     msgs = [b"", b"abc", bytes(300)]
     want = keccak256_batch(msgs)
     assert get_batch_keccak("batched", device="cpu")(msgs) == want
     assert get_batch_keccak("planned", device="cpu")(msgs) == want
+    assert fused(msgs) == want

@@ -443,7 +443,6 @@ def test_vm_boots_from_config_bytes():
     ("profiler-hz", 100.0, "item 8"),
     ("metrics-http-enabled", True, "item 8"),
     ("lock-slow-hold-budget", 0.5, "item 10"),
-    ("resident-mesh-devices", 4, "item 6"),
     ("rpc-batch-limit", 10, "item 10"),
     ("eth-apis", ["eth", "debug"], "item 10"),
     ("rpc-max-workers", 2, "item 10"),
@@ -468,6 +467,34 @@ def test_not_ported_knob_raises(knob, value, item):
         VM().initialize(SnowContext(shared_memory=Memory()), MemoryDB(), gen,
                         config_bytes=blob, device="cpu")
     assert set(threading.enumerate()) <= before
+
+
+@pytest.mark.parametrize("knobs", [
+    {"resident-account-trie": True, "resident-mesh-devices": 4},
+    {"device-hasher": "fused"},
+], ids=["mesh", "fused"])
+def test_mesh_and_fused_knobs_boot(knobs):
+    """The knobs of items 6 and 7, which refused the boot before they
+    were ported: the port's VM runs with them (the mesh on four
+    positions of its CPU device; the fused marker as the state's seam)
+    and builds, verifies and accepts the reference's block."""
+    from coreth_tpu_torch.ops.device import FusedModeKeccak
+
+    t = Twin(config_bytes=json.dumps(knobs).encode())
+    chain = t.vm["port"].blockchain
+    assert t.same(lambda pkg, vm: (vm.full_config.resident_mesh_devices,
+                                   vm.full_config.device_hasher)) == (
+        knobs.get("resident-mesh-devices", 0),
+        knobs.get("device-hasher", "auto"))
+    if "resident-mesh-devices" in knobs:
+        assert chain.mirror.shards == 4
+    else:
+        assert isinstance(chain.state_database.triedb.batch_keccak,
+                          FusedModeKeccak)
+    t.issue_tx(signed_transfer(0))
+    t.lifecycle(t.build())
+    assert t.balance(DEST) == 1
+    t.shutdown()
 
 
 def test_left_out_parts_raise_or_stay_none():

@@ -1,17 +1,21 @@
-"""The JAX package's planned executor on the CPU, for the tests that hold
-the port's bintrie planned commit and shadow against the reference.
+"""The JAX package's device programs on the CPU with its host Keccak-f,
+for the tests that hold the port against the reference.
 
-Its default executor compiles an XLA scan of Keccak-f per segment shape,
+Its default executors compile an XLA scan of Keccak-f per segment shape,
 about a minute on the CPU. The tests plug the JAX package's reference
-Keccak-f (ops/keccak_ref.keccak_f1600, over numpy lanes) into its
-PlannedCommit's per-segment form (fused=False) at the seg_impl seam, as
-tests/test_torch_statedb.py does; the patch tables, the digest table and
-the executor's run are still the reference's own."""
+Keccak-f (ops/keccak_ref.keccak_f1600, over numpy lanes) in where the
+hash goes: its PlannedCommit's per-segment form (fused=False) and its
+sharded executors at the seg_impl seam, as tests/test_torch_statedb.py
+does, and its fused commit's variable-length segment hash
+(keccak_fused._keccak_segment, re-traced with jax_fused_commit). The
+patch tables, the digest tables and the executors' runs are still the
+reference's own."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from coreth_tpu.ops import keccak_fused as jkeccak_fused
 from coreth_tpu.ops import keccak_planned as jkeccak_planned
 from coreth_tpu.ops.keccak_ref import keccak_f1600 as j_keccak_f1600
 
@@ -35,7 +39,39 @@ def host_segment_keccak(words):
     return out
 
 
-def _seg_impl(words):
+def host_keccak_blocks(words, nblocks):
+    """uint32[P, L, 34] + int32[P] -> uint32[P, 8]: each lane hashed over
+    its own block count, an all-zero digest where the count is outside
+    [1, L] (the reference's masked scan, keccak_fused._keccak_segment)."""
+    w = np.asarray(words)
+    nb = np.asarray(nblocks)
+    out = np.zeros((w.shape[0], 8), np.uint32)
+    for b in range(1, w.shape[1] + 1):
+        sel = np.nonzero(nb == b)[0]
+        if sel.size:
+            out[sel] = host_segment_keccak(w[sel, :b])
+    return out
+
+
+def _keccak_segment(words, nblocks):
+    return jax.pure_callback(
+        host_keccak_blocks,
+        jax.ShapeDtypeStruct((words.shape[0], 8), jnp.uint32), words,
+        nblocks)
+
+
+def jax_fused_commit(monkeypatch):
+    """The JAX package's fused_commit re-traced over host_keccak_blocks,
+    installed as its module's fused_commit (FusedHasher's default)."""
+    monkeypatch.setattr(jkeccak_fused, "_keccak_segment", _keccak_segment)
+    fn = jax.jit(jkeccak_fused.fused_commit.__wrapped__,
+                 static_argnames=("specs",))
+    monkeypatch.setattr(jkeccak_fused, "fused_commit", fn)
+    return fn
+
+
+def seg_impl(words):
+    """The host Keccak-f at the JAX package's seg_impl seams."""
     return jax.pure_callback(
         host_segment_keccak,
         jax.ShapeDtypeStruct((words.shape[0], 8), jnp.uint32), words)
@@ -45,7 +81,7 @@ def jax_planned_commit():
     """One shared JAX PlannedCommit on the host Keccak-f (its compiled
     steps are cached on the instance)."""
     if not _COMMIT:
-        _COMMIT.append(jkeccak_planned.PlannedCommit(seg_impl=_seg_impl,
+        _COMMIT.append(jkeccak_planned.PlannedCommit(seg_impl=seg_impl,
                                                      fused=False))
     return _COMMIT[0]
 
