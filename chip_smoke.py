@@ -124,10 +124,12 @@ Phases (each passes or the script exits non-zero):
      work stays under `if __name__ == "__main__"`
   7d. VM: --vm-blocks (2) blocks of the EVM phase's mix (368 signed
      transactions from the keyed accounts' next nonces, 23 of them calls
-     that store 20 slots and log) through the VM on that chain: each
-     transaction issued through vm.issue_tx, and in the first block one
-     ImportTx (consuming a UTXO seeded into the shared memory from the X
-     chain) and one ExportTx through vm.issue_atomic_tx; then
+     that store 20 slots and log) through the VM on that chain, fed over
+     JSON-RPC: create_handlers(vm) (eth-apis plus debug and txpool)
+     serves HTTP on a free loopback port, each transaction goes in as
+     eth_sendRawTransaction in batches of RPC_BATCH (100), and in the
+     first block one ImportTx (consuming a UTXO seeded into the shared
+     memory from the X chain) and one ExportTx go in as avax.issueTx; then
      vm.build_block() (the miner from the tx pool and the atomic mempool;
      finalize_and_assemble's intermediate_root: the storage programs on
      K1 under the degradation ladder, the account trie on the mirror's
@@ -139,15 +141,26 @@ Phases (each passes or the script exits non-zero):
      plus the atomic txs' balance and nonce changes); the head is
      vm.last_accepted(); the mempool and the tx pool end empty; the shared
      memory holds the export's UTXO and not the import's; no loud,
-     fallback or ops/device/* counter moves. Per block it prints issue,
+     fallback or ops/device/* counter moves. After each block, reads over
+     RPC held against the block and the oracle's world (rpc_block_reads:
+     the block, receipts, every touched balance and written slot, logs,
+     eth_call and eth_estimateGas of a contract call, fee history, the
+     atomic txs' status, health.check, debug_deviceStatus, and /metrics
+     and /healthz of the metrics endpoint the VM's config starts); after
+     the first, 16 eth_getProof at the resident head, each verified
+     against the header root (rpc_proofs), so that the second block's
+     delta is still on the card for the shutdown export. Any error object
+     fails the run. Per block it prints issue,
      build, verify and accept ms, the K1 launches of build and verify
      (storage programs, resident executor), the flight record's phases,
      the mirror's window and Mgas/s over build + verify; the K1 launches
      are recorded and held against the plain version. Then vm.shutdown()
-     (the chain's stop() and its shutdown export), the forkserver and the
-     resource tracker stopped (exec_shards.stop_servers), and no process
-     the run started may be left, here and again at the end; the last
-     accepted root reads back through a fresh TrieDatabase
+     (the RPC server's drain and stop, the metrics endpoint, the chain's
+     stop() and its shutdown export), the forkserver and the resource
+     tracker stopped (exec_shards.stop_servers), and no process the run
+     started may be left, here and again at the end, nor a thread the
+     phase started; the last accepted root reads back through a fresh
+     TrieDatabase
   8. the mirrors (the resident path, K1): one ordered leaf scan
      (trie/iterator.iterate_leaves) of the planned genesis' persisted
      account trie boots three ResidentAccountMirrors, each installed on a
@@ -219,7 +232,12 @@ Phases (each passes or the script exits non-zero):
      every K2 input of the precompile is recorded and held against the
      plain versions; the launches are logged by source, with the
      bintrie/planned counters and the chain/commit/mpt and
-     chain/commit/bintrie timers
+     chain/commit/bintrie timers. Over JSON-RPC after the last block
+     (rpc_commitment): one eth_call of keccak256Batch over 128 seeded
+     512-byte messages (one K2 launch on the server's expensive lane;
+     the digests native keccak256's), debug_stateWitness of 16 touched
+     accounts verified against the returned bintrieRoot, and
+     debug_commitmentStatus unquarantined
   8d. mesh and legacy executors: a trie of --mesh-accounts (100,000)
      seeded leaves and 3 blocks of 2,000 updates (the native host
      planner's root of each state the oracle), on meshes of width 1 on
@@ -251,6 +269,8 @@ JSON line).
   10. fallback: Genesis.commit of a small state on the planned marker with
      MAX_SEGMENTS lowered, so that TooManySegments sends it to
      BatchedHasher on K2
+The closing "rpc:" line holds the run's requests, their wall and p50 /
+p99 per method, beside the card's name and power limit.
 Before the last line it prints one JSON object describing each kernel
 (launches on its main paths, max error, ms, plain ms, bound ms, and per
 variant its launches and kernel ms in the profiler's trace; K1's entry
@@ -274,6 +294,8 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
+import urllib.request
 from collections import defaultdict
 from unittest import mock
 
@@ -295,6 +317,7 @@ from coreth_tpu_torch.core.state_manager import ResidentTrieWriter
 from coreth_tpu_torch.core.types import Block, Signer, Transaction
 from coreth_tpu_torch.crypto.secp256k1 import priv_to_address
 from coreth_tpu_torch.device import DeviceWedgedError, resolve
+from coreth_tpu_torch.ethclient import Client, ClientError
 from coreth_tpu_torch.ethdb import KeyValueStore, MemoryDB
 from coreth_tpu_torch.native import keccak256, keccak256_batch, mpt
 from coreth_tpu_torch.native.mpt import IncrementalTrie, plan_from_items
@@ -324,6 +347,7 @@ from coreth_tpu_torch.trie.hasher import Hasher
 from coreth_tpu_torch.trie.iterator import iterate_leaves
 from coreth_tpu_torch.trie.node import EMPTY_ROOT, ProofError
 from coreth_tpu_torch.trie.proof import prove as mpt_prove
+from coreth_tpu_torch.trie.proof import verify_proof
 from coreth_tpu_torch.trie.proof_range import verify_range_proof
 from coreth_tpu_torch.trie.planned import PlannedGraphBuilder
 from coreth_tpu_torch.trie.resident_mirror import ResidentAccountMirror
@@ -331,6 +355,8 @@ from coreth_tpu_torch.trie.secure import StateTrie
 from coreth_tpu_torch.trie.trie import trie_from_items
 from coreth_tpu_torch.trie.triedb import TrieDatabase
 from coreth_tpu_torch.vm import atomic_tx
+from coreth_tpu_torch.vm.api import create_handlers
+from coreth_tpu_torch.vm.config import DEFAULT_ETH_APIS
 from coreth_tpu_torch.vm.shared_memory import Element, Memory, Requests
 from coreth_tpu_torch.vm.vm import VM, SnowContext
 
@@ -416,6 +442,14 @@ EVM_COINBASE = b"\x00" * 20  # chain_makers' header coinbase
 PIPELINE_DEPTH = 2
 OPTION_WORKERS = 4
 OPTION_SHARDS = 2
+# the RPC tier (phases 7d and 8c): the reference's default eth-apis plus
+# the debug and txpool namespaces, as a node operator opts them in; the
+# transactions go in JSON-RPC batches of at most rpc-batch-limit
+RPC_APIS = DEFAULT_ETH_APIS + ["debug", "txpool"]
+RPC_BATCH = 100
+RPC_PROOFS = 16       # eth_getProof accounts after the first VM block
+RPC_PROOF_SLOTS = 4   # slots each
+RPC_WITNESSES = 16    # debug_stateWitness accounts on the commitment VM
 
 
 def check(cond: bool, what: str) -> None:
@@ -516,6 +550,91 @@ def descendants() -> list:
                 out.append((c, comm))
                 todo.append(c)
     return out
+
+
+class RpcStats:
+    """The run's requests: latencies by method (a batch under "<method>
+    batch", its requests counted one by one), the count and the wall."""
+
+    def __init__(self):
+        self.lat = defaultdict(list)  # method -> [ms]
+        self.requests = 0
+        self.wall = 0.0
+
+    def summary(self) -> str:
+        return (f"{self.requests} requests in {self.wall:.3f} s; per method "
+                "p50 / p99 ms: " + ", ".join(
+                    f"{m} {np.percentile(v, 50):.3f} / "
+                    f"{np.percentile(v, 99):.3f} (n={len(v)})"
+                    for m, v in sorted(self.lat.items())))
+
+
+class RpcRun:
+    """A JSON-RPC client of one of the port's servers over HTTP
+    (ethclient.Client against the port's create_handlers server), timing
+    every request into `stats`; an error object in any answer fails the
+    run."""
+
+    def __init__(self, url: str, stats: RpcStats):
+        self.url = url
+        self.client = Client(url)
+        self.stats = stats
+
+    def _timed(self, key, n, fn):
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+        except ClientError as e:
+            check(False, f"rpc {key}: error object {e.code} {e} {e.data}")
+        dt = time.perf_counter() - t0
+        self.stats.lat[key].append(dt * 1e3)
+        self.stats.requests += n
+        self.stats.wall += dt
+        return out
+
+    def call(self, method, *params):
+        return self._timed(method, 1,
+                           lambda: self.client.call_raw(method, *params))
+
+    def batch(self, method, params_list):
+        """One request of `method` per params, RPC_BATCH to a batch."""
+        out = []
+        for i in range(0, len(params_list), RPC_BATCH):
+            chunk = params_list[i:i + RPC_BATCH]
+            out += self._timed(
+                f"{method} batch", len(chunk), lambda: self.client.batch_raw(
+                    [(method, p) for p in chunk]))
+        return out
+
+    def get(self, base: str, path: str):
+        """(status, body) of a GET on another endpoint (the metrics one)."""
+        def fetch():
+            try:
+                with urllib.request.urlopen(base + path, timeout=30) as r:
+                    return r.status, r.read()
+            except urllib.error.HTTPError as e:
+                return e.code, e.read()
+        return self._timed(f"GET {path}", 1, fetch)
+
+
+def threads_left(before: set, seconds: float = 5.0) -> list:
+    """The threads alive now that were not in `before` (a set of
+    threading.enumerate() taken before a VM and its RPC server started),
+    the RPC server's, its lanes' and the metrics endpoint's among them,
+    after waiting up to `seconds` for them to end. A process-wide
+    executor that was already running (the sender cacher's) may have
+    grown a worker meanwhile: that is not a thread the VM left."""
+    pools = {t.name.rsplit("_", 1)[0] for t in before
+             if t.name.startswith("ThreadPoolExecutor-")}
+    deadline = time.monotonic() + seconds
+    while True:
+        left = sorted(t.name for t in threading.enumerate()
+                      if (t not in before
+                          and t.name.rsplit("_", 1)[0] not in pools)
+                      or t.name.startswith(("rpc-", "metrics-http")))
+        if not left or time.monotonic() > deadline:
+            return left
+        time.sleep(0.02)
 
 
 # ----------------------------------------------------------------- phases
@@ -1308,9 +1427,12 @@ class _ChainBoot:
 def vm_config(dev) -> dict:
     """The VM's JSON config, as AvalancheGo hands it over: the defaults but
     for the insert pipeline at depth 2 (the one execution option read only
-    at construction); "auto" boots the resident mirror on CUDA. The CPU
-    rehearsal asks for the mirror, which "auto" leaves off there."""
-    cfg = {"insert-pipeline-depth": PIPELINE_DEPTH}
+    at construction), the debug and txpool namespaces opted in (RPC_APIS)
+    and the /metrics + /healthz endpoint on a free loopback port; "auto"
+    boots the resident mirror on CUDA. The CPU rehearsal asks for the
+    mirror, which "auto" leaves off there."""
+    cfg = {"insert-pipeline-depth": PIPELINE_DEPTH, "eth-apis": RPC_APIS,
+           "metrics-http-enabled": True, "metrics-http-port": 0}
     if dev.type != "cuda":
         cfg["resident-account-trie"] = True
     return cfg
@@ -2905,7 +3027,7 @@ def phase_chain(dev, chain, evm_blocks, n_serial, card):
 
 
 def finish_chain(dev, vm, world: World, touched, written, coinbase_fee,
-                 vm_coinbase_fee, exports, seed, card):
+                 vm_coinbase_fee, exports, threads_before, seed, card):
     """After the VM phase: vm.shutdown() (the block builder's timer, the
     chain's stop(): the pipeline, the shard pool, the acceptor, the insert
     tail, the ladder listener and the shutdown export), then the
@@ -2917,6 +3039,9 @@ def finish_chain(dev, vm, world: World, touched, written, coinbase_fee,
     chain = vm.blockchain
     mirror = chain.mirror
     last = chain.last_accepted.header.root
+    # the exports before shutdown: eth_getProof's on the resident head
+    # (phase 7d), each of the delta since the previous export
+    earlier = list(exports)
     t0 = time.perf_counter()
     vm.shutdown()
     stop_ms = (time.perf_counter() - t0) * 1e3
@@ -2927,12 +3052,22 @@ def finish_chain(dev, vm, world: World, touched, written, coinbase_fee,
     servers_ms = (time.perf_counter() - t0) * 1e3
     left = descendants()
     check(not left, f"chain: processes left after vm.shutdown(): {left}")
+    threads = threads_left(threads_before)
+    check(vm.rpc_server is None and not threads,
+          f"chain: threads left after vm.shutdown(): {threads}")
     check(not mirror.host_mode, "chain: the mirror ended in host mode")
-    check(exports and exports[-1][0] > 0, f"chain: shutdown export {exports}")
+    shutdown = exports[len(earlier):]
+    check(len(shutdown) == 1 and shutdown[0][0] > 0,
+          f"chain: shutdown export {shutdown}")
+    log("chain: the exports before shutdown (eth_getProof's): "
+        + ("; ".join(f"{n} nodes in {ms:.1f} ms" for n, ms in earlier)
+           or "none"))
     log(f"chain: vm.shutdown() {stop_ms:.1f} ms, of it the shutdown export "
-        + "; ".join(f"{n} nodes in {ms:.1f} ms" for n, ms in exports)
+        f"{shutdown[0][0]} nodes in {shutdown[0][1]:.1f} ms"
         + f"; the forkserver and the resource tracker stopped in "
-        f"{servers_ms:.1f} ms, no process left")
+        f"{servers_ms:.1f} ms, no process left; the RPC server, its lanes "
+        f"and the metrics endpoint stopped, no thread the VM phase started "
+        f"left")
     # the acknowledged writes: the last root through a fresh TrieDatabase
     with _GcPauses() as pauses:
         read_back(world, chain.diskdb, last, touched, written, seed, "chain")
@@ -3018,10 +3153,13 @@ class _AtomicPair:
 
 
 def vm_block(vm, world: World, oracle: Oracle, txs, coinbase: list,
-             recs, atomic=None, label="vm", dev=None, issued=False):
+             recs, atomic=None, label="vm", dev=None, issued=False,
+             rpc=None):
     """One block through the VM: `txs` (and `atomic`'s two txs) issued
     through vm.issue_tx and vm.issue_atomic_tx (unless `issued`: already
-    in the tx pool from a build that failed), then vm.build_block() →
+    in the tx pool from a build that failed), or with `rpc` (an RpcRun)
+    sent over HTTP as eth_sendRawTransaction in batches and
+    avax.issueTx; then vm.build_block() →
     vmb.verify() → vm.set_preference(vmb.id()) → vmb.accept() and the
     acceptor drained. Its header root must equal the EVM-independent
     oracle's (evm_oracle_block over the block's own transaction order,
@@ -3032,11 +3170,21 @@ def vm_block(vm, world: World, oracle: Oracle, txs, coinbase: list,
     decoded = [Transaction.decode(t.blob) for t in txs]
     by_hash = {tx.hash(): t for tx, t in zip(decoded, txs)}
     t0 = time.perf_counter()
-    for tx in decoded if not issued else ():
-        vm.issue_tx(tx)
-    if atomic is not None:
-        vm.issue_atomic_tx(atomic.imp)
-        vm.issue_atomic_tx(atomic.exp)
+    if rpc is not None:
+        got = rpc.batch("eth_sendRawTransaction",
+                        [["0x" + t.blob.hex()] for t in txs])
+        check(got == ["0x" + tx.hash().hex() for tx in decoded],
+              f"{label}: eth_sendRawTransaction answered other hashes")
+        for atx in (atomic.imp, atomic.exp) if atomic is not None else ():
+            check(rpc.call("avax_issueTx", "0x" + atx.encode().hex())
+                  == {"txID": "0x" + atx.id().hex()},
+                  f"{label}: avax.issueTx answered another id")
+    else:
+        for tx in decoded if not issued else ():
+            vm.issue_tx(tx)
+        if atomic is not None:
+            vm.issue_atomic_tx(atomic.imp)
+            vm.issue_atomic_tx(atomic.exp)
     issue_ms = (time.perf_counter() - t0) * 1e3
     check(vm.txpool.stats()[0] == len(txs),
           f"{label}: the tx pool holds {vm.txpool.stats()}, not "
@@ -3090,8 +3238,134 @@ def vm_block(vm, world: World, oracle: Oracle, txs, coinbase: list,
     return vmb, receipts, touched, writes, stats
 
 
+def rpc_block_reads(rpc: RpcRun, metrics_url: str, vm, vmb, txs, receipts,
+                    world: World, touched, writes, atomic=None) -> str:
+    """Reads of the block just accepted over RPC, each held against the
+    block and the oracle's world: eth_blockNumber, eth_getBlockByNumber
+    (the hash is vmb.id()), the receipts of a sample (status 1), the
+    balance of every account the block touched and every slot it wrote
+    (batches), eth_getLogs over the block (the receipts' logs), eth_call
+    and eth_estimateGas of one of its contract calls, eth_feeHistory,
+    avax.getAtomicTxStatus of `atomic`'s txs, health.check,
+    debug_deviceStatus, and /metrics and /healthz of the metrics
+    endpoint. Returns a summary."""
+    eth = vmb.eth_block
+    n = eth.number
+    check(int(rpc.call("eth_blockNumber"), 16) == n,
+          f"rpc: eth_blockNumber != {n}")
+    blk = rpc.call("eth_getBlockByNumber", hex(n), False)
+    check(blk["hash"] == "0x" + vmb.id().hex()
+          and blk["stateRoot"] == "0x" + eth.header.root.hex()
+          and len(blk["transactions"]) == len(eth.transactions),
+          f"rpc: eth_getBlockByNumber({n}) != the block")
+    sample = eth.transactions[::max(1, len(eth.transactions) // 16)]
+    for tx in sample:
+        r = rpc.call("eth_getTransactionReceipt", "0x" + tx.hash().hex())
+        check(r["status"] == "0x1" and r["blockHash"] == blk["hash"],
+              f"rpc: receipt of {tx.hash().hex()}: {r}")
+    accts = sorted(touched)
+    bals = rpc.batch("eth_getBalance", [["0x" + world.addrs[i].hex(),
+                                         "latest"] for i in accts])
+    check(bals == [hex(world.balance[i]) for i in accts],
+          f"rpc block {n}: a balance != the oracle world's")
+    slots = [(c, k) for c, w in sorted(writes.items()) for k in sorted(w)]
+    vals = rpc.batch("eth_getStorageAt", [
+        ["0x" + world.addrs[c].hex(), "0x" + k.hex(), "latest"]
+        for c, k in slots])
+    check(vals == ["0x" + world.storage[c][k].hex() for c, k in slots],
+          f"rpc block {n}: a slot != the oracle world's")
+    logs = rpc.call("eth_getLogs", {"fromBlock": hex(n), "toBlock": hex(n)})
+    check(len(logs) == sum(len(r.logs) for r in receipts) > 0,
+          f"rpc block {n}: eth_getLogs {len(logs)} logs")
+    call_tx = next(t for t in txs if t.writes)
+    call = {"from": "0x" + world.addrs[call_tx.sender].hex(),
+            "to": "0x" + world.addrs[call_tx.to].hex(),
+            "data": "0x" + Transaction.decode(call_tx.blob).data.hex()}
+    check(rpc.call("eth_call", call, "latest") == "0x",
+          f"rpc block {n}: eth_call of a store-and-log call")
+    gas = int(rpc.call("eth_estimateGas", call), 16)
+    check(21000 < gas <= EVM_CALL_GAS,
+          f"rpc block {n}: eth_estimateGas {gas}")
+    fh = rpc.call("eth_feeHistory", 1, "latest", [50])
+    check(fh["baseFeePerGas"][0] == hex(eth.header.base_fee)
+          and fh["oldestBlock"] == hex(n),
+          f"rpc block {n}: eth_feeHistory {fh}")
+    for atx in (atomic.imp, atomic.exp) if atomic is not None else ():
+        st = rpc.call("avax_getAtomicTxStatus", "0x" + atx.id().hex())
+        check(st == {"status": "Accepted", "blockHeight": hex(n)},
+              f"rpc block {n}: avax.getAtomicTxStatus {st}")
+    check(rpc.call("health_check")["healthy"] is True,
+          f"rpc block {n}: health.check not healthy")
+    dev_st = rpc.call("debug_deviceStatus")
+    check(dev_st["state"] == "healthy" and dev_st["last_error"] is None,
+          f"rpc block {n}: debug_deviceStatus {dev_st}")
+    code, body = rpc.get(metrics_url, "/healthz")
+    check(code == 200 and json.loads(body)["healthy"] is True,
+          f"rpc block {n}: /healthz {code} {body[:200]}")
+    code, body = rpc.get(metrics_url, "/metrics")
+    check(code == 200 and b"# TYPE" in body,
+          f"rpc block {n}: /metrics {code}")
+    return (f"{len(sample)} receipts, {len(accts)} balances, {len(slots)} "
+            f"slots, {len(logs)} logs, eth_call and eth_estimateGas "
+            f"({gas} gas), eth_feeHistory, "
+            f"{2 if atomic is not None else 0} atomic statuses, health, "
+            f"the ladder, /metrics ({len(body)} B) and /healthz")
+
+
+def rpc_proofs(rpc: RpcRun, vmb, world: World, oracle: Oracle, touched,
+               writes, seed) -> str:
+    """eth_getProof at "latest" (the resident head: the account trie's
+    delta read back from the card first) for RPC_PROOFS accounts the block
+    touched, the contracts it wrote first, with RPC_PROOF_SLOTS slots each
+    (written ones for a contract); every proof verified with
+    trie/proof.verify_proof against the header root, every value against
+    the oracle's world. Returns a summary."""
+    root = vmb.eth_block.header.root
+    rng = np.random.default_rng(seed)
+    contracts = sorted(writes)[:RPC_PROOFS // 2]
+    others = sorted(set(touched) - set(contracts))
+    picks = contracts + [others[int(j)] for j in rng.choice(
+        len(others), RPC_PROOFS - len(contracts), replace=False)]
+    t0 = time.perf_counter()
+    nodes = 0
+    for i in picks:
+        keys = (sorted(writes[i])[:RPC_PROOF_SLOTS] if i in writes else
+                [rng.bytes(32) for _ in range(RPC_PROOF_SLOTS)])
+        p = rpc.call("eth_getProof", "0x" + world.addrs[i].hex(),
+                     ["0x" + k.hex() for k in keys], "latest")
+        blobs = [bytes.fromhex(x[2:]) for x in p["accountProof"]]
+        nodes += len(blobs)
+        got = verify_proof(root, keccak256(world.addrs[i]),
+                           {keccak256(b): b for b in blobs})
+        check(got == world.account(i, oracle.root_of(i)).encode(),
+              f"rpc: eth_getProof of account {i} does not verify to the "
+              f"oracle's account")
+        check(p["balance"] == hex(world.balance[i])
+              and p["nonce"] == hex(world.nonce[i])
+              and p["storageHash"] == "0x" + oracle.root_of(i).hex(),
+              f"rpc: eth_getProof fields of account {i}")
+        for k, sp in zip(keys, p["storageProof"]):
+            want = world.storage.get(i, {}).get(k)
+            check(sp["value"] == hex(int.from_bytes(want, "big")
+                                     if want else 0),
+                  f"rpc: eth_getProof slot value of account {i}")
+            if oracle.root_of(i) == EMPTY_ROOT:
+                check(sp["proof"] == [], "rpc: a proof in an empty trie")
+                continue
+            sblobs = [bytes.fromhex(x[2:]) for x in sp["proof"]]
+            nodes += len(sblobs)
+            val = verify_proof(oracle.root_of(i), keccak256(k),
+                               {keccak256(b): b for b in sblobs})
+            check(val == (slot_value(want) if want else None),
+                  f"rpc: storage proof of account {i} does not verify")
+    return (f"{len(picks)} eth_getProof ({len(contracts)} contracts) with "
+            f"{RPC_PROOF_SLOTS} slots each, {nodes} proof nodes, verified "
+            f"against the header root in "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+
 def phase_vm(dev, vm, mem: Memory, world: World, oracle: Oracle, n_blocks,
-             coinbase: list, seed, card):
+             coinbase: list, rpc_stats: RpcStats, seed, card):
     """The VM phase (module docstring, phase 7d): `n_blocks` blocks of the
     EVM phase's mix (evm_transactions from the keyed accounts' next
     nonces) through the VM on the chain the chain phase left, the first
@@ -3119,6 +3393,20 @@ def phase_vm(dev, vm, mem: Memory, world: World, oracle: Oracle, n_blocks,
     log(f"vm: {sum(len(b) for b in signed)} transactions of {n_blocks} "
         f"blocks and 2 atomic txs signed in {time.perf_counter() - t0:.1f} "
         f"s; a UTXO of {VM_IMPORT} nAVAX seeded into the shared memory")
+    # the RPC tier: create_handlers(vm) on HTTP (vm.shutdown() stops it),
+    # the metrics endpoint the VM started from its config (threads_before:
+    # what may still run after vm.shutdown(), the endpoint's thread aside)
+    threads_before = {t for t in threading.enumerate()
+                      if t.name != "metrics-http"}
+    t0 = time.perf_counter()
+    server = create_handlers(vm)
+    rpc = RpcRun(f"http://127.0.0.1:{server.serve_http('127.0.0.1', 0)}",
+                 rpc_stats)
+    metrics_url = f"http://127.0.0.1:{vm.metrics_http.port}"
+    log(f"vm: create_handlers(vm) with eth-apis {RPC_APIS}, serving HTTP "
+        f"at {rpc.url}, the metrics endpoint at {metrics_url}, in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    req0, wall0 = rpc_stats.requests, rpc_stats.wall
     loud_names = LOUD_CHAIN + OPTION_FALLBACKS + LOUD_DEVICE
     loud = {n: default_registry.counter(n).count() for n in loud_names}
     keccak_cuda.reset_counts()
@@ -3127,9 +3415,17 @@ def phase_vm(dev, vm, mem: Memory, world: World, oracle: Oracle, n_blocks,
     gas_all = wall_all = 0.0
     with _GcPauses() as pauses:
         for b, txs in enumerate(signed):
-            vmb, _r, touched, writes, st = vm_block(
+            vmb, receipts, touched, writes, st = vm_block(
                 vm, world, oracle, txs, coinbase, (rec_storage, rec_resident),
-                atomic=atomic if b == 0 else None, dev=dev)
+                atomic=atomic if b == 0 else None, dev=dev, rpc=rpc)
+            t0 = time.perf_counter()
+            reads = rpc_block_reads(rpc, metrics_url, vm, vmb, txs, receipts,
+                                    world, touched, writes,
+                                    atomic if b == 0 else None)
+            if b == 0:  # the next block's delta stays on the card
+                reads += "; " + rpc_proofs(rpc, vmb, world, oracle, touched,
+                                           writes, seed + b)
+            reads_ms = (time.perf_counter() - t0) * 1e3
             touched_all |= touched
             for c, w in writes.items():
                 written[c].update(w)
@@ -3153,6 +3449,8 @@ def phase_vm(dev, vm, mem: Memory, world: World, oracle: Oracle, n_blocks,
                 f" window {fmt_window(st['window'])}; {gas / wall / 1e6:.3f}"
                 f" Mgas/s over build + verify; root {eth.header.root.hex()}"
                 f" == the EVM-independent oracle's; {card}")
+            log(f"vm block {eth.number}: over RPC {reads}, all equal to the "
+                f"block and the oracle's world, in {reads_ms:.1f} ms")
     launches, coop = keccak_cuda.launches, keccak_cuda.launches_coop
     check(len(vm.mempool) == 0 and not vm.mempool.issued
           and vm.txpool.stats() == (0, 0),
@@ -3195,6 +3493,9 @@ def phase_vm(dev, vm, mem: Memory, world: World, oracle: Oracle, n_blocks,
         check(now == loud[name], f"vm: {name} counted {now - loud[name]}")
     check(default_ladder().healthy and not mirror.host_mode,
           "vm: the ladder is not healthy or the mirror is on the host")
+    log(f"vm rpc: {rpc_stats.requests - req0} requests in "
+        f"{rpc_stats.wall - wall0:.3f} s of request wall, no error object; "
+        f"the run's so far: {rpc_stats.summary()}; {card}")
     log(f"vm: {n_blocks} blocks built, verified and accepted through the VM"
         f" in {wall_all * 1e3:.1f} ms of build + verify "
         f"({gas_all / wall_all / 1e6:.3f} Mgas/s); head == "
@@ -3204,7 +3505,7 @@ def phase_vm(dev, vm, mem: Memory, world: World, oracle: Oracle, n_blocks,
         f"executor {len(rec_resident.records)}); garbage collector pauses "
         f"({pauses}); phase {time.perf_counter() - t_phase:.1f} s; {card}")
     return (rec_storage, rec_resident, launches, coop, sorted(touched_all),
-            written)
+            written, threads_before)
 
 
 # the ladder drill's VM config (phase 8b): a watchdog of 1 s a dispatch,
@@ -3535,7 +3836,68 @@ def _timer(name):
     return t.count(), t.total()
 
 
-def phase_commitment(dev, n_accounts, n_blocks, seed, card):
+def rpc_commitment(vm, rec_k2, world: World, touched, rpc_stats: RpcStats,
+                   seed) -> str:
+    """The commitment VM over RPC after its last block: create_handlers(vm)
+    on HTTP; one eth_call of keccak256Batch over SHADOW_MSGS seeded
+    messages of SHADOW_MSG_BYTES (the precompile hashes them on K2 through
+    the head state's device seam, on the server's expensive lane): the
+    returned digests equal native.keccak256 of each and rec_k2 counts one
+    launch; debug_stateWitness of RPC_WITNESSES touched accounts, each
+    verified with bintrie/witness.verify_witness against the returned
+    bintrieRoot (the shadow's root of the head) to the oracle's account;
+    debug_commitmentStatus with the shadow unquarantined. Returns a
+    summary."""
+    server = create_handlers(vm)
+    rpc = RpcRun(f"http://127.0.0.1:{server.serve_http('127.0.0.1', 0)}",
+                 rpc_stats)
+    req0, wall0 = rpc_stats.requests, rpc_stats.wall
+    rng = np.random.default_rng(seed)
+    raw = rng.bytes(SHADOW_MSGS * SHADOW_MSG_BYTES)
+    msgs = [raw[k * SHADOW_MSG_BYTES:(k + 1) * SHADOW_MSG_BYTES]
+            for k in range(SHADOW_MSGS)]
+    k2a = len(rec_k2.records)
+    out = bytes.fromhex(rpc.call("eth_call", {
+        "to": "0x" + TPU_KECCAK_ADDR.hex(),
+        "data": "0x" + batch_calldata(msgs).hex()}, "latest")[2:])
+    digests = [out[64 + 32 * j:96 + 32 * j] for j in range(SHADOW_MSGS)]
+    check(int.from_bytes(out[32:64], "big") == SHADOW_MSGS
+          and digests == [keccak256(m) for m in msgs],
+          "commitment rpc: eth_call of keccak256Batch != native keccak256")
+    check(len(rec_k2.records) == k2a + 1,
+          f"commitment rpc: the eth_call made {len(rec_k2.records) - k2a} "
+          f"K2 launches, not 1")
+    chain = vm.blockchain
+    last = chain.last_accepted.header.root
+    broot = chain.state_database.shadow.root_for(last)
+    picks = [touched[int(j)] for j in rng.choice(
+        len(touched), min(RPC_WITNESSES, len(touched)), replace=False)]
+    for i in picks:
+        w = rpc.call("debug_stateWitness", "0x" + world.addrs[i].hex(),
+                     "latest")
+        check(w["stateRoot"] == "0x" + last.hex()
+              and w["bintrieRoot"] == "0x" + broot.hex(),
+              f"commitment rpc: debug_stateWitness roots {w}")
+        check(bwitness.verify_witness(
+            broot, keccak256(world.addrs[i]), bytes.fromhex(w["witness"][2:]))
+              == (True, shadow_mod.encode_account(
+                  world.nonce[i], world.balance[i], world.code_hash[i],
+                  False)),
+              f"commitment rpc: the witness of account {i} does not verify")
+    st = rpc.call("debug_commitmentStatus")
+    check(st["backend"] == "bintrie-shadow"
+          and st["shadow"]["quarantined"] is False,
+          f"commitment rpc: debug_commitmentStatus {st}")
+    return (f"eth_call of keccak256Batch over {SHADOW_MSGS} x "
+            f"{SHADOW_MSG_BYTES} B: 1 K2 launch, the digests native "
+            f"keccak256's; {len(picks)} debug_stateWitness verified against "
+            f"bintrieRoot {broot.hex()}; debug_commitmentStatus unquarantined"
+            f"; {rpc_stats.requests - req0} requests in "
+            f"{rpc_stats.wall - wall0:.3f} s of request wall, no error object")
+
+
+def phase_commitment(dev, n_accounts, n_blocks, rpc_stats: RpcStats, seed,
+                     card):
     """The commitment VM (module docstring, phase 8c): a VM of its own over
     `n_accounts` accounts booted from SHADOW_CONFIG on a genesis whose
     config enables TpuKeccakConfig(timestamp=0); `n_blocks` blocks of the
@@ -3591,7 +3953,7 @@ def phase_commitment(dev, n_accounts, n_blocks, seed, card):
     genesis.config = dataclasses.replace(
         params.TEST_CHAIN_CONFIG,
         precompile_upgrades=(TpuKeccakConfig(timestamp=0),))
-    cfg = dict(SHADOW_CONFIG)
+    cfg = dict(SHADOW_CONFIG, **{"eth-apis": RPC_APIS})
     if dev.type != "cuda":
         cfg["resident-account-trie"] = True
     rec_shadow, rec_gmpt = _K1Recorder(), _K1Recorder()
@@ -3608,6 +3970,7 @@ def phase_commitment(dev, n_accounts, n_blocks, seed, card):
     lanes0 = default_registry.counter("bintrie/planned/lanes").count()
     commits0 = default_registry.counter("bintrie/planned/commits").count()
     mpt0, bin0 = _timer("chain/commit/mpt"), _timer("chain/commit/bintrie")
+    threads_before = set(threading.enumerate())
     vm = VM()
     t0 = time.perf_counter()
     try:
@@ -3664,15 +4027,17 @@ def phase_commitment(dev, n_accounts, n_blocks, seed, card):
     coinbase = [0]
     recs = (rec_storage, rec_resident, rec_shadow)
     per_block = []
+    touched_all = set()
     try:
         for b, txs in enumerate(signed):
             c0 = shadow.status()["commits"]
             k2a = len(rec_k2.records)
             m0 = _timer("chain/commit/mpt")
             b0 = _timer("chain/commit/bintrie")
-            vmb, _r, _t, _w, st = vm_block(
+            vmb, _r, touched, _w, st = vm_block(
                 vm, world, oracle, txs, coinbase, recs,
                 label=f"commitment block {b + 1}", dev=dev)
+            touched_all |= touched
             m1 = _timer("chain/commit/mpt")
             b1 = _timer("chain/commit/bintrie")
             eth = vmb.eth_block
@@ -3718,6 +4083,8 @@ def phase_commitment(dev, n_accounts, n_blocks, seed, card):
               and len(rec_k2.records) == k2a + 1
               and left == 10**7 - tpu_keccak.batch_gas(msgs_all[0]),
               "commitment: contract.run != the host batch keccak")
+        rpc_summary = rpc_commitment(vm, rec_k2, world, sorted(touched_all),
+                                     rpc_stats, seed + 4)
     finally:
         bk.impl = bk_impl
     k1, k1_coop = keccak_cuda.launches, keccak_cuda.launches_coop
@@ -3808,6 +4175,11 @@ def phase_commitment(dev, n_accounts, n_blocks, seed, card):
     check(lad.healthy and not mirror.host_mode,
           "commitment: the ladder is demoted or the mirror on the host")
     vm.shutdown()
+    threads = threads_left(threads_before)
+    check(not threads, f"commitment: threads left after vm.shutdown(): "
+          f"{threads}")
+    log(f"commitment rpc: {rpc_summary}; vm.shutdown() stopped the server, "
+        f"no thread the phase started left; {card}")
     lanes = default_registry.counter("bintrie/planned/lanes").count() - lanes0
     commits = (default_registry.counter("bintrie/planned/commits").count()
                - commits0)
@@ -4186,13 +4558,15 @@ def main() -> int:
     # chain's stop through vm.shutdown()
     mark(t_start, "vm")
     vm_coinbase = [0]
-    (v_storage, v_resident, v_launches, v_coop, v_touched,
-     v_written) = phase_vm(dev, vm, mem, evm_world, evm_oracle,
-                           args.vm_blocks, vm_coinbase, args.seed + 7, card)
+    rpc_stats = RpcStats()
+    (v_storage, v_resident, v_launches, v_coop, v_touched, v_written,
+     v_threads) = phase_vm(dev, vm, mem, evm_world, evm_oracle,
+                           args.vm_blocks, vm_coinbase, rpc_stats,
+                           args.seed + 7, card)
     for c, keys in v_written.items():
         written[c] = set(written.get(c, ())) | keys
     finish_chain(dev, vm, evm_world, sorted(set(touched) | set(v_touched)),
-                 written, coinbase_fee, vm_coinbase[0], c_exports,
+                 written, coinbase_fee, vm_coinbase[0], c_exports, v_threads,
                  args.seed + 6, card)
     del vm, mem, evm_world, evm_oracle
     cs_err, cs_ms, cs_plain, cs_shapes, cs_kernel = time_k1(
@@ -4244,7 +4618,8 @@ def main() -> int:
     mark(t_start, "commitment")
     (cm_shadow, cm_mpt, cm_k1, cm_k1_coop, cm_k2rec, cm_k2, cm_k2_coop,
      cm_pad) = phase_commitment(dev, args.shadow_accounts,
-                                args.shadow_blocks, args.seed + 9, card)
+                                args.shadow_blocks, rpc_stats, args.seed + 9,
+                                card)
     sh_err, sh_ms, sh_plain, sh_shapes, sh_kernel = time_k1(
         dev, [r[0] for r in cm_shadow], "commitment shadow",
         per_segment=False, outputs=[r[1] for r in cm_shadow])
@@ -4325,6 +4700,10 @@ def main() -> int:
         f"{bg_launches}, batched block {bb_launches}, evm batched "
         f"{evm_batched.k2}, ladder drill probes {d_k2}, the keccak "
         f"precompile {cm_k2}, mesh and legacy executors {ml_k2}")
+    log(f"rpc: the VM blocks' transactions entered by eth_sendRawTransaction"
+        f" and avax.issueTx (their K1 launches {v_launches}); the commitment"
+        f" VM's eth_call of keccak256Batch 1 K2 launch; {rpc_stats.summary()};"
+        f" {card}")
     log(f"peak RSS {rss_gib():.1f} GiB")
     left = descendants()
     check(not left, f"processes left at the end: {left}")

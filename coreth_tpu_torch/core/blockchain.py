@@ -41,9 +41,11 @@ the device earned its way back; nothing else demotes it, and a device
 fault of a laddered dispatch reaches insert_block like any other
 (device_max_retries is refused but at 0). The listener leaves at stop().
 
-Event feed: subscribe_chain_event (canonical head changes: an insert
-that extends the preference, a reorg), fn(block, logs); the VM's tx pool
-re-anchors on it.
+Event feeds, each fn(block, logs): subscribe_chain_event (canonical head
+changes: an insert that extends the preference, a reorg), on which the
+VM's tx pool re-anchors; subscribe_chain_accepted_event (each accepted
+block once, on the acceptor thread after its post-processing), which the
+RPC filters (eth/filters.py) read.
 
 The dual-root shadow (state_backend="bintrie-shadow"): the chain mounts a
 bintrie/shadow.ShadowCommitment on its Database before the genesis
@@ -516,6 +518,7 @@ class BlockChain:
 
         # subscription feeds
         self._chain_feed: List[Callable] = []
+        self._chain_accepted_feed: List[Callable] = []
 
         # genesis
         self.genesis_block = self._setup_genesis(genesis)
@@ -1830,6 +1833,11 @@ class BlockChain:
         self.bloom_indexer.add_block(block.number, block.header.bloom)
         for tx in block.transactions:
             rawdb.write_tx_lookup(self.diskdb, tx.hash(), block.number)
+        if self._chain_accepted_feed:
+            receipts = self.get_receipts(block.hash()) or []
+            logs = [lg for r in receipts for lg in r.logs]
+            for fn in self._chain_accepted_feed:
+                fn(block, logs)
         with self._acceptor_tip_lock:
             if self._acceptor_tip is block:
                 self._acceptor_tip = None
@@ -1910,6 +1918,9 @@ class BlockChain:
 
     def subscribe_chain_event(self, fn: Callable) -> None:
         self._chain_feed.append(fn)
+
+    def subscribe_chain_accepted_event(self, fn: Callable) -> None:
+        self._chain_accepted_feed.append(fn)
 
     # ------------------------------------------------------------ lifecycle
 

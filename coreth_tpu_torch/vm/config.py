@@ -8,9 +8,10 @@ gating.
 
 Every knob that no module of the port reads raises NotImplementedError
 from validate(), naming its ROADMAP item, when set away from its default
-(NOT_PORTED): the knobs of parts the port does not have (the RPC server,
-gossip, state sync, the keystore, the profilers) and those of
-config.go that neither package's VM or chain reads.
+(NOT_PORTED): the knobs of parts the port does not have (the WebSocket
+transport, gossip, state sync, the keystore, the chaos conductor's lock
+witness) and those of config.go that
+neither package's VM, chain or RPC tier reads.
 A VM never boots with a knob silently ignored; keys Config does not know
 are ignored, as the reference ignores them. device-max-retries is
 refused but at 0: the port retries no device dispatch (ROADMAP Queue 3).
@@ -255,7 +256,9 @@ class Config:
     # into a per-role overflow bucket
     profiler_ring_size: int = 2048
     # seconds a single canonical-lock hold may last before racecheck
-    # captures traceback + trace id into the flight recorder; 0 = off
+    # captures traceback + trace id into the flight recorder; 0 = off.
+    # Only the lock witness that fault/chaos.py installs checks it, so it
+    # is refused until that is ported (NOT_PORTED, item 8b)
     lock_slow_hold_budget: float = 0.0
     # gates the parent-side registry merge of shard-worker ShardStats
     # deltas (the per-worker flight-record stamp stays on regardless)
@@ -505,21 +508,12 @@ class Config:
 
 # (ROADMAP "Still to port" item, knobs): each raises away from its default
 NOT_PORTED = (
-    ("10 (vm/api.py and rpc/: the RPC server and its read tier)",
-     ("eth_apis", "admin_api_enabled", "health_api_enabled",
-      "coreth_admin_api_enabled", "ws_cpu_refill_rate", "ws_cpu_max_stored",
-      "api_max_duration", "api_max_blocks_per_request",
-      "allow_unfinalized_queries", "allow_unprotected_txs",
-      "rpc_max_workers", "rpc_queue_size", "rpc_expensive_workers",
-      "rpc_expensive_queue_size", "rpc_expensive_duration",
-      "rpc_batch_limit", "rpc_body_limit", "rpc_breaker_threshold",
-      "rpc_breaker_probe_every", "rpc_breaker_close_after",
-      "rpc_drain_timeout", "rpc_max_connections", "ws_notify_queue_size",
-      "rpc_slo_budget", "gasprice_cache_size", "logs_cache_size")),
-    ("10 (vm/gossiper.py)",
+    ("10b (rpc/websocket.py)",
+     ("ws_cpu_refill_rate", "ws_cpu_max_stored", "ws_notify_queue_size")),
+    ("10c (vm/gossiper.py)",
      ("remote_gossip_only_enabled", "regossip_frequency", "regossip_max_txs",
       "regossip_tx_queue_size")),
-    ("10 (vm/syncervm.py and sync/: state sync)",
+    ("10c (vm/syncervm.py and sync/: state sync)",
      ("state_sync_enabled", "state_sync_skip_resume",
       "state_sync_server_trie_cache", "state_sync_ids",
       "state_sync_commit_interval", "state_sync_min_blocks",
@@ -530,21 +524,17 @@ NOT_PORTED = (
       "sync_quarantine_seconds", "sync_readmit_probes",
       "max_outbound_active_requests",
       "max_outbound_active_cross_chain_requests")),
-    ("10 (accounts: the keystore and the external signer)",
+    ("8b (fault/chaos.py: the lock witness that checks the budget)",
+     ("lock_slow_hold_budget",)),
+    ("10b (accounts: the keystore and the external signer)",
      ("keystore_directory", "keystore_external_signer",
       "keystore_insecure_unlock_allowed")),
-    ("10 (vm/api.py: the continuous profiler)",
-     ("continuous_profiler_dir", "continuous_profiler_frequency",
-      "continuous_profiler_max_files")),
-    ("8 (the metrics profiler and its HTTP exposition)",
-     ("profiler_hz", "profiler_ring_size", "metrics_http_enabled",
-      "metrics_http_host", "metrics_http_port")),
-    ("10 (utils/racecheck.py: lock telemetry)", ("lock_slow_hold_budget",)),
-    ("10 (config.go knobs that neither package's VM or chain reads)",
+    ("10 (config.go knobs that neither package's VM, chain or RPC tier "
+     "reads)",
      ("trie_clean_cache", "trie_dirty_commit_target", "snapshot_cache",
-      "accepted_cache_size", "preimages_enabled", "snapshot_async",
-      "snapshot_verification_enabled", "accepted_queue_limit",
-      "allow_missing_tries", "offline_pruning_enabled",
+      "accepted_cache_size", "allow_unprotected_txs", "preimages_enabled",
+      "snapshot_async", "snapshot_verification_enabled",
+      "accepted_queue_limit", "allow_missing_tries", "offline_pruning_enabled",
       "offline_pruning_bloom_filter_size", "offline_pruning_data_directory",
       "local_txs_enabled", "log_json_format")),
 )

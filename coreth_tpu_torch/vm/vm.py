@@ -15,14 +15,17 @@ here hashes its storage tries in one planned program on K1 under the
 degradation ladder, and on CUDA its account trie on the mirror's executor
 on K1; the chain's four device_* knobs configure the ladder.
 
+The RPC surface is vm/api.py:create_handlers(vm), which sets
+`vm.rpc_server` and `vm.eth_backend`; shutdown() drains and stops that
+server. The continuous and sampling profilers, the metrics endpoint and
+the lock telemetry start from their knobs at initialize.
+
 Left out, each with its ROADMAP "Still to port" item: the inbound sync
-server (`sync_handler` is None; SyncHandler waits for item 10, sync; its
+server (`sync_handler` is None; SyncHandler waits for item 10c, sync; its
 proofs, trie/proof.py and proof_range.py, are ported); the cross-chain
 eth_call both ways (handle_cross_chain_request and cross_chain_eth_call
-raise, item 10: the eth backend); the keystore, the external signer,
-the continuous and sampling profilers, the metrics endpoint and the lock
-telemetry, whose knobs raise in vm/config.py (items 8 and 10); the RPC
-surface (vm/api.py, item 10).
+raise, item 10c: they need sync/messages.py); the keystore and the
+external signer, whose knobs raise in vm/config.py (item 10b).
 """
 
 from __future__ import annotations
@@ -188,7 +191,7 @@ class VM:
                 self.full_config.shard_telemetry_enabled)
 
         # the node keystore and the external signer are not ported
-        # (vm/config.py refuses their knobs; ROADMAP item 10)
+        # (vm/config.py refuses their knobs; ROADMAP item 10b)
         self.keystore = None
         self.external_signer = None
 
@@ -326,13 +329,45 @@ class VM:
                 self.full_config.populate_missing_tries_parallelism,
             )
 
-        # inbound sync server (vm.go:547): not ported (ROADMAP item 10,
-        # sync); the profilers and the metrics endpoint neither (their
-        # knobs raise in vm/config.py)
+        # inbound sync server (vm.go:547): not ported (ROADMAP item 10c,
+        # sync)
         self.sync_handler = None
+
+        # continuous profiler (vm.go:1642, config.go:89-91)
         self.continuous_profiler = None
+        if self.full_config.continuous_profiler_dir:
+            from .api import ContinuousProfiler
+
+            self.continuous_profiler = ContinuousProfiler(
+                self.full_config.continuous_profiler_dir,
+                freq=self.full_config.continuous_profiler_frequency,
+                max_files=self.full_config.continuous_profiler_max_files,
+            ).start()
+
+        # in-process sampling profiler (metrics/profiler.py): daemon
+        # thread, refcounted process-global singleton — a second VM takes
+        # a reference on the same sampler and our shutdown only drops ours
         self.sampling_profiler = None
+        if self.full_config.profiler_hz > 0:
+            from ..metrics import profiler as _profiler
+
+            self.sampling_profiler = _profiler.start_profiler(
+                self.full_config.profiler_hz,
+                ring_size=self.full_config.profiler_ring_size)
+
+        # stdlib /metrics + /healthz endpoint (metrics/http.py), reusing
+        # the health_check verdict the RPC health namespace serves
         self.metrics_http = None
+        if self.full_config.metrics_http_enabled:
+            from ..metrics.http import MetricsHTTPServer
+            from .api import health_check
+
+            self.metrics_http = MetricsHTTPServer(
+                health_fn=lambda: health_check(self))
+            self.metrics_http.start(
+                host=self.full_config.metrics_http_host,
+                port=self.full_config.metrics_http_port,
+            )
 
     @staticmethod
     def _now() -> int:
@@ -492,11 +527,30 @@ class VM:
 
     def shutdown(self) -> None:
         """Stop the threads the VM started (the build-retry timer, the
-        gas-price timers), then the chain (its pipeline, shard pool,
-        acceptor, insert tail, ladder listener and final export)."""
+        gas-price timers, the profilers, the metrics endpoint), drain and
+        stop the RPC server create_handlers attached, then the chain (its
+        pipeline, shard pool, acceptor, insert tail, ladder listener and
+        final export)."""
         if self.initialized:
             self.block_builder.shutdown()
             self.gas_price_updater.stop()
+            if self.continuous_profiler is not None:
+                self.continuous_profiler.stop()
+            if self.sampling_profiler is not None:
+                from ..metrics import profiler as _profiler
+
+                # drops only this VM's reference — other holders of the
+                # process sampler keep sampling
+                _profiler.stop_profiler()
+                self.sampling_profiler = None
+            if self.metrics_http is not None:
+                self.metrics_http.stop()
+            # graceful RPC drain first: in-flight reads finish (bounded
+            # by rpc-drain-timeout) before the chain under them stops
+            rpc_server = getattr(self, "rpc_server", None)
+            if rpc_server is not None:
+                rpc_server.stop()
+                self.rpc_server = None
             self.blockchain.stop()
 
     # --- VMBlock support ---------------------------------------------------
@@ -517,19 +571,20 @@ class VM:
     # read-only call against OUR latest accepted state ------------------
 
     def handle_cross_chain_request(self, blob: bytes) -> bytes:
-        """Not ported: the typed cross-chain dispatcher evaluates calls
-        through the eth backend (ROADMAP "Still to port", item 10)."""
+        """Not ported: the typed cross-chain dispatcher decodes its
+        request with sync/messages.py (ROADMAP "Still to port", item
+        10c)."""
         raise NotImplementedError(
             "cross-chain eth_call serving is not ported (ROADMAP 'Still to "
-            "port', item 10: the eth backend)")
+            "port', item 10c: sync/messages.py)")
 
     def cross_chain_eth_call(self, network, chain_id: bytes,
                              call_obj: dict, deadline: float = 10.0):
         """Not ported: the client side of the cross-chain eth_call
-        (ROADMAP "Still to port", item 10: the eth backend)."""
+        (ROADMAP "Still to port", item 10c: sync/messages.py)."""
         raise NotImplementedError(
             "cross-chain eth_call is not ported (ROADMAP 'Still to port', "
-            "item 10: the eth backend)")
+            "item 10c: sync/messages.py)")
 
     def issue_atomic_tx(self, tx: Tx) -> None:
         tx.semantic_verify(self, self._next_base_fee())

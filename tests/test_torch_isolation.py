@@ -3,6 +3,7 @@ coreth_tpu, and without CUDA its entry points raise instead of drifting to
 the CPU."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -517,9 +518,127 @@ def test_no_source_imports_jax_or_coreth_tpu():
                 "trie/proof_range.py", "state/commitment.py",
                 "parallel/__init__.py", "ops/keccak_fused.py",
                 "ops/keccak_staged.py", "ops/keccak_resident.py",
-                "trie/hasher.py"):
+                "trie/hasher.py", "rpc/admission.py", "rpc/server.py",
+                "eth/cache.py", "eth/gasprice.py", "eth/filters.py",
+                "eth/api.py", "eth/backend.py", "state/dump.py",
+                "eth/tracer_dsl.py", "eth/tracers.py",
+                "metrics/profiler.py", "metrics/http.py",
+                "utils/racecheck.py", "vm/api.py", "ethclient/__init__.py"):
         assert os.path.join("coreth_tpu_torch", mod) in names, mod
     assert not bad, bad
+
+
+def test_relative_imports_resolve_inside_the_port():
+    """Every relative import of a port module names a module the port has
+    (the parts left out, such as accounts/, rpc/websocket.py or
+    vm/tx_builder.py, are never imported, not even lazily)."""
+    root = os.path.join(REPO, "coreth_tpu_torch")
+
+    def exists(base, dotted):
+        path = os.path.join(base, *dotted.split("."))
+        return (os.path.isfile(path + ".py")
+                or os.path.isfile(os.path.join(path, "__init__.py")))
+
+    missing = []
+    for path in _sources():
+        if not path.startswith(root + os.sep):
+            continue
+        base = os.path.dirname(path)
+        for node in ast.walk(ast.parse(open(path).read(), path)):
+            if not isinstance(node, ast.ImportFrom) or node.level == 0:
+                continue
+            pkg = base
+            for _ in range(node.level - 1):
+                pkg = os.path.dirname(pkg)
+            where = f"{os.path.relpath(path, REPO)}:{node.lineno}"
+            if node.module:
+                if not exists(pkg, node.module):
+                    missing.append(f"{where} {node.module}")
+                continue
+            init = open(os.path.join(pkg, "__init__.py")).read()
+            for a in node.names:  # a submodule or a name of __init__
+                if not exists(pkg, a.name) and a.name not in init:
+                    missing.append(f"{where} {a.name}")
+    assert not missing, missing
+
+
+_RPC_CHILD = r'''
+import json
+import sys
+
+FORBIDDEN = ("jax", "jaxlib", "coreth_tpu")
+
+
+def refused(name):
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if refused(name):
+            raise ImportError(f"the port must not import {name}")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+sys.path.insert(0, sys.argv[2])
+
+import torch_rpc_twin as tw
+
+spec = json.load(open(sys.argv[1]))
+node = tw.Node("coreth_tpu_torch", spec["config"])
+ids = []
+for raw in spec["txs"]:
+    node.submit([bytes.fromhex(raw)])
+    ids.append(node.build_and_accept().id())
+t1, t2 = (bytes.fromhex(h) for h in spec["hashes"])
+answers = node.answer(tw.read_requests(t1, t2, *ids))
+node.shutdown()
+leaked = [m for m in sys.modules if refused(m)]
+assert not leaked, leaked
+print("ANSWERS " + json.dumps(answers))
+print("ISOLATED-OK")
+'''
+
+
+@pytest.mark.parametrize("config", [{}, {"resident-account-trie": True}],
+                         ids=["default", "resident"])
+def test_rpc_twin_port_half_runs_without_jax_or_coreth_tpu(tmp_path, config):
+    """The port's half of tests/test_torch_rpc.py's twin (its VM, its
+    create_handlers server, the read requests) in a process whose
+    sys.meta_path refuses jax, jaxlib and coreth_tpu; its answers equal
+    the reference's half run here."""
+    from coreth_tpu.core.types import Signer, Transaction
+
+    import torch_rpc_twin as tw
+
+    sign = Signer(tw.CHAIN_ID).sign
+    txs = [sign(Transaction(type=2, chain_id=tw.CHAIN_ID, nonce=i,
+                            max_fee=10**12, max_priority_fee=10**9,
+                            gas=gas, to=to, value=value), tw.KEY)
+           for i, (to, gas, value) in enumerate(
+               [(tw.DEST, 21000, 12345), (tw.EMITTER_ADDR, 100_000, 0)])]
+    ref = tw.Node("coreth_tpu", config)
+    ids = []
+    for t in txs:
+        ref.submit([t.encode()])
+        ids.append(ref.build_and_accept().id())
+    want = ref.answer(tw.read_requests(txs[0].hash(), txs[1].hash(), *ids))
+    ref.shutdown()
+    spec = tmp_path / "spec.json"
+    spec.write_text(json.dumps({
+        "config": config, "txs": [t.encode().hex() for t in txs],
+        "hashes": [t.hash().hex() for t in txs]}))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    r = subprocess.run(
+        [sys.executable, "-c", _RPC_CHILD, str(spec),
+         os.path.join(REPO, "tests")], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "ISOLATED-OK" in r.stdout
+    line = next(x for x in r.stdout.splitlines() if x.startswith("ANSWERS "))
+    assert json.loads(line[len("ANSWERS "):]) == json.loads(json.dumps(want))
 
 
 def test_resolve_without_cuda_raises(monkeypatch):

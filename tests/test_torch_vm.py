@@ -439,19 +439,13 @@ def test_vm_boots_from_config_bytes():
 @pytest.mark.parametrize("knob,value,item", [
     ("keystore-directory", "/nonexistent/keystore", "item 10"),
     ("keystore-external-signer", "/nonexistent/clef.ipc", "item 10"),
-    ("continuous-profiler-dir", "/nonexistent/profiles", "item 10"),
-    ("profiler-hz", 100.0, "item 8"),
-    ("metrics-http-enabled", True, "item 8"),
-    ("lock-slow-hold-budget", 0.5, "item 10"),
-    ("rpc-batch-limit", 10, "item 10"),
-    ("eth-apis", ["eth", "debug"], "item 10"),
-    ("rpc-max-workers", 2, "item 10"),
     ("regossip-frequency", 5.0, "item 10"),
     ("state-sync-enabled", True, "item 10"),
     ("keystore-insecure-unlock-allowed", True, "item 10"),
-    ("metrics-http-port", 9100, "item 8"),
     ("accepted-cache-size", 64, "item 10"),
     ("trie-clean-cache", 1024, "item 10"),
+    ("ws-notify-queue-size", 8, "item 10b"),
+    ("lock-slow-hold-budget", 0.5, "item 8b"),
 ])
 def test_not_ported_knob_raises(knob, value, item):
     """A knob that no module of the port reads (its part is not ported,
@@ -467,6 +461,47 @@ def test_not_ported_knob_raises(knob, value, item):
         VM().initialize(SnowContext(shared_memory=Memory()), MemoryDB(), gen,
                         config_bytes=blob, device="cpu")
     assert set(threading.enumerate()) <= before
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("continuous-profiler-dir", "profiles"),
+    ("profiler-hz", 100.0),
+    ("metrics-http-enabled", True),
+    ("rpc-batch-limit", 10),
+    ("eth-apis", ["eth", "debug"]),
+    ("rpc-max-workers", 2),
+    ("metrics-http-port", 9100),
+])
+def test_ported_knob_boots(knob, value, tmp_path):
+    """The knobs that refused the boot until the RPC tier, the profilers
+    and the metrics endpoint were ported (ROADMAP item 10a): the port's VM
+    boots with each, and its shutdown leaves no thread behind."""
+    if knob == "continuous-profiler-dir":
+        value = str(tmp_path / value)
+    if knob == "metrics-http-port":  # a free port, away from the default
+        import socket
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            value = s.getsockname()[1]
+        blob = json.dumps({"metrics-http-enabled": True, knob: value})
+    else:
+        blob = json.dumps({knob: value})
+    assert getattr(parse_config(blob.encode()),
+                   knob.replace("-", "_")) == value
+    before = set(threading.enumerate())
+    vm = VM()
+    vm.initialize(SnowContext(shared_memory=Memory()), MemoryDB(),
+                  Genesis(config=params.TEST_CHAIN_CONFIG,
+                          alloc={ADDR: GenesisAccount(balance=FUND)}),
+                  config_bytes=blob.encode(), device="cpu")
+    if knob.startswith("metrics-http"):
+        assert vm.metrics_http.port
+    vm.shutdown()
+    deadline = time.time() + 5
+    while set(threading.enumerate()) - before and time.time() < deadline:
+        time.sleep(0.02)
+    assert not set(threading.enumerate()) - before
 
 
 @pytest.mark.parametrize("knobs", [
