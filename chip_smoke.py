@@ -129,19 +129,42 @@ Phases (each passes or the script exits non-zero):
      serves HTTP on a free loopback port, each transaction goes in as
      eth_sendRawTransaction in batches of RPC_BATCH (100), and in the
      first block one ImportTx (consuming a UTXO seeded into the shared
-     memory from the X chain) and one ExportTx go in as avax.issueTx; then
+     memory from the X chain) and one ExportTx go in as avax.issueTx
+     (the second block's wallet path follows); then
      vm.build_block() (the miner from the tx pool and the atomic mempool;
      finalize_and_assemble's intermediate_root: the storage programs on
      K1 under the degradation ladder, the account trie on the mirror's
      executor on K1; insert_block_manual(writes=False)), vmb.verify()
      (insert_block_manual(writes=True), the atomic backend),
-     vm.set_preference, vmb.accept(), the acceptor drained. Every header
-     root equals the EVM-independent oracle's (evm_oracle_block over the
-     block's own transaction order, the fees to the miner's coinbase,
-     plus the atomic txs' balance and nonce changes); the head is
-     vm.last_accepted(); the mempool and the tx pool end empty; the shared
-     memory holds the export's UTXO and not the import's; no loud,
-     fallback or ops/device/* counter moves. After each block, reads over
+     vm.set_preference, vmb.accept(), the acceptor drained. The VM's
+     config also names a keystore directory under the run's temporary
+     directory, opts the personal namespace in and sets
+     ws-notify-queue-size 64: serve_ws(vm, rpc_server=server) serves
+     WebSocket beside HTTP (one backend, one filter stack), and before
+     the first block a WSEthClient (ethclient.ws_connect) subscribes to
+     newHeads, to logs of the called contracts' addresses and to
+     newPendingTransactions. Before the second block, over that
+     connection, personal_importRawKey and personal_unlockAccount
+     (duration 0) of two keyed senders; 16 of that block's transfers are
+     theirs and go in as eth_sendTransaction with every field given, each
+     answer the hash of the transaction the harness signs itself; and
+     that block's ImportTx (of a UTXO seeded from the X chain) and
+     ExportTx are built by the node's wallet: avax.importKey of a third
+     key, avax.import and avax.export (vm/tx_builder.py, dynamic fees).
+     Every header root equals the EVM-independent oracle's
+     (evm_oracle_block over the block's own transaction order, the fees
+     to the miner's coinbase, plus the atomic txs' balance and nonce
+     changes, the wallet's read from the block's atomic txs); the head is
+     vm.last_accepted(); the mempool and the tx pool end empty; after
+     each block with atomic txs the shared memory holds its export's UTXO
+     and not its import's; no loud, fallback or ops/device/* counter
+     moves. Each block's WS pushes match it: one newHeads push with its
+     hash, number and state root, one logs push per receipt log (address,
+     topics, data, transaction, block), one newPendingTransactions push
+     per transaction it carries (the wallet's included), no other push;
+     no notify drop or slow disconnect is counted. Push latencies are
+     taken from the accept (heads, logs) and from each
+     eth_sendTransaction (the wallet's pending pushes). After each block, reads over
      RPC held against the block and the oracle's world (rpc_block_reads:
      the block, receipts, every touched balance and written slot, logs,
      eth_call and eth_estimateGas of a contract call, fee history, the
@@ -154,9 +177,11 @@ Phases (each passes or the script exits non-zero):
      build, verify and accept ms, the K1 launches of build and verify
      (storage programs, resident executor), the flight record's phases,
      the mirror's window and Mgas/s over build + verify; the K1 launches
-     are recorded and held against the plain version. Then vm.shutdown()
-     (the RPC server's drain and stop, the metrics endpoint, the chain's
-     stop() and its shutdown export), the forkserver and the resource
+     are recorded and held against the plain version. Then the
+     WSEthClient closes and ws.stop() joins the WebSocket server's
+     threads; the keystore's light scrypt is timed on one keyfile. Then
+     vm.shutdown() (the RPC server's drain and stop, the metrics endpoint,
+     the keystore's close, the chain's stop() and its shutdown export), the forkserver and the resource
      tracker stopped (exec_shards.stop_servers), and no process the run
      started may be left, here and again at the end, nor a thread the
      phase started; the last accepted root reads back through a fresh
@@ -233,11 +258,13 @@ Phases (each passes or the script exits non-zero):
      plain versions; the launches are logged by source, with the
      bintrie/planned counters and the chain/commit/mpt and
      chain/commit/bintrie timers. Over JSON-RPC after the last block
-     (rpc_commitment): one eth_call of keccak256Batch over 128 seeded
-     512-byte messages (one K2 launch on the server's expensive lane;
-     the digests native keccak256's), debug_stateWitness of 16 touched
-     accounts verified against the returned bintrieRoot, and
-     debug_commitmentStatus unquarantined
+     (rpc_commitment): the eth_call of keccak256Batch over 128 seeded
+     512-byte messages through BoundContract(...).call (accounts/abi.py's
+     ABI) over ethclient.Client(url), then again as eth_call over a WS
+     connection to the same server (serve_ws); each one K2 launch on the
+     server's expensive lane, the digests native keccak256's;
+     debug_stateWitness of 16 touched accounts verified against the
+     returned bintrieRoot, and debug_commitmentStatus unquarantined
   8d. mesh and legacy executors: a trie of --mesh-accounts (100,000)
      seeded leaves and 3 blocks of 2,000 updates (the native host
      planner's root of each state the oracle), on meshes of width 1 on
@@ -269,8 +296,9 @@ JSON line).
   10. fallback: Genesis.commit of a small state on the planned marker with
      MAX_SEGMENTS lowered, so that TooManySegments sends it to
      BatchedHasher on K2
-The closing "rpc:" line holds the run's requests, their wall and p50 /
-p99 per method, beside the card's name and power limit.
+The closing "rpc:" line holds the run's HTTP and WS requests and their
+walls apart, the WS pushes by kind, p50 / p99 per method and the push
+latencies, beside the card's name and power limit.
 Before the last line it prints one JSON object describing each kernel
 (launches on its main paths, max error, ms, plain ms, bound ms, and per
 variant its launches and kernel ms in the profiler's trace; K1's entry
@@ -288,10 +316,13 @@ import dataclasses
 import gc
 import json
 import os
+import queue
 import resource
+import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -303,6 +334,9 @@ import numpy as np
 import torch
 
 from coreth_tpu_torch import fault, params, parallel, rlp
+from coreth_tpu_torch.accounts.abi import ABI
+from coreth_tpu_torch.accounts.bind import BoundContract
+from coreth_tpu_torch.accounts.keystore import decrypt_key
 from coreth_tpu_torch.bintrie import shadow as shadow_mod
 from coreth_tpu_torch.bintrie import witness as bwitness
 from coreth_tpu_torch.bintrie.tree import reference_root
@@ -317,7 +351,8 @@ from coreth_tpu_torch.core.state_manager import ResidentTrieWriter
 from coreth_tpu_torch.core.types import Block, Signer, Transaction
 from coreth_tpu_torch.crypto.secp256k1 import priv_to_address
 from coreth_tpu_torch.device import DeviceWedgedError, resolve
-from coreth_tpu_torch.ethclient import Client, ClientError
+from coreth_tpu_torch.ethclient import Client, ClientError, ws_connect
+from coreth_tpu_torch.ethclient.ws import WSSubscriptionError
 from coreth_tpu_torch.ethdb import KeyValueStore, MemoryDB
 from coreth_tpu_torch.native import keccak256, keccak256_batch, mpt
 from coreth_tpu_torch.native.mpt import IncrementalTrie, plan_from_items
@@ -355,7 +390,7 @@ from coreth_tpu_torch.trie.secure import StateTrie
 from coreth_tpu_torch.trie.trie import trie_from_items
 from coreth_tpu_torch.trie.triedb import TrieDatabase
 from coreth_tpu_torch.vm import atomic_tx
-from coreth_tpu_torch.vm.api import create_handlers
+from coreth_tpu_torch.vm.api import create_handlers, serve_ws
 from coreth_tpu_torch.vm.config import DEFAULT_ETH_APIS
 from coreth_tpu_torch.vm.shared_memory import Element, Memory, Requests
 from coreth_tpu_torch.vm.vm import VM, SnowContext
@@ -450,6 +485,24 @@ RPC_BATCH = 100
 RPC_PROOFS = 16       # eth_getProof accounts after the first VM block
 RPC_PROOF_SLOTS = 4   # slots each
 RPC_WITNESSES = 16    # debug_stateWitness accounts on the commitment VM
+# the wallet (phase 7d): the main VM's keystore under the run's temporary
+# directory, the personal namespace opted in, WebSocket pushes through a
+# notify queue of WS_NOTIFY_QUEUE; before the second VM block two keyed
+# senders' keys are imported and unlocked, and WALLET_TXS of that block's
+# transfers are theirs, sent as eth_sendTransaction over WS; a third key,
+# under a password of its own, builds the block's ImportTx (of a UTXO of
+# WALLET_IMPORT nAVAX from the X chain) and its ExportTx (WALLET_EXPORT
+# nAVAX) through avax.importKey, avax.import and avax.export
+WS_NOTIFY_QUEUE = 64
+WALLET_TXS = 16
+WALLET_PASSWORD = "chip-smoke wallet"
+AVAX_PASSWORD = "chip-smoke avax"
+WALLET_IMPORT = 4 * 10**9
+WALLET_EXPORT = 2 * 10**9
+KECCAK_BATCH_ABI = [{
+    "type": "function", "name": "keccak256Batch", "stateMutability": "view",
+    "inputs": [{"name": "data", "type": "bytes[]"}],
+    "outputs": [{"name": "", "type": "bytes32[]"}]}]
 
 
 def check(cond: bool, what: str) -> None:
@@ -552,21 +605,36 @@ def descendants() -> list:
     return out
 
 
+def _p50_p99(v) -> str:
+    return (f"{np.percentile(v, 50):.3f} / {np.percentile(v, 99):.3f} "
+            f"(n={len(v)})")
+
+
 class RpcStats:
     """The run's requests: latencies by method (a batch under "<method>
-    batch", its requests counted one by one), the count and the wall."""
+    batch", its requests counted one by one; a WebSocket request under
+    "WS <method>"), the HTTP and the WS requests' counts and walls apart,
+    and the WS pushes by kind with their latencies."""
 
     def __init__(self):
         self.lat = defaultdict(list)  # method -> [ms]
         self.requests = 0
         self.wall = 0.0
+        self.ws_requests = 0
+        self.ws_wall = 0.0
+        self.pushes = defaultdict(int)  # kind -> count
+        self.push_lat = defaultdict(list)  # kind -> [ms]
 
     def summary(self) -> str:
-        return (f"{self.requests} requests in {self.wall:.3f} s; per method "
-                "p50 / p99 ms: " + ", ".join(
-                    f"{m} {np.percentile(v, 50):.3f} / "
-                    f"{np.percentile(v, 99):.3f} (n={len(v)})"
-                    for m, v in sorted(self.lat.items())))
+        return (f"HTTP {self.requests} requests in {self.wall:.3f} s, WS "
+                f"{self.ws_requests} requests in {self.ws_wall:.3f} s and "
+                f"{sum(self.pushes.values())} pushes ("
+                + ", ".join(f"{k} {n}" for k, n in sorted(self.pushes.items()))
+                + "); per method p50 / p99 ms: " + ", ".join(
+                    f"{m} {_p50_p99(v)}" for m, v in sorted(self.lat.items()))
+                + "; push latency p50 / p99 ms: " + (", ".join(
+                    f"{k} {_p50_p99(v)}"
+                    for k, v in sorted(self.push_lat.items())) or "none"))
 
 
 class RpcRun:
@@ -615,6 +683,74 @@ class RpcRun:
             except urllib.error.HTTPError as e:
                 return e.code, e.read()
         return self._timed(f"GET {path}", 1, fetch)
+
+
+class _StampedQueue(queue.Queue):
+    """A subscription's queue that stamps each push as it arrives (on the
+    client's reader thread): Subscription.next returns (t, item)."""
+
+    def put(self, item, block=True, timeout=None):
+        super().put((time.perf_counter(), item), block, timeout)
+
+
+class WsRun:
+    """A WebSocket client of one of the port's servers
+    (ethclient.ws_connect: ethclient/ws.py's WSEthClient), timing every
+    request into `stats`; an error object fails the run. Its
+    subscriptions stamp their pushes (_StampedQueue)."""
+
+    def __init__(self, port: int, stats: RpcStats):
+        self.client = ws_connect("127.0.0.1", port)
+        self.stats = stats
+
+    def call(self, method, *params):
+        t0 = time.perf_counter()
+        try:
+            out = self.client.request(method, list(params), timeout=60)
+        except WSSubscriptionError as e:
+            check(False, f"ws {method}: {e}")
+        dt = time.perf_counter() - t0
+        self.stats.lat[f"WS {method}"].append(dt * 1e3)
+        self.stats.ws_requests += 1
+        self.stats.ws_wall += dt
+        return out
+
+    def subscribe(self, kind, *params):
+        t0 = time.perf_counter()
+        sub = self.client.subscribe(kind, *params)
+        dt = time.perf_counter() - t0
+        self.stats.lat["WS eth_subscribe"].append(dt * 1e3)
+        self.stats.ws_requests += 1
+        self.stats.ws_wall += dt
+        stamped = _StampedQueue()
+        with self.client._lock:  # the reader routes pushes under it
+            while not sub._q.empty():
+                stamped.put(sub._q.get())
+            sub._q = stamped
+        sub.kind = kind
+        return sub
+
+    def pushes(self, sub, n: int, t_ref=None, timeout: float = 60.0):
+        """The next `n` pushes of `sub` as (arrival time, item), counted
+        (and their latencies since `t_ref`, a perf_counter time, when
+        given)."""
+        out = []
+        for _ in range(n):
+            try:
+                t, item = sub.next(timeout=timeout)
+            except WSSubscriptionError as e:
+                check(False, f"ws {sub.kind}: push {len(out) + 1} of {n}: "
+                      f"{e}")
+            check(isinstance(item, (dict, str)),
+                  f"ws {sub.kind}: the connection closed ({item})")
+            self.stats.pushes[sub.kind] += 1
+            if t_ref is not None:
+                self.stats.push_lat[sub.kind].append((t - t_ref) * 1e3)
+            out.append((t, item))
+        return out
+
+    def close(self):
+        self.client.close()
 
 
 def threads_left(before: set, seconds: float = 5.0) -> list:
@@ -1424,15 +1560,20 @@ class _ChainBoot:
             setattr(cls, name, orig)
 
 
-def vm_config(dev) -> dict:
+def vm_config(dev, keystore_dir: str) -> dict:
     """The VM's JSON config, as AvalancheGo hands it over: the defaults but
     for the insert pipeline at depth 2 (the one execution option read only
-    at construction), the debug and txpool namespaces opted in (RPC_APIS)
-    and the /metrics + /healthz endpoint on a free loopback port; "auto"
-    boots the resident mirror on CUDA. The CPU rehearsal asks for the
-    mirror, which "auto" leaves off there."""
-    cfg = {"insert-pipeline-depth": PIPELINE_DEPTH, "eth-apis": RPC_APIS,
-           "metrics-http-enabled": True, "metrics-http-port": 0}
+    at construction), the debug, txpool and personal namespaces opted in
+    (RPC_APIS + personal), the /metrics + /healthz endpoint on a free
+    loopback port, the node keystore in `keystore_dir` and a WebSocket
+    notify queue of WS_NOTIFY_QUEUE; "auto" boots the resident mirror on
+    CUDA. The CPU rehearsal asks for the mirror, which "auto" leaves off
+    there."""
+    cfg = {"insert-pipeline-depth": PIPELINE_DEPTH,
+           "eth-apis": RPC_APIS + ["personal"],
+           "metrics-http-enabled": True, "metrics-http-port": 0,
+           "keystore-directory": keystore_dir,
+           "ws-notify-queue-size": WS_NOTIFY_QUEUE}
     if dev.type != "cuda":
         cfg["resident-account-trie"] = True
     return cfg
@@ -1445,7 +1586,7 @@ def chain_clock(vm, gap: int = 10):
     return lambda: vm.blockchain.current_block.time + gap
 
 
-def phase_genesis(dev, world: World, oracle_root: bytes):
+def phase_genesis(dev, world: World, oracle_root: bytes, keystore_dir: str):
     """The planned genesis through the VM (module docstring, phase 5):
     VM.initialize(SnowContext(shared_memory=Memory()), MemoryDB(), the
     world's Genesis, config_bytes=<JSON>, device=dev) builds its state's
@@ -1467,7 +1608,7 @@ def phase_genesis(dev, world: World, oracle_root: bytes):
     diskdb = MemoryDB()
     keccak_cuda.reset_counts()
     planned_mod.planned_fallbacks = 0
-    cfg = json.dumps(vm_config(dev))
+    cfg = json.dumps(vm_config(dev, keystore_dir))
     mem = Memory()
     vm = VM()
     with _Timed() as timed, _GcPauses() as pauses, _ChainBoot() as boot:
@@ -3141,25 +3282,219 @@ class _AtomicPair:
                                     world.nonce[self.exp_i])],
             exported_outputs=[self.out]))
         self.exp.sign([exp_key])
+        self.touched = {self.dest, self.exp_i}
 
-    def apply(self, world: World, oracle: Oracle) -> None:
+    def issue(self, vm, rpc, label) -> None:
+        """Into the atomic mempool: through vm.issue_atomic_tx, or with
+        `rpc` as avax.issueTx over HTTP."""
+        for atx in (self.imp, self.exp):
+            if rpc is None:
+                vm.issue_atomic_tx(atx)
+                continue
+            check(rpc.call("avax_issueTx", "0x" + atx.encode().hex())
+                  == {"txID": "0x" + atx.id().hex()},
+                  f"{label}: avax.issueTx answered another id")
+
+    def apply(self, world: World, oracle: Oracle, atomic_txs) -> None:
         """Their balance and nonce changes, applied to `world` and
-        `oracle` (an atomic tx has no receipt)."""
+        `oracle` (an atomic tx has no receipt); `atomic_txs` are the
+        block's, which must be these two."""
+        check(sorted(t.id() for t in atomic_txs)
+              == sorted((self.imp.id(), self.exp.id())),
+              "vm: the block's atomic txs are not the pair issued")
         world.balance[self.dest] += (VM_IMPORT - VM_BURN) * atomic_tx.X2C_RATE
         world.balance[self.exp_i] -= ((VM_EXPORT + VM_BURN)
                                       * atomic_tx.X2C_RATE)
         world.nonce[self.exp_i] += 1
         oracle.apply([self.dest, self.exp_i], {})
 
+    def check_shared_memory(self, mem: Memory, ctx) -> None:
+        """After the accept: the X chain's shared memory holds the
+        export's UTXO, and this chain's no longer holds the import's."""
+        out = mem.new_shared_memory(ctx.x_chain_id).get(
+            ctx.chain_id, [self.out.utxo_id()])
+        check(atomic_tx.UTXO.decode(out[0]) == self.out,
+              "vm: the export's UTXO is not in the X chain's shared memory")
+        try:
+            mem.new_shared_memory(ctx.chain_id).get(ctx.x_chain_id,
+                                                    [self.utxo.utxo_id()])
+            check(False, "vm: the imported UTXO is still in the shared "
+                  "memory")
+        except KeyError:
+            pass
+
+
+class _Wallet:
+    """The wallet of the second VM block (phase 7d), over one WebSocket
+    connection (`ws`, a WsRun). Two keyed senders (WALLET_SENDERS from the
+    end of the keyed list, clear of the VM blocks' senders and the atomic
+    pair's accounts) are imported with personal_importRawKey and unlocked
+    with personal_unlockAccount (duration 0: until locked); WALLET_TXS of
+    the block's transfers, whose senders send nothing else in the phase,
+    are replaced by transfers of theirs (the same receiver and value, at
+    their next nonces), signed here with Signer.sign (deterministic) so
+    each eth_sendTransaction answer can be held to the harness's hash.
+    Returns from send() the hashes, in order."""
+
+    def __init__(self, ws: "WsRun", world: World, blocks, b: int):
+        self.ws = ws
+        senders = [world.keyed[-3], world.keyed[-4]]
+        idx = {i for i, _ in senders}
+        used = defaultdict(int)
+        for blk in blocks:
+            for t in blk:
+                used[t.sender] += 1
+        check(not idx & set(used), "wallet: a wallet key already sends in "
+              "the VM blocks")
+        signer = Signer(params.TEST_CHAIN_CONFIG.chain_id)
+        nonces = {i: world.nonce[i] for i in idx}
+        self.objs = {}  # _EvmTx -> the eth_sendTransaction object
+        txs = blocks[b]
+        slots = [k for k, t in enumerate(txs)
+                 if t.writes is None and used[t.sender] == 1][:WALLET_TXS]
+        check(len(slots) == WALLET_TXS, "wallet: too few transfers to take")
+        t0 = time.perf_counter()
+        self.key_ms = []
+        for i, key in senders:
+            ta = time.perf_counter()
+            addr = ws.call("personal_importRawKey", "0x" + key.hex(),
+                           WALLET_PASSWORD)
+            tb = time.perf_counter()
+            check(addr == "0x" + world.addrs[i].hex(),
+                  f"wallet: personal_importRawKey answered {addr}")
+            check(ws.call("personal_unlockAccount", addr, WALLET_PASSWORD, 0)
+                  is True, "wallet: personal_unlockAccount")
+            self.key_ms.append(((tb - ta) * 1e3,
+                                (time.perf_counter() - tb) * 1e3))
+        for n, k in enumerate(slots):
+            old = txs[k]
+            i, key = senders[n % 2]
+            tx = Transaction(type=2, chain_id=signer.chain_id,
+                             nonce=nonces[i], max_priority_fee=0,
+                             max_fee=EVM_MAX_FEE, gas=21000,
+                             to=world.addrs[old.to], value=old.value)
+            nonces[i] += 1
+            new = _EvmTx(signer.sign(tx, key).encode(), i, old.to, old.value,
+                         None)
+            txs[k] = new
+            self.objs[new] = {
+                "from": "0x" + world.addrs[i].hex(),
+                "to": "0x" + world.addrs[old.to].hex(),
+                "value": hex(old.value), "gas": hex(21000),
+                "maxFeePerGas": hex(EVM_MAX_FEE),
+                "maxPriorityFeePerGas": hex(0), "nonce": hex(tx.nonce)}
+        self.setup_ms = (time.perf_counter() - t0) * 1e3
+        self.sent = []  # (hash, perf_counter time sent)
+
+    def send(self, label) -> None:
+        """Each wallet transfer as eth_sendTransaction over WS; each answer
+        must be the hash of the transaction the harness signed."""
+        for t, obj in self.objs.items():
+            want = "0x" + Transaction.decode(t.blob).hash().hex()
+            t0 = time.perf_counter()
+            got = self.ws.call("eth_sendTransaction", obj)
+            check(got == want, f"{label}: eth_sendTransaction answered {got}"
+                  f", the harness signed {want}")
+            self.sent.append((got, t0))
+
+
+class _WalletAtomic:
+    """The second VM block's atomic txs, built by the node's wallet over
+    WS: avax.importKey of a third keyed account's key under AVAX_PASSWORD,
+    a UTXO of WALLET_IMPORT nAVAX seeded from the X chain to its address;
+    then avax.import (tx_builder.new_import_tx: every UTXO the password's
+    keys own, less the dynamic fee, to a plain account) and avax.export
+    (tx_builder.new_export_tx: WALLET_EXPORT nAVAX plus the fee from that
+    account, to an X-chain address). The oracle counts both from the
+    block's txs: each output credits its address, each input debits its
+    address and sets its nonce."""
+
+    def __init__(self, ws: "WsRun", vm, mem: Memory, world: World):
+        self.ws = ws
+        ctx = vm.ctx
+        self.src_i, self.key = world.keyed[-5]
+        self.dest = len(world.storage) + len(world.keyed) + 1
+        self.x_addr = b"\x98" * 20
+        self.utxo = atomic_tx.UTXO(
+            tx_id=keccak256(b"chip_smoke wallet x-chain export"),
+            output_index=0, asset_id=ctx.avax_asset_id, amount=WALLET_IMPORT,
+            address=world.addrs[self.src_i])
+        mem.new_shared_memory(ctx.x_chain_id).apply({ctx.chain_id: Requests(
+            put_requests=[Element(self.utxo.utxo_id(), self.utxo.encode(),
+                                  [self.utxo.address])])})
+        self.dest_addr = world.addrs[self.dest]
+        self.index = {world.addrs[self.src_i]: self.src_i,
+                      self.dest_addr: self.dest}
+        self.touched = {self.src_i, self.dest}
+        self.imp = self.exp = None
+
+    def issue(self, vm, rpc, label) -> None:
+        ctx = vm.ctx
+        addr = "0x" + self.utxo.address.hex()
+        check(self.ws.call("avax_importKey", AVAX_PASSWORD,
+                           "0x" + self.key.hex()) == {"address": addr},
+              f"{label}: avax.importKey")
+        x_chain = "0x" + ctx.x_chain_id.hex()
+        self.imp_id = self.ws.call(
+            "avax_import", AVAX_PASSWORD,
+            "0x" + self.dest_addr.hex(), x_chain)["txID"]
+        self.exp_id = self.ws.call(
+            "avax_export", AVAX_PASSWORD, WALLET_EXPORT,
+            "0x" + self.x_addr.hex(), x_chain)["txID"]
+
+    def apply(self, world: World, oracle: Oracle, atomic_txs) -> None:
+        by_id = {"0x" + t.id().hex(): t for t in atomic_txs}
+        check(sorted(by_id) == sorted((self.imp_id, self.exp_id)),
+              "vm: the block's atomic txs are not the wallet's")
+        self.imp, self.exp = by_id[self.imp_id], by_id[self.exp_id]
+        outs, ins = self.imp.unsigned.outs, self.exp.unsigned.ins
+        credited = sum(o.amount for o in outs)
+        check(self.imp.unsigned.imported_inputs == [self.utxo]
+              and 0 < credited < WALLET_IMPORT
+              and [o.address for o in outs] == [world.addrs[self.dest]],
+              f"vm: the wallet's ImportTx ({credited} of {WALLET_IMPORT} "
+              f"nAVAX credited)")
+        check([(u.amount, u.address)
+               for u in self.exp.unsigned.exported_outputs]
+              == [(WALLET_EXPORT, self.x_addr)]
+              and all(i.address == world.addrs[self.src_i]
+                      and i.nonce == world.nonce[self.src_i] for i in ins),
+              "vm: the wallet's ExportTx")
+        for o in outs:
+            world.balance[self.index[o.address]] += o.amount * atomic_tx.X2C_RATE
+        for i in ins:
+            world.balance[self.index[i.address]] -= i.amount * atomic_tx.X2C_RATE
+            world.nonce[self.index[i.address]] = i.nonce + 1
+        self.fees = (WALLET_IMPORT - credited,
+                     sum(i.amount for i in ins) - WALLET_EXPORT)
+        oracle.apply(sorted(self.touched), {})
+
+    def check_shared_memory(self, mem: Memory, ctx) -> None:
+        out = self.exp.unsigned.exported_outputs[0]
+        got = mem.new_shared_memory(ctx.x_chain_id).get(
+            ctx.chain_id, [out.utxo_id()])
+        check(atomic_tx.UTXO.decode(got[0]) == out,
+              "vm: the wallet export's UTXO is not in the X chain's shared "
+              "memory")
+        try:
+            mem.new_shared_memory(ctx.chain_id).get(ctx.x_chain_id,
+                                                    [self.utxo.utxo_id()])
+            check(False, "vm: the wallet's imported UTXO is still in the "
+                  "shared memory")
+        except KeyError:
+            pass
+
 
 def vm_block(vm, world: World, oracle: Oracle, txs, coinbase: list,
              recs, atomic=None, label="vm", dev=None, issued=False,
-             rpc=None):
+             rpc=None, wallet=None):
     """One block through the VM: `txs` (and `atomic`'s two txs) issued
     through vm.issue_tx and vm.issue_atomic_tx (unless `issued`: already
     in the tx pool from a build that failed), or with `rpc` (an RpcRun)
     sent over HTTP as eth_sendRawTransaction in batches and
-    avax.issueTx; then vm.build_block() →
+    avax.issueTx, but `wallet`'s transactions (a _Wallet) as
+    eth_sendTransaction over WS and `atomic`'s as its own issue() builds
+    them (a _WalletAtomic: the node's wallet); then vm.build_block() →
     vmb.verify() → vm.set_preference(vmb.id()) → vmb.accept() and the
     acceptor drained. Its header root must equal the EVM-independent
     oracle's (evm_oracle_block over the block's own transaction order,
@@ -3171,20 +3506,19 @@ def vm_block(vm, world: World, oracle: Oracle, txs, coinbase: list,
     by_hash = {tx.hash(): t for tx, t in zip(decoded, txs)}
     t0 = time.perf_counter()
     if rpc is not None:
+        raw = [(t, tx) for t, tx in zip(txs, decoded)
+               if wallet is None or t not in wallet.objs]
         got = rpc.batch("eth_sendRawTransaction",
-                        [["0x" + t.blob.hex()] for t in txs])
-        check(got == ["0x" + tx.hash().hex() for tx in decoded],
+                        [["0x" + t.blob.hex()] for t, _ in raw])
+        check(got == ["0x" + tx.hash().hex() for _, tx in raw],
               f"{label}: eth_sendRawTransaction answered other hashes")
-        for atx in (atomic.imp, atomic.exp) if atomic is not None else ():
-            check(rpc.call("avax_issueTx", "0x" + atx.encode().hex())
-                  == {"txID": "0x" + atx.id().hex()},
-                  f"{label}: avax.issueTx answered another id")
+        if wallet is not None:
+            wallet.send(label)
     else:
         for tx in decoded if not issued else ():
             vm.issue_tx(tx)
-        if atomic is not None:
-            vm.issue_atomic_tx(atomic.imp)
-            vm.issue_atomic_tx(atomic.exp)
+    if atomic is not None:
+        atomic.issue(vm, rpc, label)
     issue_ms = (time.perf_counter() - t0) * 1e3
     check(vm.txpool.stats()[0] == len(txs),
           f"{label}: the tx pool holds {vm.txpool.stats()}, not "
@@ -3203,10 +3537,10 @@ def vm_block(vm, world: World, oracle: Oracle, txs, coinbase: list,
            if dev is not None and mirror is not None and not
            mirror.host_mode else None)
     vm.set_preference(vmb.id())
-    t0 = time.perf_counter()
+    t_accept = time.perf_counter()
     vmb.accept()
     chain.drain_acceptor_queue()
-    accept_ms = (time.perf_counter() - t0) * 1e3
+    accept_ms = (time.perf_counter() - t_accept) * 1e3
     eth = vmb.eth_block
     check(len(eth.transactions) == len(txs),
           f"{label} block {eth.number}: {len(eth.transactions)} of "
@@ -3221,9 +3555,9 @@ def vm_block(vm, world: World, oracle: Oracle, txs, coinbase: list,
         world, oracle, ordered, receipts, eth.header.base_fee, coinbase,
         VM_COINBASE)
     if atomic is not None:
-        atomic.apply(world, oracle)
+        atomic.apply(world, oracle, vmb.atomic_txs)
         want = oracle.root()
-        touched |= {atomic.dest, atomic.exp_i}
+        touched |= atomic.touched
     check(eth.header.root == want,
           f"{label} block {eth.number}: root {eth.header.root.hex()} != "
           f"oracle {want.hex()}")
@@ -3232,7 +3566,7 @@ def vm_block(vm, world: World, oracle: Oracle, txs, coinbase: list,
           and chain.last_accepted.hash() == vmb.id(),
           f"{label} block {eth.number}: not the head and last accepted")
     stats = dict(issue=issue_ms, build=build_ms, verify=verify_ms,
-                 accept=accept_ms, window=win,
+                 accept=accept_ms, t_accept=t_accept, window=win,
                  build_k1=[b - a for a, b in zip(n0, n1)],
                  verify_k1=[b - a for a, b in zip(n1, n2)])
     return vmb, receipts, touched, writes, stats
@@ -3364,6 +3698,48 @@ def rpc_proofs(rpc: RpcRun, vmb, world: World, oracle: Oracle, touched,
             f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
 
 
+def ws_block_pushes(wsc: WsRun, subs, vmb, receipts, txs, wallet, st) -> str:
+    """The WS pushes of the block just accepted, held against it: one
+    newHeads push with the block's hash, number and state root; one logs
+    push per log of the receipts (each the receipt's address, topics,
+    data, transaction and block); one newPendingTransactions push per
+    transaction the block carries, each hash once (the wallet's among
+    them). Head and log latencies from the accept; the wallet's pending
+    latencies from its eth_sendTransaction. Returns a summary."""
+    eth = vmb.eth_block
+    (_, head), = wsc.pushes(subs["heads"], 1, st["t_accept"])
+    check((head["hash"], int(head["number"], 16), head["stateRoot"]) == (
+        "0x" + vmb.id().hex(), eth.number, "0x" + eth.header.root.hex()),
+        f"ws: the newHeads push {head} != block {eth.number}")
+    want = [("0x" + l.address.hex(), ["0x" + t.hex() for t in l.topics],
+             "0x" + l.data.hex(), "0x" + tx.hash().hex(), "0x" + vmb.id().hex())
+            for tx, r in zip(eth.transactions, receipts) for l in r.logs]
+    got = [(p["address"], p["topics"], p["data"], p["transactionHash"],
+            p["blockHash"]) for _, p in wsc.pushes(
+                subs["logs"], len(want), st["t_accept"])]
+    check(got == want, f"ws block {eth.number}: the logs pushes != the "
+          f"receipts' logs")
+    pending = wsc.pushes(subs["pending"], len(txs))
+    hashes = sorted(h for _, h in pending)
+    check(hashes == sorted("0x" + tx.hash().hex() for tx in eth.transactions),
+          f"ws block {eth.number}: the pending pushes != the block's "
+          f"transactions, each once")
+    if wallet is not None:
+        arrived = {h: t for t, h in pending}
+        for h, t_sent in wallet.sent:
+            wsc.stats.push_lat["newPendingTransactions"].append(
+                (arrived[h] - t_sent) * 1e3)
+    for s in subs.values():
+        check(s._q.qsize() == 0, f"ws block {eth.number}: an extra "
+              f"{s.kind} push")
+    mine = (f", the wallet's {len(wallet.sent)} among them"
+            if wallet is not None else "")
+    return (f"1 newHeads push (the block's hash, number and root), "
+            f"{len(got)} logs pushes (the receipts' logs), {len(pending)} "
+            f"newPendingTransactions pushes (the block's transactions, each "
+            f"once{mine})")
+
+
 def phase_vm(dev, vm, mem: Memory, world: World, oracle: Oracle, n_blocks,
              coinbase: list, rpc_stats: RpcStats, seed, card):
     """The VM phase (module docstring, phase 7d): `n_blocks` blocks of the
@@ -3403,25 +3779,60 @@ def phase_vm(dev, vm, mem: Memory, world: World, oracle: Oracle, n_blocks,
     rpc = RpcRun(f"http://127.0.0.1:{server.serve_http('127.0.0.1', 0)}",
                  rpc_stats)
     metrics_url = f"http://127.0.0.1:{vm.metrics_http.port}"
-    log(f"vm: create_handlers(vm) with eth-apis {RPC_APIS}, serving HTTP "
-        f"at {rpc.url}, the metrics endpoint at {metrics_url}, in "
+    # WebSocket beside HTTP on the same server (one backend, one filter
+    # stack), and a wallet user's connection subscribed before block 1
+    ws, ws_port = serve_ws(vm, rpc_server=server)
+    check(ws.notify_queue_size == WS_NOTIFY_QUEUE,
+          f"vm: serve_ws notify queue {ws.notify_queue_size}")
+    wsc = WsRun(ws_port, rpc_stats)
+    called = sorted({t.to for blk in signed for t in blk if t.writes})
+    subs = {"heads": wsc.subscribe("newHeads"),
+            "logs": wsc.subscribe("logs", {"address": [
+                "0x" + world.addrs[c].hex() for c in called]}),
+            "pending": wsc.subscribe("newPendingTransactions")}
+    log(f"vm: create_handlers(vm) with eth-apis {vm.full_config.eth_apis}, "
+        f"serving HTTP at {rpc.url}, the metrics endpoint at {metrics_url},"
+        f" serve_ws(vm, rpc_server=server) at ws://127.0.0.1:{ws_port} "
+        f"(notify queue {ws.notify_queue_size}), a WSEthClient subscribed "
+        f"to newHeads, logs of the {len(called)} called contracts and "
+        f"newPendingTransactions, in "
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
     req0, wall0 = rpc_stats.requests, rpc_stats.wall
+    ws0, wsw0 = rpc_stats.ws_requests, rpc_stats.ws_wall
+    ws_names = ("rpc/ws/notify_drops", "rpc/ws/slow_disconnects",
+                "rpc/ws/notify_errors", "rpc/body_oversize")
+    ws_moved = {n: default_registry.counter(n).count() for n in ws_names}
     loud_names = LOUD_CHAIN + OPTION_FALLBACKS + LOUD_DEVICE
     loud = {n: default_registry.counter(n).count() for n in loud_names}
     keccak_cuda.reset_counts()
     planned_mod.planned_fallbacks = 0
     touched_all, written = set(), defaultdict(set)
     gas_all = wall_all = 0.0
+    wallet = watomic = None
     with _GcPauses() as pauses:
         for b, txs in enumerate(signed):
+            if b == 1:  # the wallet's block
+                wallet = _Wallet(wsc, world, signed, b)
+                watomic = _WalletAtomic(wsc, vm, mem, world)
+                log(f"vm: wallet keys imported and unlocked over WS "
+                    f"(personal_importRawKey / personal_unlockAccount ms: "
+                    + ", ".join(f"{a:.1f} / {u:.1f}"
+                                for a, u in wallet.key_ms)
+                    + f"), {len(wallet.objs)} of the block's transfers "
+                    f"re-signed from them, a UTXO of {WALLET_IMPORT} nAVAX "
+                    f"seeded for the avax key; {wallet.setup_ms:.1f} ms")
+            blk_atomic = atomic if b == 0 else watomic if b == 1 else None
             vmb, receipts, touched, writes, st = vm_block(
                 vm, world, oracle, txs, coinbase, (rec_storage, rec_resident),
-                atomic=atomic if b == 0 else None, dev=dev, rpc=rpc)
+                atomic=blk_atomic, dev=dev, rpc=rpc,
+                wallet=wallet if b == 1 else None)
+            pushed = ws_block_pushes(wsc, subs, vmb, receipts, txs,
+                                     wallet if b == 1 else None, st)
+            if blk_atomic is not None:
+                blk_atomic.check_shared_memory(mem, vm.ctx)
             t0 = time.perf_counter()
             reads = rpc_block_reads(rpc, metrics_url, vm, vmb, txs, receipts,
-                                    world, touched, writes,
-                                    atomic if b == 0 else None)
+                                    world, touched, writes, blk_atomic)
             if b == 0:  # the next block's delta stays on the card
                 reads += "; " + rpc_proofs(rpc, vmb, world, oracle, touched,
                                            writes, seed + b)
@@ -3450,23 +3861,45 @@ def phase_vm(dev, vm, mem: Memory, world: World, oracle: Oracle, n_blocks,
                 f" Mgas/s over build + verify; root {eth.header.root.hex()}"
                 f" == the EVM-independent oracle's; {card}")
             log(f"vm block {eth.number}: over RPC {reads}, all equal to the "
-                f"block and the oracle's world, in {reads_ms:.1f} ms")
+                f"block and the oracle's world, in {reads_ms:.1f} ms; over WS"
+                f" {pushed}")
+            if b == 1:
+                log(f"vm block {eth.number}: the wallet's {len(wallet.objs)} "
+                    f"eth_sendTransaction over WS answered the harness's "
+                    f"hashes; avax.import {watomic.imp_id} (fee "
+                    f"{watomic.fees[0]} nAVAX) and avax.export "
+                    f"{watomic.exp_id} (fee {watomic.fees[1]} nAVAX), built "
+                    f"by the node's tx builder, counted by the oracle; the "
+                    f"shared memory holds the export's UTXO and not the "
+                    f"import's")
     launches, coop = keccak_cuda.launches, keccak_cuda.launches_coop
     check(len(vm.mempool) == 0 and not vm.mempool.issued
           and vm.txpool.stats() == (0, 0),
           f"vm: mempool {len(vm.mempool)} (issued {len(vm.mempool.issued)}"
           f"), tx pool {vm.txpool.stats()} after the last accept")
-    ctx = vm.ctx
-    out = mem.new_shared_memory(ctx.x_chain_id).get(
-        ctx.chain_id, [atomic.out.utxo_id()])
-    check(atomic_tx.UTXO.decode(out[0]) == atomic.out,
-          "vm: the export's UTXO is not in the X chain's shared memory")
-    try:
-        mem.new_shared_memory(ctx.chain_id).get(ctx.x_chain_id,
-                                                [atomic.utxo.utxo_id()])
-        check(False, "vm: the imported UTXO is still in the shared memory")
-    except KeyError:
-        pass
+    # the keystore's KDF alone: the avax key's light-scrypt keyfile
+    kdir = vm.keystore.keydir
+    kfile, = [f for f in os.listdir(kdir)
+              if f.endswith(watomic.utxo.address.hex())]
+    with open(os.path.join(kdir, kfile)) as f:
+        kj = json.load(f)
+    t0 = time.perf_counter()
+    check(decrypt_key(kj, AVAX_PASSWORD) == watomic.key,
+          "vm: the avax keyfile does not decrypt to its key")
+    scrypt_ms = (time.perf_counter() - t0) * 1e3
+    wsc.close()
+    ws.stop()
+    for name in ws_names:
+        now = default_registry.counter(name).count()
+        check(now == ws_moved[name], f"vm: {name} counted "
+              f"{now - ws_moved[name]}")
+    log(f"vm ws: {rpc_stats.ws_requests - ws0} requests in "
+        f"{rpc_stats.ws_wall - wsw0:.3f} s of request wall, "
+        f"{sum(rpc_stats.pushes.values())} pushes, no error object, no "
+        f"notify drop or slow disconnect; the keystore's scrypt (n "
+        f"{kj['crypto']['kdfparams']['n']}, p {kj['crypto']['kdfparams']['p']}"
+        f") decrypts a keyfile in {scrypt_ms:.1f} ms; the WSEthClient "
+        f"closed and ws.stop() joined the server's threads; {card}")
     last = chain.last_accepted.header.root
     check(chain.snaps.disk_layer.root == last,
           "vm: the snapshot's disk layer is not at the last root")
@@ -3839,11 +4272,15 @@ def _timer(name):
 def rpc_commitment(vm, rec_k2, world: World, touched, rpc_stats: RpcStats,
                    seed) -> str:
     """The commitment VM over RPC after its last block: create_handlers(vm)
-    on HTTP; one eth_call of keccak256Batch over SHADOW_MSGS seeded
-    messages of SHADOW_MSG_BYTES (the precompile hashes them on K2 through
-    the head state's device seam, on the server's expensive lane): the
-    returned digests equal native.keccak256 of each and rec_k2 counts one
-    launch; debug_stateWitness of RPC_WITNESSES touched accounts, each
+    on HTTP and serve_ws beside it; the eth_call of keccak256Batch over
+    SHADOW_MSGS seeded messages of SHADOW_MSG_BYTES (the precompile hashes
+    them on K2 through the head state's device seam, on the server's
+    expensive lane) made twice: through BoundContract(...).call (its ABI
+    by accounts/abi.py) over ethclient.Client(url), and as eth_call over a
+    WS connection to the same server; each time the returned digests
+    equal native.keccak256 of each and rec_k2 counts one launch (then the
+    WS server stops, joining its threads); debug_stateWitness of
+    RPC_WITNESSES touched accounts, each
     verified with bintrie/witness.verify_witness against the returned
     bintrieRoot (the shadow's root of the head) to the oracle's account;
     debug_commitmentStatus with the shadow unquarantined. Returns a
@@ -3856,17 +4293,32 @@ def rpc_commitment(vm, rec_k2, world: World, touched, rpc_stats: RpcStats,
     raw = rng.bytes(SHADOW_MSGS * SHADOW_MSG_BYTES)
     msgs = [raw[k * SHADOW_MSG_BYTES:(k + 1) * SHADOW_MSG_BYTES]
             for k in range(SHADOW_MSGS)]
+    want = [keccak256(m) for m in msgs]
+    abi = ABI(KECCAK_BATCH_ABI)
+    check(abi.pack("keccak256Batch", msgs) == batch_calldata(msgs),
+          "commitment rpc: the ABI's calldata != the precompile's layout")
+    bound = BoundContract(TPU_KECCAK_ADDR, abi, rpc.client)
     k2a = len(rec_k2.records)
-    out = bytes.fromhex(rpc.call("eth_call", {
-        "to": "0x" + TPU_KECCAK_ADDR.hex(),
-        "data": "0x" + batch_calldata(msgs).hex()}, "latest")[2:])
-    digests = [out[64 + 32 * j:96 + 32 * j] for j in range(SHADOW_MSGS)]
-    check(int.from_bytes(out[32:64], "big") == SHADOW_MSGS
-          and digests == [keccak256(m) for m in msgs],
-          "commitment rpc: eth_call of keccak256Batch != native keccak256")
+    got, = rpc._timed("eth_call (BoundContract)", 1,
+                      lambda: bound.call("keccak256Batch", msgs))
+    check(got == want, "commitment rpc: BoundContract.call of "
+          "keccak256Batch != native keccak256")
     check(len(rec_k2.records) == k2a + 1,
-          f"commitment rpc: the eth_call made {len(rec_k2.records) - k2a} "
-          f"K2 launches, not 1")
+          f"commitment rpc: the BoundContract call made "
+          f"{len(rec_k2.records) - k2a} K2 launches, not 1")
+    ws, ws_port = serve_ws(vm, rpc_server=server)
+    wsc = WsRun(ws_port, rpc_stats)
+    out = wsc.call("eth_call", {
+        "to": "0x" + TPU_KECCAK_ADDR.hex(),
+        "data": "0x" + abi.pack("keccak256Batch", msgs).hex()}, "latest")
+    got, = abi.unpack("keccak256Batch", bytes.fromhex(out[2:]))
+    check(got == want, "commitment ws: eth_call of keccak256Batch != "
+          "native keccak256")
+    check(len(rec_k2.records) == k2a + 2,
+          f"commitment ws: the eth_call made "
+          f"{len(rec_k2.records) - k2a - 1} K2 launches, not 1")
+    wsc.close()
+    ws.stop()
     chain = vm.blockchain
     last = chain.last_accepted.header.root
     broot = chain.state_database.shadow.root_for(last)
@@ -3889,11 +4341,13 @@ def rpc_commitment(vm, rec_k2, world: World, touched, rpc_stats: RpcStats,
           and st["shadow"]["quarantined"] is False,
           f"commitment rpc: debug_commitmentStatus {st}")
     return (f"eth_call of keccak256Batch over {SHADOW_MSGS} x "
-            f"{SHADOW_MSG_BYTES} B: 1 K2 launch, the digests native "
-            f"keccak256's; {len(picks)} debug_stateWitness verified against "
+            f"{SHADOW_MSG_BYTES} B through BoundContract over HTTP and again "
+            f"over WS: 1 K2 launch each, the digests native keccak256's; "
+            f"{len(picks)} debug_stateWitness verified against "
             f"bintrieRoot {broot.hex()}; debug_commitmentStatus unquarantined"
-            f"; {rpc_stats.requests - req0} requests in "
-            f"{rpc_stats.wall - wall0:.3f} s of request wall, no error object")
+            f"; {rpc_stats.requests - req0} HTTP requests in "
+            f"{rpc_stats.wall - wall0:.3f} s of request wall, 1 over WS, no "
+            f"error object")
 
 
 def phase_commitment(dev, n_accounts, n_blocks, rpc_stats: RpcStats, seed,
@@ -4456,11 +4910,15 @@ def main() -> int:
     args = ap.parse_args()
     if args.option_blocks < 4:
         ap.error("--option-blocks must be at least 4")
+    if args.vm_blocks < 2:
+        ap.error("--vm-blocks must be at least 2 (the second is the "
+                 "wallet's)")
     if args.device != "cpu" and not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     dev = resolve(args.device)
     t_start = time.perf_counter()
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_")
 
     card = phase_card(dev)
     phase_build(dev)
@@ -4490,7 +4948,8 @@ def main() -> int:
     # which boots the resident mirror (K1) and the snapshot tree
     mark(t_start, "planned genesis")
     (vm, mem, diskdb, gen_block, g_builder, g_launches, g_coop, cb_launches,
-     cb_coop, cb_rec) = phase_genesis(dev, world, oracle_root)
+     cb_coop, cb_rec) = phase_genesis(dev, world, oracle_root,
+                                      os.path.join(run_dir, "keystore"))
     g_err, g_ms, g_plain, g_shapes, g_kernel = check_and_time(
         dev, g_builder, "genesis")
     del g_builder
@@ -4701,12 +5160,15 @@ def main() -> int:
         f"{evm_batched.k2}, ladder drill probes {d_k2}, the keccak "
         f"precompile {cm_k2}, mesh and legacy executors {ml_k2}")
     log(f"rpc: the VM blocks' transactions entered by eth_sendRawTransaction"
-        f" and avax.issueTx (their K1 launches {v_launches}); the commitment"
-        f" VM's eth_call of keccak256Batch 1 K2 launch; {rpc_stats.summary()};"
-        f" {card}")
+        f" and avax.issueTx over HTTP, the wallet's by eth_sendTransaction, "
+        f"avax.import and avax.export over WS (their K1 launches "
+        f"{v_launches}); the commitment VM's keccak256Batch eth_call through"
+        f" BoundContract over HTTP and over WS, 1 K2 launch each; "
+        f"{rpc_stats.summary()}; {card}")
     log(f"peak RSS {rss_gib():.1f} GiB")
     left = descendants()
     check(not left, f"processes left at the end: {left}")
+    shutil.rmtree(run_dir)
     log(f"card {card}; total {time.perf_counter() - t_start:.1f} s; no "
         f"process left")
     print(json.dumps({"kernels": [{

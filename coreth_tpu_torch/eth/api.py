@@ -2,8 +2,7 @@
 api.go — BlockChainAPI/TransactionAPI — plus coreth's accepted-head
 semantics and GetAssetBalance, api.go:643); counterpart of
 coreth_tpu/eth/api.py. Keystore-backed methods answer the reference's
-"keystore not configured" error: the keystore and the external signer
-are not ported (ROADMAP "Still to port", item 10b).
+"keystore not configured" error on a node without a keystore.
 
 All quantities are 0x-hex per the JSON-RPC spec; block tags accept
 "latest"/"accepted"/"pending"/"earliest" or hex numbers.
@@ -419,9 +418,24 @@ class EthAPI:
 
     def pendingTransactions(self) -> list:
         """eth_pendingTransactions (api.go PendingTransactions): pool
-        txs whose sender the node can sign for — none, with no keystore
-        and no external signer (not ported)."""
-        return []
+        txs whose sender the node can sign for."""
+        mine = {a.address for a in (self.b.keystore.accounts()
+                                    if self.b.keystore else [])}
+        ext = getattr(self.b, "external_signer", None)
+        if ext is not None:
+            try:
+                mine |= set(ext.accounts())
+            except Exception:
+                # daemon down: the keystore set still filters, but the
+                # degradation is countable (same signal as the manager)
+                from ..metrics import count_drop
+
+                count_drop("accounts/external/list_error")
+        out = []
+        for addr, txs in self.b.txpool.pending_txs().items():
+            if addr in mine:
+                out.extend(self._marshal_tx(t, None, 0) for t in txs)
+        return out
 
     def resend(self, tx_obj: dict, gas_price: str = None,
                gas_limit: str = None) -> str:
@@ -458,15 +472,38 @@ class EthAPI:
 
     def accounts(self) -> list:
         """eth_accounts: addresses the node can sign for — the local
-        keystore plus the external signer daemon's list (clef role); both
-        are not ported, so none."""
-        return []
+        keystore plus the external signer daemon's list (clef role)."""
+        out = []
+        ext = getattr(self.b, "external_signer", None)
+        if ext is not None:
+            try:
+                out = [hb(a) for a in ext.accounts()]
+            except Exception:
+                # daemon down: keystore accounts still serve (same
+                # countable signal as pendingTransactions)
+                from ..metrics import count_drop
+
+                count_drop("accounts/external/list_error")
+                out = []
+        if self.b.keystore is None:
+            return out
+        seen = set(out)
+        return out + [hb(a.address) for a in self.b.keystore.accounts()
+                      if hb(a.address) not in seen]
 
     def sign(self, address: str, data: str) -> str:
         """eth_sign: personal-message signature by an UNLOCKED account
         (api.go:444: the \\x19Ethereum Signed Message prefix guards
         against signing raw txs)."""
-        self.b.require_keystore()
+        from ..accounts.keystore import KeyStoreError
+
+        ks = self.b.require_keystore()
+        msg = parse_bytes(data)
+        try:
+            sig = ks.sign_hash(parse_addr(address), _personal_hash(msg))
+        except KeyStoreError as e:
+            raise RPCError(-32000, str(e))
+        return hb(sig[:64] + bytes([sig[64] + 27]))
 
     def signTransaction(self, tx_obj: dict) -> dict:
         """eth_signTransaction: fill defaults, sign with the unlocked
@@ -526,25 +563,50 @@ class PersonalAPI:
     def listAccounts(self) -> list:
         return EthAPI(self.b).accounts()
 
-    # the keystore lifecycle and passphrase signing need the keystore,
-    # which is not ported (ROADMAP "Still to port", item 10b): each
-    # answers as the reference does on a node without one
-
     def newAccount(self, password: str) -> str:
-        self.b.require_keystore()
+        ks = self.b.require_keystore()
+        return hb(ks.new_account(password).address)
 
     def importRawKey(self, priv_hex: str, password: str) -> str:
-        self.b.require_keystore()
+        ks = self.b.require_keystore()
+        priv = parse_bytes(priv_hex)
+        if len(priv) != 32:
+            raise RPCError(-32602, "private key must be 32 bytes")
+        return hb(ks.import_key(priv, password).address)
 
     def unlockAccount(self, address: str, password: str,
                       duration=None) -> bool:
-        self.b.require_keystore()
+        """geth semantics (api.go UnlockAccount): duration omitted ->
+        300 s auto-relock; explicit 0 -> unlocked until lockAccount."""
+        from ..accounts.keystore import KeyStoreError
+
+        if duration is None:
+            timeout = 300.0
+        elif duration == 0:
+            timeout = None
+        else:
+            timeout = float(duration)
+        ks = self.b.require_keystore()
+        try:
+            ks.unlock(parse_addr(address), password, timeout=timeout)
+        except KeyStoreError as e:
+            raise RPCError(-32000, str(e))
+        return True
 
     def lockAccount(self, address: str) -> bool:
-        self.b.require_keystore()
+        self.b.require_keystore().lock_account(parse_addr(address))
+        return True
 
     def sign(self, data: str, address: str, password: str) -> str:
-        self.b.require_keystore()
+        from ..accounts.keystore import KeyStoreError
+
+        ks = self.b.require_keystore()
+        try:
+            sig = ks.sign_hash_with_passphrase(
+                parse_addr(address), password, _personal_hash(parse_bytes(data)))
+        except KeyStoreError as e:
+            raise RPCError(-32000, str(e))
+        return hb(sig[:64] + bytes([sig[64] + 27]))
 
     def ecRecover(self, data: str, sig_hex: str) -> str:
         from ..crypto.secp256k1 import recover_address
@@ -565,4 +627,16 @@ class PersonalAPI:
     def sendTransaction(self, tx_obj: dict, password: str) -> str:
         """personal_sendTransaction: sign with the passphrase (no prior
         unlock needed) and submit."""
-        self.b.require_keystore()
+        from ..accounts.keystore import KeyStoreError
+        from ..core.types import Signer
+
+        ks = self.b.require_keystore()
+        tx = self.b.fill_tx(tx_obj)
+        addr = parse_addr(tx_obj["from"])
+        try:
+            priv = ks.export_key(addr, password)
+        except KeyStoreError as e:
+            raise RPCError(-32000, str(e))
+        tx = Signer(self.b.chain_config.chain_id).sign(tx, priv)
+        self.b.send_tx(tx)
+        return hb(tx.hash())

@@ -20,22 +20,27 @@ from .filters import FilterSystem
 from .gasprice import Oracle
 
 
-def require_keystore():
-    """Shared guard for every keystore-backed RPC (eth/personal/avax).
-    The keystore is not ported (ROADMAP "Still to port", item 10b), so it
-    always answers the reference's error for a node without one."""
-    raise RPCError(
-        -32000, "keystore not configured (set keystore-directory)")
+def require_keystore(keystore):
+    """Shared guard for every keystore-backed RPC (eth/personal/avax)."""
+    if keystore is None:
+        raise RPCError(
+            -32000, "keystore not configured (set keystore-directory)")
+    return keystore
 
 
 class EthBackend:
     def __init__(self, chain, txpool, allow_unfinalized_queries: bool = False,
-                 api_max_blocks: int = 0, gasprice_cache_size: int = 8,
-                 logs_cache_size: int = 64):
+                 keystore=None, external_signer=None, api_max_blocks: int = 0,
+                 gasprice_cache_size: int = 8, logs_cache_size: int = 64):
         self.chain = chain
         self.txpool = txpool
         self.chain_config = chain.config
         self.allow_unfinalized_queries = allow_unfinalized_queries
+        self.keystore = keystore  # accounts.KeyStore | None (node/ role)
+        # accounts/external.ExternalSigner | None (clef daemon): its
+        # accounts list into eth_accounts; signing for them routes over
+        # the daemon's IPC (keystore-external-signer config knob)
+        self.external_signer = external_signer
         # eth_getLogs block-span cap (api-max-blocks-per-request); 0 = off
         self.api_max_blocks = api_max_blocks
         self.filters = FilterSystem(self, candidates_cache_size=logs_cache_size)
@@ -155,7 +160,7 @@ class EthBackend:
     # --- keystore-backed signing (internal/ethapi/api.go:276-460) --------
 
     def require_keystore(self):
-        require_keystore()
+        return require_keystore(self.keystore)
 
     def fill_tx(self, obj: dict) -> Transaction:
         """setDefaults (internal/ethapi/transaction_args.go): nonce from
@@ -205,10 +210,31 @@ class EthBackend:
         return tx
 
     def sign_tx_with_keystore(self, obj: dict) -> Transaction:
-        """Signing by the keystore or the external signer, neither
-        ported: the address is parsed, then the keystore error."""
-        parse_addr(obj["from"])
-        self.require_keystore()
+        from ..accounts.keystore import KeyStoreError
+
+        addr = parse_addr(obj["from"])
+        # external-signer accounts route over the daemon's IPC; local
+        # keystore accounts take precedence (both-known is operator
+        # error and the local key is the cheaper, auditable path)
+        ext = self.external_signer
+        local = (self.keystore is not None
+                 and any(a.address == addr
+                         for a in self.keystore.accounts()))
+        if ext is not None and not local:
+            from ..accounts.external import ExternalSignerError
+
+            try:
+                if ext.contains(addr):
+                    return ext.sign_tx(addr, self.fill_tx(obj),
+                                       self.chain_config.chain_id)
+            except ExternalSignerError as e:
+                raise RPCError(-32000, f"external signer: {e}")
+        ks = self.require_keystore()
+        tx = self.fill_tx(obj)
+        try:
+            return ks.sign_tx(addr, tx, self.chain_config.chain_id)
+        except KeyStoreError as e:
+            raise RPCError(-32000, str(e))
 
     # --- merkle proofs (internal/ethapi/api.go:669 GetProof) -------------
 

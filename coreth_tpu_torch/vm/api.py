@@ -10,7 +10,7 @@ from __future__ import annotations
 from typing import Optional
 
 from ..eth.api import EthAPI, PersonalAPI, hb, hx, parse_addr, parse_bytes
-from ..eth.backend import EthBackend, require_keystore
+from ..eth.backend import EthBackend
 from ..eth.tracers import DebugAPI
 from ..rpc.admission import ServingPolicy
 from ..rpc.server import RPCError, RPCServer
@@ -72,44 +72,94 @@ class AvaxAPI:
         return {"version": "coreth-tpu/0.1.0"}
 
     # --- key management + wallet-side atomic txs (service.go:108-460) ----
-    #
-    # They need the node keystore and the wallet's tx builder
-    # (vm/tx_builder.py), which are not ported (ROADMAP "Still to port",
-    # item 10b). Each parses its arguments as the reference does, then
-    # answers the reference's error for a node without a keystore.
+    # The reference scopes keys to an avalanchego per-user keystore
+    # (username+password); this framework's analog is the node's
+    # directory keystore (accounts/keystore.py) with per-key passwords —
+    # the password plays both roles, so the RPC shapes keep the
+    # reference's field names minus `username`.
+
+    def _keystore(self):
+        from ..eth.backend import require_keystore
+
+        return require_keystore(getattr(self.vm, "keystore", None))
 
     def importKey(self, password: str, privateKey: str) -> dict:
-        """service.go:141 ImportKey."""
-        if len(parse_bytes(privateKey)) != 32:
+        """service.go:141 ImportKey: store a private key, return its
+        EVM address."""
+        priv = parse_bytes(privateKey)
+        if len(priv) != 32:
             raise RPCError(-32602, "private key must be 32 bytes")
-        require_keystore()
+        acct = self._keystore().import_key(priv, password)
+        return {"address": hb(acct.address)}
 
     def exportKey(self, password: str, address: str) -> dict:
-        """service.go:108 ExportKey."""
-        require_keystore()
+        """service.go:108 ExportKey: reveal the private key for an owned
+        address (password-checked)."""
+        from ..accounts.keystore import KeyStoreError
+
+        try:
+            priv = self._keystore().export_key(parse_addr(address), password)
+        except KeyStoreError as e:
+            raise RPCError(-32000, str(e))
+        return {"privateKey": hb(priv)}
+
+    def _unlocked_keys(self, password: str):
+        """Decrypt every keystore key the password opens (the analog of
+        the reference's per-user key list)."""
+        from ..accounts.keystore import KeyStoreError
+
+        ks = self._keystore()
+        keys = []
+        for acct in ks.accounts():
+            try:
+                keys.append(ks.export_key(acct.address, password))
+            except KeyStoreError:
+                continue
+        if not keys:
+            raise RPCError(-32000, "password unlocks no keystore keys")
+        return keys
 
     def _import_impl(self, password: str, to: str,
                      sourceChain: str = "") -> dict:
-        """service.go Import. Registered EXPLICITLY as wire method
-        "avax_import" ("import" is a python keyword; the leading
-        underscore keeps register_api from exposing a stray avax_import_
-        alias)."""
-        if sourceChain:
-            parse_bytes(sourceChain)
-        parse_addr(to)
-        require_keystore()
+        """service.go Import: build+sign+issue an ImportTx consuming the
+        keystore's UTXOs from [sourceChain] to EVM address [to].
+        Registered EXPLICITLY as wire method "avax_import" ("import" is a
+        python keyword; the leading underscore keeps register_api from
+        exposing a stray avax_import_ alias)."""
+        from .atomic_tx import AtomicTxError
+        from .tx_builder import new_import_tx
+
+        source = (parse_bytes(sourceChain) if sourceChain
+                  else self.vm.ctx.x_chain_id)
+        try:
+            tx = new_import_tx(
+                self.vm, parse_addr(to), source,
+                self._unlocked_keys(password))
+            self.vm.issue_atomic_tx(tx)
+        except AtomicTxError as e:
+            raise RPCError(-32000, str(e))
+        return {"txID": hb(tx.id())}
 
     def export(self, password: str, amount, to: str,
                destinationChain: str = "", assetID: str = "") -> dict:
-        """service.go Export/ExportAVAX."""
-        if destinationChain:
-            parse_bytes(destinationChain)
-        if assetID:
-            parse_bytes(assetID)
-        if not isinstance(amount, int):
-            int(amount, 0)
-        parse_addr(to)
-        require_keystore()
+        """service.go Export/ExportAVAX: build+sign+issue an ExportTx of
+        [amount] nAVAX (or [assetID] units) to [to] on the destination
+        chain."""
+        from .atomic_tx import AtomicTxError
+        from .tx_builder import new_export_tx
+
+        dest = (parse_bytes(destinationChain) if destinationChain
+                else self.vm.ctx.x_chain_id)
+        asset = parse_bytes(assetID) if assetID else self.vm.avax_asset_id
+        amt = amount if isinstance(amount, int) else int(amount, 0)
+        try:
+            tx = new_export_tx(
+                self.vm, amt, asset, dest, parse_addr(to),
+                self._unlocked_keys(password))
+            self.vm.issue_atomic_tx(tx)
+        except AtomicTxError as e:
+            raise RPCError(-32000, str(e))
+        return {"txID": hb(tx.id())}
 
 
 class _StackSampler:
@@ -725,6 +775,9 @@ def create_handlers(vm, allow_unfinalized_queries: bool = False) -> RPCServer:
         cfg.allow_unfinalized_queries if cfg is not None else False)
 
     backend = EthBackend(vm.blockchain, vm.txpool, allow_unfinalized,
+                         keystore=getattr(vm, "keystore", None),
+                         external_signer=getattr(vm, "external_signer",
+                                                 None),
                          api_max_blocks=(cfg.api_max_blocks_per_request
                                          if cfg is not None else 0),
                          gasprice_cache_size=(cfg.gasprice_cache_size
@@ -810,9 +863,18 @@ def serve_ws(vm, host: str = "127.0.0.1", port: int = 0,
     handler with per-connection CPU limits from config). Returns
     (WSServer, bound_port).
 
-    Not ported: the WebSocket transport (rpc/websocket.py) comes with
-    ROADMAP "Still to port", item 10b. The subscriptions it would serve
-    are registered by create_handlers."""
-    raise NotImplementedError(
-        "serve_ws is not ported (ROADMAP 'Still to port', item 10b: "
-        "rpc/websocket.py)")
+    Pass the node's existing RPCServer (from create_handlers) to share
+    ONE backend/filter system between HTTP and WS — building a second
+    stack would double per-block filter work and split filter state.
+    Stop the WSServer before vm.shutdown(); its stop() joins every thread
+    it started."""
+    from ..rpc.websocket import WSServer
+
+    server = rpc_server if rpc_server is not None else create_handlers(vm)
+    cfg = vm.full_config
+    body_limit = server.policy.body_limit if server.policy is not None else 0
+    ws = WSServer(server, refill_rate=cfg.ws_cpu_refill_rate,
+                  max_stored=cfg.ws_cpu_max_stored,
+                  notify_queue_size=cfg.ws_notify_queue_size,
+                  max_payload=body_limit)
+    return ws, ws.serve(host, port)

@@ -8,9 +8,8 @@ gating.
 
 Every knob that no module of the port reads raises NotImplementedError
 from validate(), naming its ROADMAP item, when set away from its default
-(NOT_PORTED): the knobs of parts the port does not have (the WebSocket
-transport, gossip, state sync, the keystore, the chaos conductor's lock
-witness) and those of config.go that
+(NOT_PORTED): the knobs of parts the port does not have (gossip, state
+sync, the chaos conductor's lock witness) and those of config.go that
 neither package's VM, chain or RPC tier reads.
 A VM never boots with a knob silently ignored; keys Config does not know
 are ignored, as the reference ignores them. device-max-retries is
@@ -508,8 +507,6 @@ class Config:
 
 # (ROADMAP "Still to port" item, knobs): each raises away from its default
 NOT_PORTED = (
-    ("10b (rpc/websocket.py)",
-     ("ws_cpu_refill_rate", "ws_cpu_max_stored", "ws_notify_queue_size")),
     ("10c (vm/gossiper.py)",
      ("remote_gossip_only_enabled", "regossip_frequency", "regossip_max_txs",
       "regossip_tx_queue_size")),
@@ -526,9 +523,6 @@ NOT_PORTED = (
       "max_outbound_active_cross_chain_requests")),
     ("8b (fault/chaos.py: the lock witness that checks the budget)",
      ("lock_slow_hold_budget",)),
-    ("10b (accounts: the keystore and the external signer)",
-     ("keystore_directory", "keystore_external_signer",
-      "keystore_insecure_unlock_allowed")),
     ("10 (config.go knobs that neither package's VM, chain or RPC tier "
      "reads)",
      ("trie_clean_cache", "trie_dirty_commit_target", "snapshot_cache",
@@ -536,7 +530,8 @@ NOT_PORTED = (
       "snapshot_async", "snapshot_verification_enabled",
       "accepted_queue_limit", "allow_missing_tries", "offline_pruning_enabled",
       "offline_pruning_bloom_filter_size", "offline_pruning_data_directory",
-      "local_txs_enabled", "log_json_format")),
+      "local_txs_enabled", "log_json_format",
+      "keystore_insecure_unlock_allowed")),
 )
 
 _DEFAULTS = {f.name: getattr(Config(), f.name) for f in fields(Config)}

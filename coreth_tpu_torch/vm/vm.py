@@ -16,16 +16,19 @@ degradation ladder, and on CUDA its account trie on the mirror's executor
 on K1; the chain's four device_* knobs configure the ladder.
 
 The RPC surface is vm/api.py:create_handlers(vm), which sets
-`vm.rpc_server` and `vm.eth_backend`; shutdown() drains and stops that
-server. The continuous and sampling profilers, the metrics endpoint and
-the lock telemetry start from their knobs at initialize.
+`vm.rpc_server` and `vm.eth_backend`, and vm/api.py:serve_ws(vm, ...)
+for WebSocket; shutdown() drains and stops that server. The continuous
+and sampling profilers, the metrics endpoint and the lock telemetry start
+from their knobs at initialize. The node keystore (keystore-directory)
+and the external signer (keystore-external-signer) back the wallet
+methods; shutdown() closes the keystore, cancelling its relock timers
+(ROADMAP Queue 3).
 
 Left out, each with its ROADMAP "Still to port" item: the inbound sync
 server (`sync_handler` is None; SyncHandler waits for item 10c, sync; its
 proofs, trie/proof.py and proof_range.py, are ported); the cross-chain
 eth_call both ways (handle_cross_chain_request and cross_chain_eth_call
-raise, item 10c: they need sync/messages.py); the keystore and the
-external signer, whose knobs raise in vm/config.py (item 10b).
+raise, item 10c: they need sync/messages.py).
 """
 
 from __future__ import annotations
@@ -190,10 +193,24 @@ class VM:
             _exec_shards.set_telemetry_enabled(
                 self.full_config.shard_telemetry_enabled)
 
-        # the node keystore and the external signer are not ported
-        # (vm/config.py refuses their knobs; ROADMAP item 10b)
-        self.keystore = None
+        # node keystore (node/ keystore dir role; backs avax.importKey/
+        # exportKey/import/export and the eth/personal signing RPC)
+        ks_dir = self.full_config.keystore_directory
+        if ks_dir:
+            from ..accounts.keystore import KeyStore
+
+            self.keystore = KeyStore(ks_dir)
+        else:
+            self.keystore = None
+        # external (clef-style) signer daemon (accounts/external/
+        # backend.go role): its accounts merge into eth_accounts, and
+        # eth_signTransaction/sendTransaction for them route over IPC
         self.external_signer = None
+        ext_path = self.full_config.keystore_external_signer
+        if ext_path:
+            from ..accounts.external import ExternalSigner
+
+            self.external_signer = ExternalSigner(ext_path)
 
         clock = self.config.clock or (lambda: self._now())
 
@@ -527,10 +544,11 @@ class VM:
 
     def shutdown(self) -> None:
         """Stop the threads the VM started (the build-retry timer, the
-        gas-price timers, the profilers, the metrics endpoint), drain and
-        stop the RPC server create_handlers attached, then the chain (its
-        pipeline, shard pool, acceptor, insert tail, ladder listener and
-        final export)."""
+        gas-price timers, the profilers, the metrics endpoint, the
+        keystore's relock timers), drain and stop the RPC server
+        create_handlers attached, then the chain (its pipeline, shard
+        pool, acceptor, insert tail, ladder listener and final export).
+        A WebSocket server from serve_ws is its caller's to stop first."""
         if self.initialized:
             self.block_builder.shutdown()
             self.gas_price_updater.stop()
@@ -545,6 +563,8 @@ class VM:
                 self.sampling_profiler = None
             if self.metrics_http is not None:
                 self.metrics_http.stop()
+            if self.keystore is not None:
+                self.keystore.close()
             # graceful RPC drain first: in-flight reads finish (bounded
             # by rpc-drain-timeout) before the chain under them stops
             rpc_server = getattr(self, "rpc_server", None)

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither jax/jaxlib nor anything of
-coreth_tpu, and without CUDA its entry points raise instead of drifting to
-the CPU."""
+coreth_tpu, nor the cryptography package (which the machine with the card
+does not have), and without CUDA its entry points raise instead of
+drifting to the CPU."""
 
 import ast
 import json
@@ -14,12 +15,12 @@ import torch
 from coreth_tpu_torch import device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "coreth_tpu")
+FORBIDDEN = ("jax", "jaxlib", "coreth_tpu", "cryptography")
 
 _CHILD = r'''
 import sys
 
-FORBIDDEN = ("jax", "jaxlib", "coreth_tpu")
+FORBIDDEN = ("jax", "jaxlib", "coreth_tpu", "cryptography")
 
 
 def refused(name):
@@ -451,6 +452,37 @@ ft = Trie(batch_keccak=get_batch_keccak("fused", "cpu"))
 for k, v in mitems:
     ft.update(k, v)
 assert ft.hash() == mroot
+
+# the wallet: a light-scrypt keyfile round trip through the port's own
+# AES-128-CTR, and one WebSocket subscribe and push
+import tempfile
+
+from coreth_tpu_torch.accounts.keystore import KeyStore, decrypt_key, \
+    encrypt_key
+from coreth_tpu_torch.ethclient import ws_connect
+from coreth_tpu_torch.rpc.server import RPCServer
+from coreth_tpu_torch.rpc.websocket import WSServer
+
+priv = rng.randbytes(32)
+kj = encrypt_key(priv, "pw", light=True)
+assert decrypt_key(kj, "pw") == priv and kj["crypto"]["kdf"] == "scrypt"
+with tempfile.TemporaryDirectory() as d:
+    ks = KeyStore(d)
+    addr = ks.import_key(priv, "pw").address
+    ks.unlock(addr, "pw", timeout=60)
+    assert len(ks.sign_hash(addr, b"\x01" * 32)) == 65
+    ks.close()
+srv = RPCServer()
+feeds = []
+srv.register_subscription("eth", "newHeads",
+                          lambda notify, *p: feeds.append(notify))
+ws = WSServer(srv, notify_queue_size=4)
+client = ws_connect("127.0.0.1", ws.serve())
+heads = client.subscribe_new_heads()
+feeds[0]({"number": "0x1"})
+assert heads.next(timeout=10) == {"number": "0x1"}
+client.close()
+ws.stop()
 leaked = [m for m in sys.modules if refused(m)]
 assert not leaked, leaked
 print("ISOLATED-OK")
@@ -523,15 +555,20 @@ def test_no_source_imports_jax_or_coreth_tpu():
                 "eth/api.py", "eth/backend.py", "state/dump.py",
                 "eth/tracer_dsl.py", "eth/tracers.py",
                 "metrics/profiler.py", "metrics/http.py",
-                "utils/racecheck.py", "vm/api.py", "ethclient/__init__.py"):
+                "utils/racecheck.py", "vm/api.py", "ethclient/__init__.py",
+                "accounts/__init__.py", "accounts/abi.py",
+                "accounts/keystore.py", "accounts/manager.py",
+                "accounts/external.py", "accounts/bind.py",
+                "signer/__init__.py", "interfaces.py", "rpc/websocket.py",
+                "ethclient/ws.py", "vm/tx_builder.py"):
         assert os.path.join("coreth_tpu_torch", mod) in names, mod
     assert not bad, bad
 
 
 def test_relative_imports_resolve_inside_the_port():
     """Every relative import of a port module names a module the port has
-    (the parts left out, such as accounts/, rpc/websocket.py or
-    vm/tx_builder.py, are never imported, not even lazily)."""
+    (the parts left out, such as fault/chaos.py, sync/ or
+    vm/gossiper.py, are never imported, not even lazily)."""
     root = os.path.join(REPO, "coreth_tpu_torch")
 
     def exists(base, dotted):
@@ -566,7 +603,7 @@ _RPC_CHILD = r'''
 import json
 import sys
 
-FORBIDDEN = ("jax", "jaxlib", "coreth_tpu")
+FORBIDDEN = ("jax", "jaxlib", "coreth_tpu", "cryptography")
 
 
 def refused(name):
@@ -797,7 +834,7 @@ def test_shard_worker_imports_stdlib_fault_and_shardstats_only():
 _SHARDED_CHILD = r'''
 import sys
 
-FORBIDDEN = ("jax", "jaxlib", "coreth_tpu")
+FORBIDDEN = ("jax", "jaxlib", "coreth_tpu", "cryptography")
 
 
 def refused(name):

@@ -162,8 +162,8 @@ def test_read_request(twin, i):
 
 def test_registry_and_subscriptions_equal(twin):
     """create_handlers registers the same method names and the same
-    eth_subscribe kinds on both (the WebSocket transport that would
-    serve them is ROADMAP item 10b)."""
+    eth_subscribe kinds on both (served over WebSocket by serve_ws:
+    tests/test_torch_websocket.py)."""
     j, p = (twin.node[x].server for x in PKGS)
     assert sorted(p._methods) == sorted(j._methods)
     assert sorted(p._sub_factories) == sorted(j._sub_factories)
@@ -283,8 +283,8 @@ def test_filters(twin):
 
 def test_subscription_factories_push(twin):
     """The eth_subscribe kinds create_handlers registers, driven as the
-    WebSocket transport will drive them (ROADMAP item 10b): the same
-    JSON pushes from both for one pending tx and its accepted block."""
+    WebSocket transport drives them: the same JSON pushes from both for
+    one pending tx and its accepted block."""
     pushed = {p: [] for p in PKGS}
     cleanups = []
     for p in PKGS:
@@ -596,6 +596,10 @@ PORTED_KNOBS = {
     "continuous-profiler-max-files": 2, "profiler-hz": 50.0,
     "profiler-ring-size": 64, "metrics-http-enabled": True,
     "metrics-http-host": "127.0.0.1", "metrics-http-port": 0,
+    # the WebSocket transport and the wallet (item 10b)
+    "ws-cpu-refill-rate": 1000, "ws-cpu-max-stored": 50,
+    "ws-notify-queue-size": 32, "keystore-directory": "keystore",
+    "keystore-external-signer": "clef.ipc",
 }
 
 
@@ -621,7 +625,9 @@ def test_ported_knobs_boot_and_are_honoured(tmp_path):
 
     before = set(threading.enumerate())
     knobs = dict(PORTED_KNOBS, **{
-        "continuous-profiler-dir": str(tmp_path / "prof")})
+        "continuous-profiler-dir": str(tmp_path / "prof"),
+        "keystore-directory": str(tmp_path / "keystore"),
+        "keystore-external-signer": str(tmp_path / "clef.ipc")})
     nodes = {p: tw.Node(p, knobs) for p in PKGS}
     try:
         j, n = nodes["coreth_tpu"], nodes["coreth_tpu_torch"]
@@ -656,6 +662,20 @@ def test_ported_knobs_boot_and_are_honoured(tmp_path):
                   "params": []} for i in range(11)]
         assert n.raw(batch) == j.raw(batch)  # over rpc-batch-limit
         assert n.raw(batch)["error"]["code"] == -32600
+        assert n.vm.keystore.keydir == j.vm.keystore.keydir
+        assert (n.vm.external_signer.endpoint
+                == j.vm.external_signer.endpoint)
+        from coreth_tpu_torch.vm.api import serve_ws
+
+        ws, port = serve_ws(n.vm, rpc_server=n.server)
+        assert (ws.refill_rate, ws.max_stored, ws.notify_queue_size,
+                ws.max_payload) == (1000, 50, 32, 4096)
+        from coreth_tpu_torch.rpc.websocket import WSClient
+
+        c = WSClient("127.0.0.1", port)
+        assert c.request("eth_chainId") == hex(tw.CHAIN_ID)
+        c.close()
+        ws.stop()
     finally:
         for node in nodes.values():
             node.shutdown()
@@ -668,34 +688,18 @@ def test_ported_knobs_boot_and_are_honoured(tmp_path):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("ws-cpu-refill-rate", 10, "item 10b"),
-    ("ws-cpu-max-stored", 10, "item 10b"),
-    ("ws-notify-queue-size", 8, "item 10b"),
-    ("keystore-directory", "/nonexistent/keystore", "item 10b"),
-    ("keystore-external-signer", "/nonexistent/clef.ipc", "item 10b"),
-    ("keystore-insecure-unlock-allowed", True, "item 10b"),
+    ("keystore-insecure-unlock-allowed", True, "item 10 "),
     ("lock-slow-hold-budget", 0.25, "item 8b"),
     ("allow-unprotected-txs", True, "item 10 "),
 ])
 def test_left_out_knob_raises(knob, value, item):
-    """The WebSocket and keystore knobs still refuse the boot, naming
-    their item (10b); so does the lock budget, which only the chaos
-    conductor's lock witness checks (8b); allow-unprotected-txs is read
-    by neither package."""
+    """The lock budget, which only the chaos conductor's lock witness
+    checks, still refuses the boot (8b); allow-unprotected-txs and
+    keystore-insecure-unlock-allowed are read by neither package."""
     from coreth_tpu_torch.vm.config import parse_config
 
     with pytest.raises(NotImplementedError, match=item):
         parse_config(json.dumps({knob: value}).encode())
-
-
-def test_websocket_left_out_raises():
-    from coreth_tpu_torch.ethclient import ws_connect
-    from coreth_tpu_torch.vm.api import serve_ws
-
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        serve_ws(None)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        ws_connect("127.0.0.1", 1)
 
 
 @pytest.fixture(scope="module")

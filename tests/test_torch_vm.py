@@ -437,14 +437,11 @@ def test_vm_boots_from_config_bytes():
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("keystore-directory", "/nonexistent/keystore", "item 10"),
-    ("keystore-external-signer", "/nonexistent/clef.ipc", "item 10"),
     ("regossip-frequency", 5.0, "item 10"),
     ("state-sync-enabled", True, "item 10"),
-    ("keystore-insecure-unlock-allowed", True, "item 10"),
+    ("keystore-insecure-unlock-allowed", True, "item 10 "),
     ("accepted-cache-size", 64, "item 10"),
     ("trie-clean-cache", 1024, "item 10"),
-    ("ws-notify-queue-size", 8, "item 10b"),
     ("lock-slow-hold-budget", 0.5, "item 8b"),
 ])
 def test_not_ported_knob_raises(knob, value, item):
@@ -471,12 +468,19 @@ def test_not_ported_knob_raises(knob, value, item):
     ("eth-apis", ["eth", "debug"]),
     ("rpc-max-workers", 2),
     ("metrics-http-port", 9100),
+    ("ws-cpu-refill-rate", 10),
+    ("ws-cpu-max-stored", 10),
+    ("ws-notify-queue-size", 8),
+    ("keystore-directory", "keystore"),
+    ("keystore-external-signer", "clef.ipc"),
 ])
 def test_ported_knob_boots(knob, value, tmp_path):
     """The knobs that refused the boot until the RPC tier, the profilers
-    and the metrics endpoint were ported (ROADMAP item 10a): the port's VM
-    boots with each, and its shutdown leaves no thread behind."""
-    if knob == "continuous-profiler-dir":
+    and the metrics endpoint were ported (ROADMAP item 10a), and the
+    WebSocket and keystore knobs (item 10b): the port's VM boots with
+    each, and its shutdown leaves no thread behind."""
+    if knob in ("continuous-profiler-dir", "keystore-directory",
+                "keystore-external-signer"):
         value = str(tmp_path / value)
     if knob == "metrics-http-port":  # a free port, away from the default
         import socket
@@ -497,6 +501,10 @@ def test_ported_knob_boots(knob, value, tmp_path):
                   config_bytes=blob.encode(), device="cpu")
     if knob.startswith("metrics-http"):
         assert vm.metrics_http.port
+    if knob == "keystore-directory":
+        assert vm.keystore.keydir == value
+    if knob == "keystore-external-signer":
+        assert vm.external_signer.endpoint == value
     vm.shutdown()
     deadline = time.time() + 5
     while set(threading.enumerate()) - before and time.time() < deadline:
