@@ -48,17 +48,20 @@ Phases (each passes or the script exits non-zero):
      wall split (alloc writes, finalise, intermediate_root, trie commit
      into NodeSets, TrieDatabase.update and .commit) and what the
      MemoryDB holds
-  6. batched genesis commit: the same items in fresh tries committed by
-     intermediate_root on get_batch_keccak("batched"): every trie above
-     the threshold hashed level by level through K2; the same oracle root,
-     and every K2 lane's digest equal to the plain version's
+  6. batched genesis commit: a world of its own, the main world's shape
+     at --batched-accounts (100,000) with its own CPU oracle, in fresh
+     tries committed by intermediate_root on get_batch_keccak("batched"):
+     every trie above the threshold hashed level by level through K2; its
+     oracle's root, and every K2 lane's digest equal to the plain
+     version's
   7. block: 700 transfers plus 50 contracts x 20 slot writes, made once
      and applied to every state: on the planned state as StateDB
      operations and StateDB.commit, then TrieDatabase.commit, and a fresh
      TrieDatabase and StateDB over the same MemoryDB read back every
      account the block touched, 1,000 others and every slot written; on
-     the batched state through intermediate_root. Every root checked
-     against the oracle
+     the batched state (its own world: a block of the same make applied
+     to it and to its oracle) through intermediate_root. Every root
+     checked against its oracle
   7b. EVM: --evm-blocks (4) blocks of signed type-2 transactions on
      TEST_CHAIN_CONFIG (15,000,000 gas, tip 0), each filled to over 90% of
      its gas limit: 23 calls to seeded genesis contracts, each storing 20
@@ -264,7 +267,28 @@ Phases (each passes or the script exits non-zero):
      connection to the same server (serve_ws); each one K2 launch on the
      server's expensive lane, the digests native keccak256's;
      debug_stateWitness of 16 touched accounts verified against the
-     returned bintrieRoot, and debug_commitmentStatus unquarantined
+     returned bintrieRoot, and debug_commitmentStatus unquarantined. The
+     VM's commit-interval and state-sync-commit-interval are
+     --shadow-blocks, so its last block is a syncable summary for 8f,
+     which runs before the VM shuts down
+  8f. state sync (phase_state_sync): StateSyncServer(the commitment VM's
+     chain, its state-sync-commit-interval) gives the summary at its
+     head; a client VM from the same genesis boots on a SQLiteDB in a
+     temporary directory (its resident mirror on the card) and syncs
+     through StateSyncClient(vm, SyncClient.from_config(net, ...)) over
+     the TCP transport (TransportServer on 127.0.0.1, dial()) from the
+     VM's sync_handler, a second peer on its own connection wrapped in
+     FaultyTransport(script=["corrupt", "drop"]) (its corrupt answer is
+     refused by the range proof, its drop rotated past). The client's
+     head must be the summary, its mirror rebooted on the device over the
+     synced root (K1), 200 accounts, every contract's code and 5 slots
+     each the oracle's; then the server builds and accepts 2 more blocks
+     through vm_block and the client parses, verifies and accepts each,
+     every root the server's and the oracle's. Prints the sync wall,
+     leaves, requests, bytes, retries and rejections, peers by state, the
+     reboot's K1 launches and each verify's ms and launches. Every K1
+     and K2 launch of the phase goes through a recorder and is held
+     against the plain versions
   8d. mesh and legacy executors: a trie of --mesh-accounts (100,000)
      seeded leaves and 3 blocks of 2,000 updates (the native host
      planner's root of each state the oracle), on meshes of width 1 on
@@ -284,6 +308,20 @@ Phases (each passes or the script exits non-zero):
      made on the CPU Hasher, every root the header's. Every K1 and K2
      launch of the phase goes through a recorder and is held against the
      plain versions; the phase's wall and launches are printed
+  8e. chaos (phase_chaos): fault.chaos.Conductor(seed 7, --chaos-steps
+     (64), kill drill on, device=cuda).run(): the conductor's node (the
+     staged insert pipeline at depth 2 with the resident mirror on the
+     card, two exec shards, RPC traffic through RPCServer, the lock
+     witness and the sampling profiler) under the 19 catalogued
+     failpoints, the degraded-rung storage drill and the SIGKILL drill,
+     whose child chain runs on the card in a subprocess; the ladder's
+     re-promotion probes hash on K2. Passes with 0 violations, 0
+     watchdog trips, all five subsystems covered, the child's SQLite
+     store repaired to exactly the head it reported, the child's chain on
+     the card with K1 launched, no thread or process left. Prints the
+     failpoints fired by subsystem, the steps/s, the final counters, the
+     kill drill and the phase's K1 and K2 launches, each held against the
+     plain versions
   9. watchdog drill: a 2,000-key mirror whose executor hangs once: the
      commit raises DeviceWedgedError with the applied stack unchanged and
      nothing on the host; the drill then asks for the host
@@ -368,8 +406,8 @@ from coreth_tpu_torch.precompile import tpu_keccak
 from coreth_tpu_torch.ops.keccak_resident import ResidentExecutor
 from coreth_tpu_torch.ops.keccak_staged import segment_keccak_plain
 from coreth_tpu_torch.ops.keccak_torch import RATE, BatchedKeccak, \
-    digest_words_to_bytes, int32_to_words, keccak256_blocks_plain, \
-    pack_messages, words_to_int32
+    default_batched_keccak, digest_words_to_bytes, int32_to_words, \
+    keccak256_blocks_plain, pack_messages, words_to_int32
 from coreth_tpu_torch.state.account import EMPTY_CODE_HASH, Account, \
     normalize_state_key
 from coreth_tpu_torch.state.database import Database
@@ -753,21 +791,24 @@ class WsRun:
         self.client.close()
 
 
-def threads_left(before: set, seconds: float = 5.0) -> list:
+def threads_left(before: set, seconds: float = 5.0,
+                 servers: bool = True) -> list:
     """The threads alive now that were not in `before` (a set of
     threading.enumerate() taken before a VM and its RPC server started),
-    the RPC server's, its lanes' and the metrics endpoint's among them,
-    after waiting up to `seconds` for them to end. A process-wide
-    executor that was already running (the sender cacher's) may have
-    grown a worker meanwhile: that is not a thread the VM left."""
+    and with `servers` any RPC server's, its lanes' and the metrics
+    endpoint's, after waiting up to `seconds` for them to end. A
+    process-wide executor that was already running (the sender cacher's)
+    may have grown a worker meanwhile: that is not a thread the VM
+    left."""
     pools = {t.name.rsplit("_", 1)[0] for t in before
              if t.name.startswith("ThreadPoolExecutor-")}
+    named = ("rpc-", "metrics-http") if servers else ()
     deadline = time.monotonic() + seconds
     while True:
         left = sorted(t.name for t in threading.enumerate()
                       if (t not in before
                           and t.name.rsplit("_", 1)[0] not in pools)
-                      or t.name.startswith(("rpc-", "metrics-http")))
+                      or (named and t.name.startswith(named)))
         if not left or time.monotonic() > deadline:
             return left
         time.sleep(0.02)
@@ -4376,10 +4417,12 @@ def phase_commitment(dev, n_accounts, n_blocks, rpc_stats: RpcStats, seed,
     n_transfers = (int(EVM_FILL * params.CORTINA_GAS_LIMIT)
                    - n_calls * EVM_CALL_PLAN
                    - SHADOW_CALLS * SHADOW_CALL_PLAN) // 21000
-    check((n_calls + n_transfers) * n_blocks + SHADOW_CALLS
+    # the blocks of this phase and, after them, those of the state-sync
+    # phase (8f) on the same VM
+    total = n_blocks + SYNC_BLOCKS
+    check((n_calls + n_transfers) * total + SHADOW_CALLS
           <= len(world.keyed), "commitment: too few keyed senders")
-    mix = evm_transactions(world, n_blocks, seed + 1,
-                           n_transfers=n_transfers)
+    mix = evm_transactions(world, total, seed + 1, n_transfers=n_transfers)
     # the precompile's account as the genesis commit leaves it, and the
     # forwarders (added after the mix was planned: never a transfer's
     # receiver or a store-and-log call's contract)
@@ -4390,9 +4433,10 @@ def phase_commitment(dev, n_accounts, n_blocks, rpc_stats: RpcStats, seed,
                                  b"\x01" * 32})
             for j in range(SHADOW_CALLS)]
     callers = world.keyed[-SHADOW_CALLS:]
-    calls, msgs_all = precompile_transactions(world, n_blocks, callers,
+    calls, msgs_all = precompile_transactions(world, total, callers,
                                               fwds, seed + 2)
     signed = [m + c for m, c in zip(mix, calls)]
+    signed, sync_txs = signed[:n_blocks], signed[n_blocks:]
     oracle = Oracle(world)
     setup_s = time.perf_counter() - t0
     log(f"commitment: world of {len(world.addrs)} accounts "
@@ -4407,7 +4451,13 @@ def phase_commitment(dev, n_accounts, n_blocks, rpc_stats: RpcStats, seed,
     genesis.config = dataclasses.replace(
         params.TEST_CHAIN_CONFIG,
         precompile_upgrades=(TpuKeccakConfig(timestamp=0),))
-    cfg = dict(SHADOW_CONFIG, **{"eth-apis": RPC_APIS})
+    # the state-sync client's genesis: the same, before any block moves
+    # the world
+    client_genesis = copy.deepcopy(genesis)
+    # the last block of this phase is a syncable summary for phase 8f
+    cfg = dict(SHADOW_CONFIG, **{"eth-apis": RPC_APIS,
+                                 "commit-interval": n_blocks,
+                                 "state-sync-commit-interval": n_blocks})
     if dev.type != "cuda":
         cfg["resident-account-trie"] = True
     rec_shadow, rec_gmpt = _K1Recorder(), _K1Recorder()
@@ -4628,6 +4678,10 @@ def phase_commitment(dev, n_accounts, n_blocks, rpc_stats: RpcStats, seed,
     check(not any(moved.values()), f"commitment: counters moved {moved}")
     check(lad.healthy and not mirror.host_mode,
           "commitment: the ladder is demoted or the mirror on the host")
+    log(f"commitment: phase before the state sync "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    sync = phase_state_sync(dev, vm, world, oracle, client_genesis,
+                            sync_txs, coinbase, card)
     vm.shutdown()
     threads = threads_left(threads_before)
     check(not threads, f"commitment: threads left after vm.shutdown(): "
@@ -4654,7 +4708,244 @@ def phase_commitment(dev, n_accounts, n_blocks, rpc_stats: RpcStats, seed,
         f"dropped; no loud counter moved; phase "
         f"{time.perf_counter() - t_phase:.1f} s; {card}")
     return (rec_shadow.records, mpt_recs, k1, k1_coop, rec_k2, k2, k2_coop,
-            pad)
+            pad, sync)
+
+
+
+# ----------------------------------------------------- the state-sync phase
+
+# blocks the commitment VM builds after the client synced (phase 8f)
+SYNC_BLOCKS = 2
+# the client VM's sync knobs: few attempts and a short back-off
+SYNC_CONFIG = {"sync-max-attempts": 8, "sync-backoff-base": 0.005,
+               "sync-backoff-cap": 0.05}
+
+
+class _LeafCount:
+    """Wraps a SyncClient's get_leafs: requests and leaves received."""
+
+    def __init__(self, client):
+        self.inner = client.get_leafs
+        self.requests = self.leaves = 0
+        self._mu = threading.Lock()
+        client.get_leafs = self
+
+    def __call__(self, *a, **kw):
+        resp = self.inner(*a, **kw)
+        with self._mu:
+            self.requests += 1
+            self.leaves += len(resp.keys)
+        return resp
+
+
+def phase_state_sync(dev, server, world: World, oracle: Oracle,
+                     genesis: Genesis, txs, coinbase: list, card):
+    """State sync on the card (module docstring, phase 8f), served by the
+    commitment VM `server` (phase 8c), whose commit-interval and
+    state-sync-commit-interval make its last block a syncable summary. A
+    client VM from the same genesis on a SQLiteDB in a temporary
+    directory syncs through StateSyncClient(vm, SyncClient.from_config(
+    net, ...)) over the TCP transport (TransportServer on 127.0.0.1 and
+    dial()), with a second peer on its own connection wrapped in
+    FaultyTransport(script=["corrupt", "drop"]); _finish reboots the
+    client's resident mirror over the synced trie on the card (K1). Then
+    the server builds and accepts SYNC_BLOCKS blocks of `txs` through
+    vm_block (each root the oracle's), and the client parses, verifies and
+    accepts each: every root the server's. Every K1 and K2 launch goes
+    through a recorder. Returns (the K1 recorder, K1 launches, of them
+    cooperative, the K2 recorder, K2 launches, of them cooperative, K2's
+    padding lanes)."""
+    from coreth_tpu_torch.ethdb.sqlitedb import SQLiteDB
+    from coreth_tpu_torch.peer.network import Network
+    from coreth_tpu_torch.peer.testing import FaultyTransport
+    from coreth_tpu_torch.peer.transport import TransportServer, dial
+    from coreth_tpu_torch.sync.client import SyncClient
+    from coreth_tpu_torch.vm.api import DebugMetricsAPI
+    from coreth_tpu_torch.vm.syncervm import StateSyncClient, \
+        StateSyncServer
+
+    t_phase = time.perf_counter()
+    threads_before = set(threading.enumerate())
+    schain = server.blockchain
+    interval = server.full_config.state_sync_commit_interval
+    summary = StateSyncServer(schain, syncable_interval=interval,
+                              vm=server).get_last_state_summary()
+    head = schain.last_accepted
+    check(summary is not None and summary.block_hash == head.hash()
+          and summary.block_root == head.root == oracle.root(),
+          f"state sync: no summary at the server's head {head.number} "
+          f"(state-sync-commit-interval {interval})")
+    rec, rec_k2 = _K1Recorder(keccak_cuda.segment_keccak), _K2Recorder()
+    pc = default_planned_commit(dev)
+    pc_impl, seg = pc._impl, keccak_cuda.segment_keccak
+    bk = default_batched_keccak(dev)
+    bk_impl = bk.impl
+    bk.reset_totals()
+    tmp = tempfile.mkdtemp(prefix="state_sync_")
+    db = tcp = good = other = net = cvm = None
+    keccak_cuda.reset_counts()
+    pc._impl = keccak_cuda.segment_keccak = rec
+    bk.impl = rec_k2
+    # the server's own seams feed the same recorders from here on
+    schain.state_database.triedb.batch_keccak = PlannedMode(
+        PlannedCommit(seg_impl=rec, device=dev))
+    schain.mirror.ex.seg_impl = rec
+    schain.state_database.shadow.executor._impl = rec
+    try:
+        db = SQLiteDB(os.path.join(tmp, "client.db"), sync=False)
+        cfg = dict(SYNC_CONFIG)
+        if dev.type != "cuda":
+            cfg["resident-account-trie"] = True
+        cvm = VM()
+        t0 = time.perf_counter()
+        cvm.initialize(SnowContext(shared_memory=Memory()), db, genesis,
+                       config_bytes=json.dumps(cfg).encode(), device=dev)
+        boot_ms = (time.perf_counter() - t0) * 1e3
+        cchain = cvm.blockchain
+        check(cchain.genesis_block.hash() == schain.genesis_block.hash(),
+              "state sync: the client's genesis != the server's")
+        old_mirror = cchain.mirror
+        check(old_mirror is not None and not old_mirror.host_mode,
+              "state sync: the client's mirror is not on the device")
+        n_boot = len(rec.records)
+        tcp = TransportServer(server.sync_handler.handle)
+        port = tcp.serve("127.0.0.1", 0)
+        good, other = dial("127.0.0.1", port), dial("127.0.0.1", port)
+        faulty = FaultyTransport(other, script=["corrupt", "drop"])
+        net = Network(self_id=b"client")
+        net.connect(b"server", good)
+        net.connect(b"faulty", faulty)
+        client = SyncClient.from_config(net, cvm.full_config)
+        count = _LeafCount(client)
+        names = ("sync/retries", "sync/failures/validation",
+                 "sync/failures/decode", "sync/drain_disagreements",
+                 "peer/ladder/quarantines", "peer/ladder/suspects")
+        c0 = {n: default_registry.counter(n).count() for n in names}
+        ssc = StateSyncClient(cvm, client)
+        t0 = time.perf_counter()
+        ssc.accept_summary(summary)
+        sync_s = time.perf_counter() - t0
+        n_sync = len(rec.records) - n_boot
+        moved = {n: default_registry.counter(n).count() - c0[n]
+                 for n in names}
+        peers = net.tracker.status()
+        nbytes = sum(st.total_bytes for st in net.tracker.peers.values())
+        status = DebugMetricsAPI(cvm).syncStatus()
+        check(cchain.last_accepted.hash() == summary.block_hash
+              and cchain.current_block.hash() == summary.block_hash
+              and cvm.last_accepted().id() == summary.block_hash
+              and ssc.ongoing_summary() is None,
+              "state sync: the client's head is not the summary")
+        mirror = cchain.mirror
+        check(mirror is not old_mirror and not mirror.host_mode
+              and mirror.root_of(summary.block_hash) == summary.block_root,
+              "state sync: the client's mirror was not rebooted on the "
+              "device over the synced root")
+        check(dev.type != "cuda" or n_sync > 0,
+              "state sync: the mirror reboot launched no K1")
+        check(faulty.faults_injected == 2
+              and moved["sync/failures/validation"]
+              + moved["sync/failures/decode"] >= 1,
+              f"state sync: the faulty peer injected "
+              f"{faulty.faults_injected} faults; counters {moved}")
+        check(status["syncing"] and status["trie"]["phase"] == "done",
+              f"state sync: debug_syncStatus {status}")
+        # the synced world, spot-checked against the oracle's
+        rng = np.random.default_rng(len(world.addrs))
+        cst = cchain.state()
+        picks = sorted(set(int(i) for i in rng.choice(
+            len(world.addrs), 200, replace=False)) | set(world.storage))
+        for i in picks:
+            a = world.addrs[i]
+            check(cst.get_balance(a) == world.balance[i]
+                  and cst.get_nonce(a) == world.nonce[i]
+                  and keccak256(cst.get_code(a)) == world.code_hash[i],
+                  f"state sync: account {i} differs from the oracle's")
+        for c in world.storage:
+            for k in list(world.storage[c])[:5]:
+                check(cst.get_state(world.addrs[c], k)
+                      == world.storage[c][k],
+                      f"state sync: slot of contract {c} differs")
+        log(f"state sync: client VM booted in {boot_ms:.1f} ms on SQLite "
+            f"(its mirror's genesis {n_boot} K1 launches); synced block "
+            f"{summary.block_number} ({summary.block_root.hex()[:16]}..) "
+            f"over TCP in {sync_s:.2f} s: {count.leaves} leaves in "
+            f"{count.requests} leafs requests ({count.leaves / sync_s:.0f} "
+            f"leaves/s), {nbytes} bytes received, retries "
+            f"{moved['sync/retries']}, rejected responses "
+            f"{moved['sync/failures/validation']} (range proof) + "
+            f"{moved['sync/failures/decode']} (decode), drain "
+            f"disagreements {moved['sync/drain_disagreements']}; the faulty"
+            f" peer injected {faulty.faults_injected} faults, peers by "
+            f"state {status['peersByState']}, quarantined "
+            f"{sum(1 for p in peers.values() if p['state'] == 'quarantined')}"
+            f"; the mirror reboot on the synced trie launched {n_sync} K1; "
+            f"{len(picks)} accounts and {5 * len(world.storage)} slots "
+            f"equal the oracle's; {card}")
+
+        # the server's next blocks, parsed, verified and accepted by the
+        # client
+        per = []
+        for b, block_txs in enumerate(txs[:SYNC_BLOCKS]):
+            vmb, _r, _t, _w, st = vm_block(
+                server, world, oracle, block_txs, coinbase, (rec,),
+                label=f"state sync server block {b + 1}", dev=dev)
+            k1a, k2a = len(rec.records), len(rec_k2.records)
+            t0 = time.perf_counter()
+            parsed = cvm.parse_block(vmb.bytes())
+            parsed.verify()
+            verify_ms = (time.perf_counter() - t0) * 1e3
+            cvm.set_preference(parsed.id())
+            parsed.accept()
+            cchain.drain_acceptor_queue()
+            got = cchain.last_accepted
+            check(got.hash() == vmb.id() and got.root == vmb.eth_block.root
+                  == oracle.root(),
+                  f"state sync: client block {got.number} root "
+                  f"{got.root.hex()} != the server's and the oracle's")
+            n1, n2 = len(rec.records) - k1a, len(rec_k2.records) - k2a
+            per.append((verify_ms, n1, n2))
+            log(f"state sync block {got.number}: server build_block "
+                f"{st['build']:.1f} ms; client parse + verify "
+                f"{verify_ms:.1f} ms with {n1} K1 and {n2} K2 launches, "
+                f"accepted; root {got.root.hex()[:16]}.. == the server's "
+                f"== the oracle's; {card}")
+        check(dev.type != "cuda" or all(n1 > 0 for _v, n1, _n2 in per),
+              "state sync: a client verify launched no K1")
+    finally:
+        pc._impl, keccak_cuda.segment_keccak = pc_impl, seg
+        bk.impl = bk_impl
+        for c in (good, other):
+            if c is not None:
+                c.close()
+        if net is not None:
+            net.close()
+        stopped = tcp.stop() if tcp is not None else []
+        if cvm is not None:
+            cvm.shutdown()
+        if db is not None:
+            db.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(stopped == [], f"state sync: transport threads left {stopped}")
+    k1, k1_coop = keccak_cuda.launches, keccak_cuda.launches_coop
+    k2, k2_coop = keccak_cuda.blocks_launches, keccak_cuda.blocks_launches_coop
+    cuda = dev.type == "cuda"
+    check(not cuda or (k1 == len(rec.records) > 0
+                       and k2 == len(rec_k2.records) > 0),
+          f"state sync: K1 {k1} launches, {len(rec.records)} recorded; K2 "
+          f"{k2}, {len(rec_k2.records)} recorded")
+    # the server's RPC server runs on until phase 8c's vm.shutdown()
+    threads = threads_left(threads_before, servers=False)
+    check(not threads, f"state sync: threads left: {threads}")
+    log(f"state sync: {SYNC_BLOCKS} blocks verified after the sync "
+        f"({sum(v for v, _a, _b in per):.1f} ms of parse + verify, "
+        f"{sum(a for _v, a, _b in per)} K1 launches); K1 launches in the "
+        f"phase {k1} (cooperative {k1_coop}), K2 {k2} (cooperative "
+        f"{k2_coop}); the transport, the client VM and its store closed, "
+        f"no thread left; phase {time.perf_counter() - t_phase:.1f} s; "
+        f"{card}")
+    return (rec, k1, k1_coop, rec_k2, k2, k2_coop,
+            bk.padded_lanes - bk.lanes)
 
 
 MESH_WIDTH = 4  # the virtual mesh on the one card: [cuda:0] * 4
@@ -4880,6 +5171,115 @@ def variants_json(launches: int, coop: int, *kernel_ms: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------- the chaos phase
+
+CHAOS_SEED = 7
+
+
+def phase_chaos(dev, steps: int, card):
+    """The chaos conductor on the card (module docstring, phase 8e):
+    fault.chaos.Conductor(seed=CHAOS_SEED, steps, kill_drill=True,
+    device=dev).run(), the node's resident mirror and storage programs on
+    K1 and the ladder's re-promotion probes on K2 of this device, the kill
+    drill's child chain on the same device in a subprocess. Every K1 and
+    K2 launch of the parent goes through a recorder (the module's
+    segment_keccak and the planned commit's, the probe seam's K2 impl).
+    Passes with 0 violations and 0 watchdog trips, every catalogue
+    subsystem covered, the child's store repaired to exactly the head it
+    reported, its chain on the device with K1 launched, and no thread or
+    process of the phase left. Returns (the K1 recorder, K1 launches, of
+    them cooperative, the K2 recorder, K2 launches, of them cooperative,
+    K2's padding lanes)."""
+    from coreth_tpu_torch.fault import chaos
+
+    t_phase = time.perf_counter()
+    threads_before = set(threading.enumerate())
+    lad = default_ladder()
+    lad.reset()
+    rec = _K1Recorder(keccak_cuda.segment_keccak)
+    rec_k2 = _K2Recorder()
+    pc = default_planned_commit(dev)
+    pc_impl, seg = pc._impl, keccak_cuda.segment_keccak
+    get_batch_keccak("batched", dev)  # the probes' seam on this device
+    probe = device_mod._cached["fn"].__self__
+    probe_impl = probe.impl
+    probe.impl = rec_k2
+    probe.reset_totals()
+    keccak_cuda.reset_counts()
+    pc._impl = keccak_cuda.segment_keccak = rec
+    conductor = chaos.Conductor(CHAOS_SEED, steps, kill_drill=True,
+                                device=dev)
+    t0 = time.perf_counter()
+    try:
+        result = conductor.run()
+    finally:
+        pc._impl, keccak_cuda.segment_keccak = pc_impl, seg
+        probe.impl = probe_impl
+    wall = time.perf_counter() - t0
+    k1, k1_coop = keccak_cuda.launches, keccak_cuda.launches_coop
+    k2, k2_coop = keccak_cuda.blocks_launches, keccak_cuda.blocks_launches_coop
+    pad = probe.padded_lanes - probe.lanes
+    lad.reset()
+    t0 = time.perf_counter()
+    exec_shards.stop_servers()
+    stop_ms = (time.perf_counter() - t0) * 1e3
+    by_sub = defaultdict(int)
+    for fp, sub, _a, _s in chaos.CATALOGUE:
+        by_sub[sub] += result["fired"].get(fp, 0)
+    check(result["violations"] == [] and not conductor.watchdog.tripped,
+          f"chaos: violations {result['violations']}, watchdog trips "
+          f"{conductor.watchdog.tripped}")
+    subsystems = sorted({e[1] for e in chaos.CATALOGUE})
+    check(result["coverage"]["subsystems"] == subsystems,
+          f"chaos: subsystems covered {result['coverage']['subsystems']} "
+          f"of {subsystems}")
+    kd = result["kill_drill"] or {}
+    child = dict(ln.split(None, 1) for ln in conductor.kill_child_lines
+                 if " " in ln)
+    check(kd.get("ok") and kd.get("torn_on_disk")
+          and kd.get("repaired_head") == kd.get("expected_head")
+          and kd.get("repaired_number") == 2,
+          f"chaos: kill drill {kd}")
+    child_k1 = int(child.get("K1", "0"))
+    check(child.get("DEVICE", "").startswith(
+        f"{dev} mirror {dev.type == 'cuda'}"),
+          f"chaos: the kill child reported {child.get('DEVICE')!r}")
+    cuda = dev.type == "cuda"
+    check(not cuda or (child_k1 > 0 and k1 == len(rec.records) > 0
+                       and k2 == len(rec_k2.records) > 0),
+          f"chaos: K1 {k1} launches, {len(rec.records)} recorded; K2 {k2}, "
+          f"{len(rec_k2.records)} recorded; the child's K1 {child_k1}")
+    check(rec_k2.records or not cuda, "chaos: no probe reached K2")
+    left = descendants()
+    check(not left, f"chaos: processes left: {left}")
+    threads = threads_left(threads_before)
+    check(not threads, f"chaos: threads left: {threads}")
+    final = result["final"]
+    log(f"chaos: seed {CHAOS_SEED}, {steps} steps in {wall:.1f} s "
+        f"({steps / wall:.2f} steps/s); 0 violations, 0 watchdog trips; "
+        f"failpoints fired by subsystem {dict(sorted(by_sub.items()))} "
+        f"({result['coverage']['failpoints_fired']} of "
+        f"{len(chaos.CATALOGUE)} failpoints); height {final['height']}, "
+        f"accepted {final['accepted']}; degraded entries "
+        f"{final['degraded_entries']} / recoveries "
+        f"{final['degraded_recoveries']}, db retries {final['db_retries']}, "
+        f"verify failures {final['db_verify_failures']}, demotions "
+        f"{final['device_demotions']}, mirror quarantines "
+        f"{final['mirror_quarantines']}, shard crashes "
+        f"{final['shard_crashes']} / respawns {final['shard_respawns']} / "
+        f"fallbacks {final['shard_fallbacks']}; {card}")
+    log(f"chaos kill drill: the child (subprocess, {child.get('DEVICE')}) "
+        f"tore block 3's tail, K1 launches in the child {child_k1}; SIGKILL, "
+        f"its SQLite store rebooted to block {kd['repaired_number']} "
+        f"{kd['repaired_head'][:16]}.. == the head it reported")
+    log(f"chaos: K1 launches in the phase {k1} (cooperative {k1_coop}), "
+        f"K2 launches (the ladder's re-promotion probes) {k2} (cooperative "
+        f"{k2_coop}); the forkserver stopped in {stop_ms:.1f} ms, no thread "
+        f"or process left; phase {time.perf_counter() - t_phase:.1f} s; "
+        f"{card}")
+    return rec, k1, k1_coop, rec_k2, k2, k2_coop, pad
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--accounts", type=int, default=1_000_000)
@@ -4905,6 +5305,12 @@ def main() -> int:
                     help="blocks through the commitment VM")
     ap.add_argument("--mesh-accounts", type=int, default=100_000,
                     help="leaves of the mesh phase's account trie")
+    ap.add_argument("--batched-accounts", type=int, default=100_000,
+                    help="accounts of the batched path's own world (phase "
+                         "6 and the batched block of phase 7)")
+    ap.add_argument("--chaos-steps", type=int, default=64,
+                    help="steps of the chaos conductor on the card (phase "
+                         "8e, seed 7, kill drill on)")
     ap.add_argument("--device", default="cuda",
                     help="'cpu' rehearses with the plain versions")
     args = ap.parse_args()
@@ -4936,6 +5342,13 @@ def main() -> int:
     # the EVM phase's chain starts at genesis: its own snapshots
     evm_world = world.snapshot()
     evm_oracle = oracle.snapshot(evm_world)
+    # the batched path (K2) on a world of its own, the main world's shape
+    # at --batched-accounts, with its own oracle
+    b_world = World(args.batched_accounts,
+                    max(1, args.batched_accounts // 1000), args.slots,
+                    args.seed + 11)
+    b_oracle = Oracle(b_world)
+    b_oracle_root = b_oracle.root()
     # the script's own world and oracle (millions of tracked objects) leave
     # the collector's view: the port's garbage-collector pauses measured
     # below then traverse the port's objects, not this harness's
@@ -4965,7 +5378,7 @@ def main() -> int:
     # batched path (K2)
     mark(t_start, "batched genesis")
     mode, b_trie, b_changed, bg_launches, bg_coop, bg_rec = \
-        phase_genesis_batched(dev, world, oracle_root)
+        phase_genesis_batched(dev, b_world, b_oracle_root)
     bg_pad = mode.batched.padded_lanes - mode.batched.lanes
     bg_err, bg_ms, bg_plain, bg_inputs, bg_kernel = check_and_time_k2(
         bg_rec, "batched genesis", bg_pad, profile_reps=1)
@@ -4989,11 +5402,16 @@ def main() -> int:
     b_err, b_ms, b_plain, b_shapes, b_kernel = check_and_time(
         dev, b_builder, "block")
     del b_builder  # the genesis store stays: the mirrors boot from it
+    b_accounts, b_writes, _ = make_block(b_world)
+    b_oracle.apply(b_accounts, b_writes)
+    b_want = b_oracle.root()
+    del b_oracle
     root, bb_launches, bb_coop, bb_rec = commit_batched(
-        dev, mode, b_trie, block_changes(world, b_changed, accounts, writes),
+        dev, mode, b_trie,
+        block_changes(b_world, b_changed, b_accounts, b_writes),
         "batched block")
-    check(root == want, f"batched block root {root.hex()} != CPU oracle "
-          f"{want.hex()}")
+    check(root == b_want, f"batched block root {root.hex()} != CPU oracle "
+          f"{b_want.hex()}")
     log(f"batched block root {root.hex()} == independent CPU Hasher root")
     bb_pad = mode.batched.padded_lanes - mode.batched.lanes
     bb_err, bb_ms, bb_plain, bb_inputs, bb_kernel = check_and_time_k2(
@@ -5076,9 +5494,11 @@ def main() -> int:
     # keccak precompile (K2) on a VM of its own
     mark(t_start, "commitment")
     (cm_shadow, cm_mpt, cm_k1, cm_k1_coop, cm_k2rec, cm_k2, cm_k2_coop,
-     cm_pad) = phase_commitment(dev, args.shadow_accounts,
-                                args.shadow_blocks, rpc_stats, args.seed + 9,
-                                card)
+     cm_pad, sync) = phase_commitment(dev, args.shadow_accounts,
+                                      args.shadow_blocks, rpc_stats,
+                                      args.seed + 9, card)
+    (sy_rec1, sy_k1, sy_k1_coop, sy_rec2, sy_k2, sy_k2_coop,
+     sy_pad) = sync
     sh_err, sh_ms, sh_plain, sh_shapes, sh_kernel = time_k1(
         dev, [r[0] for r in cm_shadow], "commitment shadow",
         per_segment=False, outputs=[r[1] for r in cm_shadow])
@@ -5093,6 +5513,12 @@ def main() -> int:
     ck_err, ck_ms, ck_plain, ck_inputs, ck_kernel = check_and_time_k2(
         cm_k2rec, "commitment precompile", cm_pad, profile_reps=10)
     del cm_k2rec
+    sy_err, sy_ms, sy_plain, sy_shapes, sy_kernel = time_k1(
+        dev, [r[0] for r in sy_rec1.records], "state sync",
+        per_segment=False, outputs=[r[1] for r in sy_rec1.records])
+    sk_err, sk_ms, sk_plain, sk_inputs, sk_kernel = check_and_time_k2(
+        sy_rec2, "state sync", sy_pad, profile_reps=10)
+    del sy_rec1, sy_rec2, sync
     # the mesh (sharded K1/K2 launches, the mirror's mesh rung) and the
     # legacy executors (fused: K2, staged: K1) on a world of their own
     mark(t_start, "mesh and legacy executors")
@@ -5104,6 +5530,16 @@ def main() -> int:
     mk_err, mk_ms, mk_plain, mk_inputs, mk_kernel = check_and_time_k2(
         ml_rec2, "mesh and legacy K2", ml_pad, profile_reps=10)
     del ml_rec1, ml_rec2
+    # the chaos conductor over the port's node on the card
+    mark(t_start, "chaos")
+    ch_rec1, ch_k1, ch_k1_coop, ch_rec2, ch_k2, ch_k2_coop, ch_pad = \
+        phase_chaos(dev, args.chaos_steps, card)
+    ch_err, ch_ms, ch_plain, ch_shapes, ch_kernel = time_k1(
+        dev, [r[0] for r in ch_rec1.records], "chaos", per_segment=False,
+        outputs=[r[1] for r in ch_rec1.records])
+    cx_err, cx_ms, cx_plain, cx_inputs, cx_kernel = check_and_time_k2(
+        ch_rec2, "chaos probes", ch_pad, profile_reps=10)
+    del ch_rec1, ch_rec2
     mark(t_start, "watchdog drill")
     phase_watchdog_drill(dev, args.seed + 4)
     ran = defaultdict(int)
@@ -5131,7 +5567,8 @@ def main() -> int:
 
     k1_shapes = (g_shapes + cb_shapes + b_shapes + e1_shapes + cs_shapes
                  + cr_shapes + vs_shapes + vr_shapes + rg_shapes + rb_shapes
-                 + ds_shapes + sh_shapes + cm_shapes + ml_shapes)
+                 + ds_shapes + sh_shapes + cm_shapes + ml_shapes + sy_shapes
+                 + ch_shapes)
     k1_bound, k1_by = k1_bound_ms(k1_shapes)
     rk_bound, rk_by = k1_bound_ms(rg_shapes + rb_shapes)
     log(f"K1 bound over the mirror's inputs {rk_bound:.4f} ms ({rk_by}; "
@@ -5140,14 +5577,15 @@ def main() -> int:
         f"{rb_ms:.4f} ms")
     k1_launches = (g_launches + cb_launches + b_launches + evm_planned.k1
                    + c_launches + v_launches + m_launches + d_launches
-                   + cm_k1 + ml_k1)
+                   + cm_k1 + ml_k1 + sy_k1 + ch_k1)
     k1_coop = (g_coop + cb_coop + b_coop + evm_planned.k1_coop + c_coop
-               + v_coop + m_coop + d_coop + cm_k1_coop + ml_k1_coop)
+               + v_coop + m_coop + d_coop + cm_k1_coop + ml_k1_coop
+               + sy_k1_coop + ch_k1_coop)
     k2_inputs = (bg_inputs + bb_inputs + e2_inputs + dk_inputs + ck_inputs
-                 + mk_inputs)
+                 + mk_inputs + sk_inputs + cx_inputs)
     k2_bound, k2_by = k2_bound_ms(k2_inputs)
     k2_real, _ = k2_bound_ms(k2_inputs, bg_pad + bb_pad + e2_pad + d_pad
-                             + cm_pad + ml_pad)
+                             + cm_pad + ml_pad + sy_pad + ch_pad)
     log(f"K2 bound over the batched commits {k2_bound:.4f} ms ({k2_by}), "
         f"over their real lanes alone {k2_real:.4f} ms")
     log(f"launches on the main paths: K1 genesis {g_launches}, the chain's "
@@ -5155,10 +5593,12 @@ def main() -> int:
         f"{evm_planned.k1}, chain inserts {c_launches}, vm blocks "
         f"{v_launches}, mirrors {m_launches}, ladder drill {d_launches}, "
         f"commitment VM {cm_k1} (of them the shadow {len(sh_shapes)}), "
-        f"mesh and legacy executors {ml_k1}; K2 batched genesis "
+        f"mesh and legacy executors {ml_k1}, state sync {sy_k1}, chaos "
+        f"{ch_k1}; K2 batched genesis "
         f"{bg_launches}, batched block {bb_launches}, evm batched "
         f"{evm_batched.k2}, ladder drill probes {d_k2}, the keccak "
-        f"precompile {cm_k2}, mesh and legacy executors {ml_k2}")
+        f"precompile {cm_k2}, mesh and legacy executors {ml_k2}, state "
+        f"sync {sy_k2}, chaos probes {ch_k2}")
     log(f"rpc: the VM blocks' transactions entered by eth_sendRawTransaction"
         f" and avax.issueTx over HTTP, the wallet's by eth_sendTransaction, "
         f"avax.import and avax.export over WS (their K1 launches "
@@ -5179,12 +5619,14 @@ def main() -> int:
         "launches": k1_launches,
         "max_abs_err": max(grid_err, g_err, cb_err, b_err, e1_err, cs_err,
                            cr_err, vs_err, vr_err, rg_err, rb_err, ds_err,
-                           sh_err, cm_err, ml_err),
+                           sh_err, cm_err, ml_err, sy_err, ch_err),
         "ms": (g_ms + cb_ms + b_ms + e1_ms + cs_ms + cr_ms + vs_ms + vr_ms
-               + rg_ms + rb_ms + ds_ms + sh_ms + cm_ms + ml_ms),
+               + rg_ms + rb_ms + ds_ms + sh_ms + cm_ms + ml_ms + sy_ms
+               + ch_ms),
         "plain_ms": (g_plain + cb_plain + b_plain + e1_plain + cs_plain
                      + cr_plain + vs_plain + vr_plain + rg_plain + rb_plain
-                     + ds_plain + sh_plain + cm_plain + ml_plain),
+                     + ds_plain + sh_plain + cm_plain + ml_plain + sy_plain
+                     + ch_plain),
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": None,
@@ -5192,29 +5634,30 @@ def main() -> int:
                                   cb_kernel, b_kernel, e1_kernel, cs_kernel,
                                   cr_kernel, vs_kernel, vr_kernel,
                                   rg_kernel, rb_kernel, ds_kernel,
-                                  sh_kernel, cm_kernel, ml_kernel),
+                                  sh_kernel, cm_kernel, ml_kernel,
+                                  sy_kernel, ch_kernel),
     }, {
         "name": "keccak_blocks",
         "route": "cuda",
         "source": "coreth_tpu_torch/ops/csrc/keccak_blocks.cu",
         "replaces": "coreth_tpu/ops/keccak_pallas.py:126",
         "launches": bg_launches + bb_launches + evm_batched.k2 + d_k2
-        + cm_k2 + ml_k2,
+        + cm_k2 + ml_k2 + sy_k2 + ch_k2,
         "max_abs_err": max(grid2_err, bg_err, bb_err, e2_err, dk_err,
-                           ck_err, mk_err),
-        "ms": bg_ms + bb_ms + e2_ms + dk_ms + ck_ms + mk_ms,
+                           ck_err, mk_err, sk_err, cx_err),
+        "ms": bg_ms + bb_ms + e2_ms + dk_ms + ck_ms + mk_ms + sk_ms + cx_ms,
         "plain_ms": (bg_plain + bb_plain + e2_plain + dk_plain + ck_plain
-                     + mk_plain),
+                     + mk_plain + sk_plain + cx_plain),
         "bound_ms": k2_bound,
         "bound_by": k2_by,
         "library_ms": None,
         "variants": variants_json(
             bg_launches + bb_launches + evm_batched.k2 + d_k2 + cm_k2
-            + ml_k2,
+            + ml_k2 + sy_k2 + ch_k2,
             bg_coop + bb_coop + evm_batched.k2_coop + d_k2_coop + cm_k2_coop
-            + ml_k2_coop,
+            + ml_k2_coop + sy_k2_coop + ch_k2_coop,
             bg_kernel, bb_kernel, e2_kernel, dk_kernel, ck_kernel,
-            mk_kernel),
+            mk_kernel, sk_kernel, cx_kernel),
     }]}), flush=True)
     if dev.type != "cuda":
         return 0  # a rehearsal prints no result line

@@ -5,9 +5,9 @@ Key layout follows core/rawdb/schema.go:80-159: single-byte prefixes with
 typed accessor functions over the raw KV store. Trie nodes are keyed by bare
 hash (legacy hashdb scheme), matching the TrieDatabase; the resident
 mirror's storage-lean node rows are keyed by digest-store slot. The
-snapshot tree (state/snapshot.py) keeps its own accessors; the reference's
-state-sync markers wait for state sync (ROADMAP "Still to port", item 10),
-and their keys are here so inspect_database sorts them.
+snapshot tree (state/snapshot.py) keeps its own accessors; the state-sync
+markers are sync/statesync.py's and vm/syncervm.py's, and their keys are
+here so inspect_database sorts them.
 """
 
 from __future__ import annotations

@@ -2,9 +2,9 @@
 of coreth_tpu/ethdb/__init__.py.
 
 KeyValueStore is the L0 interface (ethdb/database.go semantics): get/put/
-delete/has, write batches, and ordered iteration. The backend here is
-MemoryDB; the SQLite store and the fault-injecting wrapper are not ported
-(ROADMAP "Still to port", item 8).
+delete/has, write batches, and ordered iteration. Backends: MemoryDB
+here, SQLiteDB (a crash-safe persistent store) in sqlitedb.py, and the
+FaultInjectingDB wrapper in faultdb.py.
 """
 
 from __future__ import annotations
@@ -132,3 +132,9 @@ def memorydb_from_items(items: Iterable[Tuple[bytes, bytes]]) -> MemoryDB:
     db = MemoryDB()
     db.write_batch([(bytes(k), bytes(v)) for k, v in items])
     return db
+
+
+# Registers the ethdb/* failpoints at package import, so the catalogue of
+# registered failpoints always carries them (faultdb imports
+# KeyValueStore from here, hence the tail position).
+from .faultdb import FaultInjectingDB  # noqa: E402

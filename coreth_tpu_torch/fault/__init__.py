@@ -1,6 +1,6 @@
 """Deterministic failpoints + the shared backoff helper; counterpart of
-coreth_tpu/fault/__init__.py (its chaos conductor, fault/chaos.py, waits
-for ROADMAP "Still to port", item 8).
+coreth_tpu/fault/__init__.py (the chaos conductor that arms them across
+subsystems is fault/chaos.py).
 
 Named fault-injection sites compiled into production code paths. The
 contract mirrors metrics.spans: when nothing is armed the whole package

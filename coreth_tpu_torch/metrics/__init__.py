@@ -3,9 +3,9 @@ gauges, meters, histograms, timers, with the EnabledExpensive gate and
 Prometheus-style export); counterpart of coreth_tpu/metrics/__init__.py.
 
 The flight recorder is metrics/flight.py, the shard workers' stdlib-only
-accumulator metrics/shardstats.py. Not ported: the package's command-line
-check (`__main__`), its HTTP exposition and the profiler (ROADMAP "Still
-to port", item 8)."""
+accumulator metrics/shardstats.py, the HTTP exposition metrics/http.py,
+the profiler metrics/profiler.py and the exposition's command-line check
+`python -m coreth_tpu_torch.metrics` (metrics/__main__.py)."""
 
 from __future__ import annotations
 

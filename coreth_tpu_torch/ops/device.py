@@ -338,37 +338,50 @@ class DeviceLadder:
                          name="device-probe", daemon=True).start()
 
     def _probe_loop(self, gen: int) -> None:
-        from ..metrics import default_registry
-        from ..native import keccak256 as _host_keccak
-        from ..native.mpt import _run_with_watchdog
-
-        expected = _host_keccak(self.PROBE_MSG)
         while True:
             with self._lock:
                 if gen != self._probe_gen or self.state == self.HEALTHY:
                     return
                 wake = self._probe_wake
                 interval = self.probe_interval
-                timeout = self.call_timeout or self.DEFAULT_PROBE_TIMEOUT
-                fn = _cached.get("fn")
             wake.wait(interval)
             with self._lock:
                 if gen != self._probe_gen or self.state == self.HEALTHY:
                     return
-            if fn is None:
+            if _cached.get("fn") is None:
                 return
+            self.probe_once()
 
-            def probe():
-                failpoint(FP_PROBE)
-                return fn([self.PROBE_MSG])
+    def probe_once(self) -> bool:
+        """One health probe now, on the caller's thread: hash PROBE_MSG
+        through the K2 seam of the device last resolved, under the probe
+        watchdog, and feed the verdict to the ladder as one tick of the
+        background loop does (promote_after healthy probes in a row
+        re-promote). A caller whose probe loop is off (probe_interval 0:
+        the chaos conductor) earns the way back through these. Returns
+        whether the probe was healthy; with no seam resolved it is not."""
+        from ..metrics import default_registry
+        from ..native import keccak256 as _host_keccak
+        from ..native.mpt import _run_with_watchdog
 
-            try:
-                out = _run_with_watchdog(probe, timeout, "device health probe")
-                ok = bool(out) and bytes(out[0]) == expected
-            except Exception:
-                default_registry.counter("ops/device/probe_errors").inc()
-                ok = False
-            self._on_probe(ok)
+        with self._lock:
+            timeout = self.call_timeout or self.DEFAULT_PROBE_TIMEOUT
+        fn = _cached.get("fn")
+
+        def probe():
+            failpoint(FP_PROBE)
+            return fn([self.PROBE_MSG])
+
+        try:
+            if fn is None:
+                raise RuntimeError("no device seam resolved to probe")
+            out = _run_with_watchdog(probe, timeout, "device health probe")
+            ok = bool(out) and bytes(out[0]) == _host_keccak(self.PROBE_MSG)
+        except Exception:
+            default_registry.counter("ops/device/probe_errors").inc()
+            ok = False
+        self._on_probe(ok)
+        return ok
 
     def _on_probe(self, ok: bool) -> None:
         with self._lock:

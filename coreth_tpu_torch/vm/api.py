@@ -562,10 +562,10 @@ class DebugMetricsAPI:
         """debug_lockStatus: per-canonical-lock contention table (wait/
         hold counts, totals, p99s) ranked by total measured acquire-wait,
         plus the slow-hold budget and the recent budget-breach captures
-        (traceback + trace id). Rows appear once a LockOrderWitness
-        instruments the lock; the port has none until fault/chaos.py is
-        ported (utils/racecheck.py, ROADMAP item 8b), so it answers the
-        empty tables and a budget of 0."""
+        (traceback + trace id). Rows appear once a LockOrderWitness (the
+        chaos conductor's, fault/chaos.py) or RaceDetector.require_lock
+        instruments the lock; a node with none answers empty tables. The
+        budget is the lock-slow-hold-budget knob."""
         from ..utils import racecheck
 
         return {

@@ -1,5 +1,5 @@
 """Atomic operations trie (semantics of coreth plugin/evm/
-{atomic_trie,atomic_trie_iterator}.go); counterpart of
+{atomic_trie,atomic_trie_iterator,atomic_syncer}.go); counterpart of
 coreth_tpu/vm/atomic_trie.py.
 
 Indexes every accepted block's atomic shared-memory requests in its own
@@ -8,11 +8,9 @@ COMMIT_INTERVAL heights (atomic_trie.go:333). The committed roots anchor
 state-sync summaries. Its TrieDatabase carries the VM's device seam
 (ops/device.get_batch_keccak(device_hasher, device)), so a commit of at
 least BATCH_THRESHOLD dirty nodes runs as one planned program on K1 under
-the degradation ladder, as the state trie's does.
-
-Not ported: the atomic syncer (AtomicSyncer, atomic_syncer.go), which
-replays a state-synced trie into shared memory through the sync client
-(ROADMAP "Still to port", item 10: sync).
+the degradation ladder, as the state trie's does. The atomic syncer
+(AtomicSyncer) rebuilds a state-synced trie from range-proofed leaves,
+and the state-sync client replays it into shared memory.
 """
 
 from __future__ import annotations
@@ -132,3 +130,56 @@ class AtomicTrie:
                 # already-consumed UTXOs on replay are fine (idempotent)
                 pass
         return applied
+
+
+class AtomicSyncer:
+    """atomic_syncer.go: fetch the atomic trie's leaves via the sync client,
+    rebuilding it locally with interval commits. `batch_keccak` is the
+    rebuilt trie's device seam, as AtomicTrie takes it (the VM passes its
+    own); the rebuild itself hashes on the StackTrie, as the reference's
+    does."""
+
+    def __init__(self, client, diskdb, target_root: bytes, target_height: int,
+                 commit_interval: int = ATOMIC_TRIE_COMMIT_INTERVAL,
+                 batch_keccak=None):
+        self.client = client
+        self.trie = AtomicTrie(diskdb, commit_interval,
+                               batch_keccak=batch_keccak)
+        self.target_root = target_root
+        self.target_height = target_height
+
+    def sync(self) -> None:
+        if self.target_root == EMPTY_ROOT:
+            return
+        from ..trie.stacktrie import StackTrie
+
+        batch = self.trie.diskdb.new_batch()
+
+        def write_node(path: bytes, node_hash: bytes, blob: bytes) -> None:
+            batch.put(node_hash, blob)
+
+        st = StackTrie(write_fn=write_node)
+        start = b""
+        while True:
+            resp = self.client.get_leafs(self.target_root, start=start)
+            for k, v in zip(resp.keys, resp.vals):
+                st.update(k, v)
+            if not resp.more or not resp.keys:
+                break
+            from ..sync.statesync import _next_key
+
+            start = _next_key(resp.keys[-1])
+        got = st.hash()
+        if got != self.target_root:
+            raise RuntimeError(
+                f"atomic trie root mismatch: want {self.target_root.hex()[:12]} "
+                f"got {got.hex()[:12]}"
+            )
+        batch.write()
+        self.trie.diskdb.put(
+            LAST_COMMITTED_KEY,
+            self.target_root + self.target_height.to_bytes(8, "big"),
+        )
+        self.trie.last_committed_root = self.target_root
+        self.trie.last_committed_height = self.target_height
+        self.trie._open_trie = self.trie.triedb.open_trie(self.target_root)

@@ -8,9 +8,12 @@ gating.
 
 Every knob that no module of the port reads raises NotImplementedError
 from validate(), naming its ROADMAP item, when set away from its default
-(NOT_PORTED): the knobs of parts the port does not have (gossip, state
-sync, the chaos conductor's lock witness) and those of config.go that
-neither package's VM, chain or RPC tier reads.
+(NOT_PORTED): the knobs of the gossiper, which the port does not have
+yet, and those of config.go that neither package's VM, chain or RPC tier
+reads (state-sync-enabled and its siblings among them: only this Config
+names them). The sync-* knobs configure SyncClient.from_config and its
+peer ladder (sync/client.py); state-sync-commit-interval is validated
+against commit-interval, as in the reference.
 A VM never boots with a knob silently ignored; keys Config does not know
 are ignored, as the reference ignores them. device-max-retries is
 refused but at 0: the port retries no device dispatch (ROADMAP Queue 3).
@@ -255,9 +258,8 @@ class Config:
     # into a per-role overflow bucket
     profiler_ring_size: int = 2048
     # seconds a single canonical-lock hold may last before racecheck
-    # captures traceback + trace id into the flight recorder; 0 = off.
-    # Only the lock witness that fault/chaos.py installs checks it, so it
-    # is refused until that is ported (NOT_PORTED, item 8b)
+    # captures traceback + trace id (utils/racecheck.py); 0 = off.
+    # Checked by the lock proxies that fault/chaos.py's witness installs
     lock_slow_hold_budget: float = 0.0
     # gates the parent-side registry merge of shard-worker ShardStats
     # deltas (the per-worker flight-record stamp stays on regardless)
@@ -510,19 +512,6 @@ NOT_PORTED = (
     ("10c (vm/gossiper.py)",
      ("remote_gossip_only_enabled", "regossip_frequency", "regossip_max_txs",
       "regossip_tx_queue_size")),
-    ("10c (vm/syncervm.py and sync/: state sync)",
-     ("state_sync_enabled", "state_sync_skip_resume",
-      "state_sync_server_trie_cache", "state_sync_ids",
-      "state_sync_commit_interval", "state_sync_min_blocks",
-      "sync_max_attempts", "sync_backoff_base", "sync_backoff_cap",
-      "sync_leafs_deadline", "sync_blocks_deadline", "sync_code_deadline",
-      "sync_hedge_requests", "sync_hedge_delay", "sync_stale_root_votes",
-      "sync_suspect_score", "sync_quarantine_score",
-      "sync_quarantine_seconds", "sync_readmit_probes",
-      "max_outbound_active_requests",
-      "max_outbound_active_cross_chain_requests")),
-    ("8b (fault/chaos.py: the lock witness that checks the budget)",
-     ("lock_slow_hold_budget",)),
     ("10 (config.go knobs that neither package's VM, chain or RPC tier "
      "reads)",
      ("trie_clean_cache", "trie_dirty_commit_target", "snapshot_cache",
@@ -531,7 +520,11 @@ NOT_PORTED = (
       "accepted_queue_limit", "allow_missing_tries", "offline_pruning_enabled",
       "offline_pruning_bloom_filter_size", "offline_pruning_data_directory",
       "local_txs_enabled", "log_json_format",
-      "keystore_insecure_unlock_allowed")),
+      "keystore_insecure_unlock_allowed", "state_sync_enabled",
+      "state_sync_skip_resume", "state_sync_server_trie_cache",
+      "state_sync_ids", "state_sync_min_blocks",
+      "max_outbound_active_requests",
+      "max_outbound_active_cross_chain_requests")),
 )
 
 _DEFAULTS = {f.name: getattr(Config(), f.name) for f in fields(Config)}

@@ -24,11 +24,15 @@ and the external signer (keystore-external-signer) back the wallet
 methods; shutdown() closes the keystore, cancelling its relock timers
 (ROADMAP Queue 3).
 
-Left out, each with its ROADMAP "Still to port" item: the inbound sync
-server (`sync_handler` is None; SyncHandler waits for item 10c, sync; its
-proofs, trie/proof.py and proof_range.py, are ported); the cross-chain
-eth_call both ways (handle_cross_chain_request and cross_chain_eth_call
-raise, item 10c: they need sync/messages.py).
+The inbound sync server is `vm.sync_handler` (sync/handlers.SyncHandler:
+leaf, block and code requests served off this chain, with the snapshot
+fast path when the chain runs one); a state-syncing node wraps its VM in
+vm/syncervm.StateSyncClient, which debug_syncStatus then finds as
+`vm.state_sync_client`.
+
+Left out, with its ROADMAP "Still to port" item: the cross-chain eth_call
+both ways (handle_cross_chain_request and cross_chain_eth_call raise,
+item 10c's last slice, with the gossiper and the plugin).
 """
 
 from __future__ import annotations
@@ -183,6 +187,11 @@ class VM:
             from ..metrics import tracectx as _tracectx
 
             _tracectx.set_enabled(self.full_config.tracing_enabled)
+        if "lock_slow_hold_budget" in explicit:
+            from ..utils import racecheck as _racecheck
+
+            _racecheck.set_slow_hold_budget(
+                self.full_config.lock_slow_hold_budget)
         if "trace_ring_size" in explicit:
             from ..metrics import tracectx as _tracectx
 
@@ -346,9 +355,14 @@ class VM:
                 self.full_config.populate_missing_tries_parallelism,
             )
 
-        # inbound sync server (vm.go:547): not ported (ROADMAP item 10c,
-        # sync)
-        self.sync_handler = None
+        # inbound sync server (vm.go:547 initializeStateSyncServer): leaf/
+        # block/code requests served off this chain, snapshot fast path
+        # engaged automatically when the chain runs one
+        from ..sync.handlers import SyncHandler
+
+        self.sync_handler = SyncHandler(
+            self.blockchain, self.state_database.triedb, diskdb
+        )
 
         # continuous profiler (vm.go:1642, config.go:89-91)
         self.continuous_profiler = None
@@ -591,20 +605,20 @@ class VM:
     # read-only call against OUR latest accepted state ------------------
 
     def handle_cross_chain_request(self, blob: bytes) -> bytes:
-        """Not ported: the typed cross-chain dispatcher decodes its
-        request with sync/messages.py (ROADMAP "Still to port", item
-        10c)."""
+        """Not ported: the typed cross-chain dispatcher (ROADMAP "Still
+        to port", item 10c's last slice, with the gossiper and the
+        plugin)."""
         raise NotImplementedError(
             "cross-chain eth_call serving is not ported (ROADMAP 'Still to "
-            "port', item 10c: sync/messages.py)")
+            "port', item 10c's last slice: the cross-chain eth_call)")
 
     def cross_chain_eth_call(self, network, chain_id: bytes,
                              call_obj: dict, deadline: float = 10.0):
         """Not ported: the client side of the cross-chain eth_call
-        (ROADMAP "Still to port", item 10c: sync/messages.py)."""
+        (ROADMAP "Still to port", item 10c's last slice)."""
         raise NotImplementedError(
             "cross-chain eth_call is not ported (ROADMAP 'Still to port', "
-            "item 10c: sync/messages.py)")
+            "item 10c's last slice: the cross-chain eth_call)")
 
     def issue_atomic_tx(self, tx: Tx) -> None:
         tx.semantic_verify(self, self._next_base_fee())

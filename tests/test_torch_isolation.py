@@ -299,7 +299,7 @@ vm.initialize(SnowContext(shared_memory=mem), MemoryDB(),
               config_bytes=json.dumps({"device-probe-interval": 0,
                                        "insert-pipeline-depth": 1}).encode(),
               device="cpu")
-assert vm.sync_handler is None and vm.blockchain.pipeline is not None
+assert vm.sync_handler is not None and vm.blockchain.pipeline is not None
 # a block every 10 s of chain time (tip 0 pays no block gas cost then)
 vm.miner.clock = lambda: vm.blockchain.current_block.time + 10
 ctx = vm.ctx
@@ -483,6 +483,65 @@ feeds[0]({"number": "0x1"})
 assert heads.next(timeout=10) == {"number": "0x1"}
 client.close()
 ws.stop()
+
+# the operations surface and state sync: a short chaos run, the metrics
+# check, a faulting SQLite store, and an account trie synced over TCP from
+# a leafs handler with a faulty second peer, into a SQLite store
+import os
+
+from coreth_tpu_torch.ethdb.faultdb import FaultInjectingDB
+from coreth_tpu_torch.ethdb.sqlitedb import SQLiteDB
+from coreth_tpu_torch.fault.chaos import run_chaos
+from coreth_tpu_torch.metrics.__main__ import main as metrics_main
+from coreth_tpu_torch.peer.network import Network
+from coreth_tpu_torch.peer.testing import FaultyTransport
+from coreth_tpu_torch.peer.transport import TransportServer, dial
+from coreth_tpu_torch.state.database import Database
+from coreth_tpu_torch.state.statedb import StateDB
+from coreth_tpu_torch.sync.client import SyncClient
+from coreth_tpu_torch.sync.handlers import SyncHandler
+from coreth_tpu_torch.sync.statesync import StateSyncer
+from coreth_tpu_torch.trie.triedb import TrieDatabase
+from coreth_tpu_torch.utils.racecheck import LockOrderWitness
+
+fault.clear_all()
+assert metrics_main(["--check"]) == 0
+with tempfile.TemporaryDirectory() as d:
+    fdb = FaultInjectingDB(SQLiteDB(os.path.join(d, "f.db")))
+    fault.set_failpoint("ethdb/torn_batch", "raise*1")
+    try:
+        fdb.write_batch([(b"a", b"1"), (b"b", b"2")])
+    except Exception:
+        pass
+    fault.clear_all()
+    assert list(fdb.iterate()) == [(b"a", b"1")]
+    fdb.close()
+    stdb = TrieDatabase(MemoryDB())
+    sst = StateDB(EMPTY_ROOT, Database(stdb))
+    for i in range(1, 301):
+        sst.add_balance(i.to_bytes(20, "big"), 10**15 + i)
+    sroot = sst.commit()
+    stdb.commit(sroot)
+    handler = SyncHandler(None, stdb, stdb.diskdb, snaps=None)
+    tcp = TransportServer(handler.handle)
+    tport = tcp.serve()
+    good, other = dial("127.0.0.1", tport), dial("127.0.0.1", tport)
+    net = Network()
+    net.connect(b"good", good)
+    net.connect(b"faulty", FaultyTransport(other, ["corrupt", "drop"]))
+    sdb = SQLiteDB(os.path.join(d, "sync.db"), sync=False)
+    with StateSyncer(SyncClient(net, backoff_base=0.001, backoff_cap=0.002),
+                     sdb, sroot) as syncer:
+        syncer.sync()
+    assert sdb.get(sroot) is not None
+    sdb.close()
+    for c in (good, other):
+        c.close()
+    net.close()
+    assert tcp.stop() == []
+assert isinstance(LockOrderWitness().violations, list)
+out = run_chaos(seed=5, steps=6, kill_drill=False, device="cpu")
+assert out["violations"] == [] and out["final"]["height"] > 0
 leaked = [m for m in sys.modules if refused(m)]
 assert not leaked, leaked
 print("ISOLATED-OK")
@@ -560,15 +619,35 @@ def test_no_source_imports_jax_or_coreth_tpu():
                 "accounts/keystore.py", "accounts/manager.py",
                 "accounts/external.py", "accounts/bind.py",
                 "signer/__init__.py", "interfaces.py", "rpc/websocket.py",
-                "ethclient/ws.py", "vm/tx_builder.py"):
+                "ethclient/ws.py", "vm/tx_builder.py", "ethdb/faultdb.py",
+                "ethdb/sqlitedb.py", "fault/chaos.py", "metrics/__main__.py",
+                "sync/__init__.py", "sync/messages.py", "sync/client.py",
+                "sync/handlers.py", "sync/statesync.py", "peer/__init__.py",
+                "peer/network.py", "peer/transport.py", "peer/testing.py",
+                "vm/syncervm.py"):
         assert os.path.join("coreth_tpu_torch", mod) in names, mod
     assert not bad, bad
 
 
+def test_chaos_kill_child_source_imports_only_the_port():
+    """fault/chaos.py's _KILL_CHILD is source text that the AST scan of
+    the package's modules cannot see: its own imports are checked here."""
+    from coreth_tpu_torch.fault.chaos import _KILL_CHILD
+
+    roots = set()
+    for node in ast.walk(ast.parse(_KILL_CHILD)):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            roots.add((node.module or "").split(".")[0])
+    assert "coreth_tpu_torch" in roots
+    assert not roots & set(FORBIDDEN), roots
+
+
 def test_relative_imports_resolve_inside_the_port():
     """Every relative import of a port module names a module the port has
-    (the parts left out, such as fault/chaos.py, sync/ or
-    vm/gossiper.py, are never imported, not even lazily)."""
+    (the parts left out, such as vm/gossiper.py or plugin/, are never
+    imported, not even lazily)."""
     root = os.path.join(REPO, "coreth_tpu_torch")
 
     def exists(base, dotted):

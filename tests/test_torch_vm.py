@@ -442,7 +442,8 @@ def test_vm_boots_from_config_bytes():
     ("keystore-insecure-unlock-allowed", True, "item 10 "),
     ("accepted-cache-size", 64, "item 10"),
     ("trie-clean-cache", 1024, "item 10"),
-    ("lock-slow-hold-budget", 0.5, "item 8b"),
+    ("state-sync-min-blocks", 5, "neither package"),
+    ("max-outbound-active-requests", 8, "neither package"),
 ])
 def test_not_ported_knob_raises(knob, value, item):
     """A knob that no module of the port reads (its part is not ported,
@@ -473,12 +474,18 @@ def test_not_ported_knob_raises(knob, value, item):
     ("ws-notify-queue-size", 8),
     ("keystore-directory", "keystore"),
     ("keystore-external-signer", "clef.ipc"),
+    ("lock-slow-hold-budget", 0.5),
+    ("sync-max-attempts", 7),
+    ("state-sync-commit-interval", 8192),
 ])
 def test_ported_knob_boots(knob, value, tmp_path):
     """The knobs that refused the boot until the RPC tier, the profilers
-    and the metrics endpoint were ported (ROADMAP item 10a), and the
-    WebSocket and keystore knobs (item 10b): the port's VM boots with
-    each, and its shutdown leaves no thread behind."""
+    and the metrics endpoint were ported (ROADMAP item 10a), the
+    WebSocket and keystore knobs (item 10b), the lock witness's budget
+    (item 8b) and the state-sync knobs the reference reads (10c: the
+    sync-* knobs of SyncClient.from_config, state-sync-commit-interval
+    validated against commit-interval): the port's VM boots with each,
+    and its shutdown leaves no thread behind."""
     if knob in ("continuous-profiler-dir", "keystore-directory",
                 "keystore-external-signer"):
         value = str(tmp_path / value)
@@ -505,6 +512,17 @@ def test_ported_knob_boots(knob, value, tmp_path):
         assert vm.keystore.keydir == value
     if knob == "keystore-external-signer":
         assert vm.external_signer.endpoint == value
+    if knob == "lock-slow-hold-budget":
+        from coreth_tpu_torch.utils import racecheck
+
+        assert racecheck.slow_hold_budget() == value
+        racecheck.set_slow_hold_budget(0.0)  # process-wide
+    if knob == "sync-max-attempts":
+        from coreth_tpu_torch.peer.network import Network
+        from coreth_tpu_torch.sync.client import SyncClient
+
+        assert SyncClient.from_config(
+            Network(), vm.full_config).max_attempts == value
     vm.shutdown()
     deadline = time.time() + 5
     while set(threading.enumerate()) - before and time.time() < deadline:
@@ -541,9 +559,12 @@ def test_mesh_and_fused_knobs_boot(knobs):
 
 
 def test_left_out_parts_raise_or_stay_none():
+    from coreth_tpu_torch.sync.handlers import SyncHandler
+
     t = Twin()
     vm = t.vm["port"]
-    assert vm.sync_handler is None and vm.keystore is None
+    # the sync server is ported (item 10c); the cross-chain call is not
+    assert isinstance(vm.sync_handler, SyncHandler) and vm.keystore is None
     with pytest.raises(NotImplementedError, match="item 10"):
         vm.handle_cross_chain_request(b"")
     with pytest.raises(NotImplementedError, match="item 10"):
