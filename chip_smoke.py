@@ -133,13 +133,23 @@ Phases (each passes or the script exits non-zero):
      eth_sendRawTransaction in batches of RPC_BATCH (100), and in the
      first block one ImportTx (consuming a UTXO seeded into the shared
      memory from the X chain) and one ExportTx go in as avax.issueTx
-     (the second block's wallet path follows); then
-     vm.build_block() (the miner from the tx pool and the atomic mempool;
-     finalize_and_assemble's intermediate_root: the storage programs on
-     K1 under the degradation ladder, the account trie on the mirror's
-     executor on K1; insert_block_manual(writes=False)), vmb.verify()
+     (the second block's wallet path follows); then, once the pools hold
+     them, the engine drives the block across a process boundary: the VM
+     is served by plugin.VMServer on a unix socket in a temporary
+     directory (its listener and connection threads in this process,
+     where the VM holds the card) and an engine child, started with
+     subprocess, importing the plugin client alone under an import guard
+     that refuses torch too (_ENGINE_CHILD), calls buildBlock (the miner
+     from the tx pool and the atomic mempool; finalize_and_assemble's
+     intermediate_root: the storage programs on K1 under the degradation
+     ladder, the account trie on the mirror's executor on K1;
+     insert_block_manual(writes=False)), blockVerify
      (insert_block_manual(writes=True), the atomic backend),
-     vm.set_preference, vmb.accept(), the acceptor drained. The VM's
+     setPreference and blockAccept (the acceptor drained) through
+     RemoteVM, each call's round trip printed beside its time on the VM's
+     side. After the last block `shutdown` over the socket stops the
+     server (not the VM), its threads joined, and the child exits 0. The
+     VM's
      config also names a keystore directory under the run's temporary
      directory, opts the personal namespace in and sets
      ws-notify-queue-size 64: serve_ws(vm, rpc_server=server) serves
@@ -182,7 +192,8 @@ Phases (each passes or the script exits non-zero):
      the mirror's window and Mgas/s over build + verify; the K1 launches
      are recorded and held against the plain version. Then the
      WSEthClient closes and ws.stop() joins the WebSocket server's
-     threads; the keystore's light scrypt is timed on one keyfile. Then
+     threads; the keystore's light scrypt is timed on one keyfile; the
+     engine child and the plugin server end as above. Then
      vm.shutdown() (the RPC server's drain and stop, the metrics endpoint,
      the keystore's close, the chain's stop() and its shutdown export), the forkserver and the resource
      tracker stopped (exec_shards.stop_servers), and no process the run
@@ -282,13 +293,27 @@ Phases (each passes or the script exits non-zero):
      refused by the range proof, its drop rotated past). The client's
      head must be the summary, its mirror rebooted on the device over the
      synced root (K1), 200 accounts, every contract's code and 5 slots
-     each the oracle's; then the server builds and accepts 2 more blocks
+     each the oracle's. The transport serves the server VM's own
+     peer.Network (its request handler the sync handler), so sync, gossip
+     and requests share one route. Then the cross-chain eth_call both
+     ways: VM.cross_chain_eth_call of 8c's keccak256Batch call (128 x 512
+     B), the client asking the server's chain and the server asking the
+     client's synced head over their Networks' cross-chain registries,
+     each answer the host Keccak's and 8c's over HTTP, each with a K2
+     launch. Then the faulty peer is dropped and each VM gets a
+     vm/gossiper.Gossiper over its Network: the first post-sync block's
+     transactions are issued to the client's pool alone, and reach the
+     server's pool by gossip over the TCP transport (every one of them
+     there before build_block, no gossip/drops/* or gossip timeout
+     counted); the server builds and accepts that block and one more
      through vm_block and the client parses, verifies and accepts each,
-     every root the server's and the oracle's. Prints the sync wall,
-     leaves, requests, bytes, retries and rejections, peers by state, the
-     reboot's K1 launches and each verify's ms and launches. Every K1
-     and K2 launch of the phase goes through a recorder and is held
-     against the plain versions
+     every root the server's and the oracle's, both pools empty after.
+     Prints the sync wall, leaves, requests, bytes, retries and
+     rejections, peers by state, the reboot's K1 launches, the cross-
+     chain calls' ms and K2 launches, the gossip messages sent and
+     transactions heard, and each verify's ms and launches. Every K1 and
+     K2 launch of the phase goes through a recorder and is held against
+     the plain versions
   8d. mesh and legacy executors: a trie of --mesh-accounts (100,000)
      seeded leaves and 3 blocks of 2,000 updates (the native host
      planner's root of each state the oracle), on meshes of width 1 on
@@ -322,6 +347,24 @@ Phases (each passes or the script exits non-zero):
      failpoints fired by subsystem, the steps/s, the final counters, the
      kill drill and the phase's K1 and K2 launches, each held against the
      plain versions
+  8g. prune (phase_prune): a world of its own at --prune-accounts
+     (20,000; the main world's shape) with its own oracle, and a resident
+     BlockChain on the card at commit interval 2 over a SQLiteDB in a
+     temporary directory (the genesis commit and the mirror boot on K1).
+     Six blocks of 4 contract calls and 150 transfers are made up front
+     by generate_chain over an overlay of its store, every root the
+     oracle's. The chain inserts and accepts four (K1), stop() writes the
+     shutdown export, core/pruner.Pruner.prune(tip root, genesis root)
+     mark-sweeps the store on the host; the prune must delete nodes and
+     keep the tip and genesis roots; a reopened resident chain reboots
+     its mirror over the pruned store on K1 (launches > 0), its head the
+     tip and a sample of 200 accounts and 5 slots a contract the
+     oracle's, and takes the last two blocks, every root the oracle's;
+     recover_pruning() is then False. Prints nodes deleted and kept,
+     prune ms, the store's entries and bytes before and after
+     (SQLiteDB.stat), the reboot's K1 launches and the phase's wall.
+     Every K1 launch goes through a recorder and is held against the
+     plain version
   9. watchdog drill: a 2,000-key mirror whose executor hangs once: the
      commit raises DeviceWedgedError with the applied stack unchanged and
      nothing on the host; the drill then asks for the host
@@ -404,6 +447,7 @@ from coreth_tpu_torch.precompile import TPU_KECCAK_ADDR, TpuKeccakConfig, \
     function_selector
 from coreth_tpu_torch.precompile import tpu_keccak
 from coreth_tpu_torch.ops.keccak_resident import ResidentExecutor
+from coreth_tpu_torch.plugin import VMServer
 from coreth_tpu_torch.ops.keccak_staged import segment_keccak_plain
 from coreth_tpu_torch.ops.keccak_torch import RATE, BatchedKeccak, \
     default_batched_keccak, digest_words_to_bytes, int32_to_words, \
@@ -3526,9 +3570,215 @@ class _WalletAtomic:
             pass
 
 
+# Phase 7d's engine process (the other side of plugin/main.go): it imports
+# the port's plugin client alone, under an import guard that refuses jax,
+# jaxlib, coreth_tpu, cryptography and torch (so it holds no CUDA context),
+# and for each "block" line on its stdin drives buildBlock -> blockVerify ->
+# setPreference -> blockAccept over the VM's unix socket, printing one JSON
+# line a block with each call's round trip; "shutdown" asks the server to
+# stop, and the child ends with 0. Started with subprocess, never fork.
+_ENGINE_CHILD = r"""
+import json, sys, time
+
+FORBIDDEN = ("jax", "jaxlib", "coreth_tpu", "cryptography", "torch")
+
+
+def refused(name):
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if refused(name):
+            raise ImportError(f"the engine must not import {name}")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+sys.path.insert(0, sys.argv[2])
+from coreth_tpu_torch.plugin.client import RemoteVM, RemoteVMError
+
+
+def timed(rt, name, fn, *a):
+    t0 = time.perf_counter()
+    out = fn(*a)
+    rt[name] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+rt = {}
+remote = timed(rt, "connect", RemoteVM, sys.argv[1], 30.0)
+last = timed(rt, "handshake", remote.handshake)
+print("READY " + json.dumps({"last": last.hex(), "rt": rt}), flush=True)
+for line in sys.stdin:
+    cmd = line.strip()
+    if cmd == "block":
+        rt = {}
+        try:
+            blk = timed(rt, "buildBlock", remote.build_block)
+            timed(rt, "blockVerify", remote.block_verify, blk.id)
+            timed(rt, "setPreference", remote.set_preference, blk.id)
+            timed(rt, "blockAccept", remote.block_accept, blk.id)
+            head = timed(rt, "lastAccepted", remote.last_accepted)
+        except RemoteVMError as e:
+            print("ERROR " + json.dumps(str(e)), flush=True)
+            sys.exit(1)
+        print("BLOCK " + json.dumps({
+            "id": blk.id.hex(), "parent": blk.parent_id.hex(),
+            "height": blk.height, "bytes": len(blk.bytes),
+            "head": head.id.hex(), "rt": rt}), flush=True)
+    elif cmd == "shutdown":
+        rt = {}
+        timed(rt, "shutdown", remote.shutdown)
+        print("DONE " + json.dumps({
+            "leaked": sorted(m for m in sys.modules if refused(m)),
+            "rt": rt}), flush=True)
+        sys.exit(0)
+sys.exit(2)
+"""
+ENGINE_CALLS = ("buildBlock", "blockVerify", "setPreference", "blockAccept")
+
+
+class _EngineServer(VMServer):
+    """The port's VMServer, each dispatch timed on the VM's side: its ms,
+    the K1 launches each of `recs` recorded in it, its start on this
+    process's clock, and after a blockVerify the mirror's device window
+    (`window`)."""
+
+    def __init__(self, vm, sock_path, recs, dev):
+        super().__init__(vm, sock_path)
+        self.recs, self.dev = recs, dev
+        self.calls = []  # (method, ms, [K1 launches by recorder], t0)
+        self.window = None
+
+    def dispatch(self, method, params):
+        n0 = [len(r.records) for r in self.recs]
+        t0 = time.perf_counter()
+        out = super().dispatch(method, params)
+        ms = (time.perf_counter() - t0) * 1e3
+        if method == "blockVerify":
+            mirror = self.vm.blockchain.mirror
+            self.window = (window_ms(self.dev, mirror.ex.last_events)
+                           if mirror is not None and not mirror.host_mode
+                           else None)
+        self.calls.append((method, ms, [len(r.records) - a for a, r in
+                                        zip(n0, self.recs)], t0))
+        return out
+
+
+class _Engine:
+    """Phase 7d's lifecycle across a process boundary: `vm` served by an
+    _EngineServer on a unix socket in `sock_dir` (its thread in this
+    process, where the VM holds the card) and the engine child
+    (_ENGINE_CHILD) started with subprocess, which drives each block.
+    close() asks for the shutdown over the socket: the server stops (the
+    VM does not), its connection threads joined, and the child ends 0."""
+
+    def __init__(self, vm, sock_dir, recs, dev):
+        sock = os.path.join(sock_dir, "vm.sock")
+        if len(sock.encode()) > 100:  # AF_UNIX paths end at 108 bytes
+            sock = os.path.relpath(sock)
+        check(len(sock.encode()) <= 100,
+              f"vm plugin: socket path {sock!r} too long for AF_UNIX")
+        self.sock = sock
+        self.server = _EngineServer(vm, sock, recs, dev)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       name="plugin-server", daemon=True)
+        self.proc = self.reader = None
+        self.lines = queue.Queue()
+        t0 = time.perf_counter()
+        self.thread.start()
+        check(_wait(lambda: os.path.exists(sock), 10),
+              "vm plugin: the server never opened its socket")
+        self.errf = open(os.path.join(sock_dir, "engine.err"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _ENGINE_CHILD, sock,
+             os.path.dirname(os.path.abspath(__file__))],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self.errf,
+            text=True)
+        self.reader = threading.Thread(target=self._read, name="engine-out",
+                                       daemon=True)
+        self.reader.start()
+        ready = self._expect("READY")
+        self.start_ms = (time.perf_counter() - t0) * 1e3
+        self.start_rt = ready["rt"]
+        check(bytes.fromhex(ready["last"]) == vm.last_accepted().id(),
+              "vm plugin: the engine's handshake is not the VM's last "
+              "accepted block")
+        self.rts = []     # per block: {call: round-trip ms}
+        self.vm_side = []  # per block: {call: VM-side ms}
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.put(line.rstrip("\n"))
+        self.lines.put(None)
+
+    def _expect(self, tag, seconds=600.0):
+        try:
+            line = self.lines.get(timeout=seconds)
+        except queue.Empty:
+            line = None
+        if line is None or not line.startswith(tag + " "):
+            self.errf.seek(0)
+            check(False, f"vm plugin: the engine child said {line!r}, not "
+                  f"{tag}; its stderr: {self.errf.read()[-2000:]}")
+        return json.loads(line[len(tag) + 1:])
+
+    def block(self, vm):
+        """One block driven by the child. Returns (the accepted VMBlock,
+        the VM side: {call: (ms, K1 launches by recorder, t0)})."""
+        k = len(self.server.calls)
+        self.proc.stdin.write("block\n")
+        self.proc.stdin.flush()
+        out = self._expect("BLOCK")
+        calls = {m: (ms, k1, t0) for m, ms, k1, t0 in self.server.calls[k:]}
+        check(set(ENGINE_CALLS) <= set(calls),
+              f"vm plugin: the server saw {sorted(calls)}")
+        vmb = vm.last_accepted()
+        check(vmb.id().hex() == out["id"] == out["head"],
+              "vm plugin: the engine's block is not the VM's last accepted")
+        self.rts.append(out["rt"])
+        self.vm_side.append({m: calls[m][0] for m in ENGINE_CALLS})
+        return vmb, calls
+
+    def close(self) -> str:
+        """The shutdown over the socket; checks the child's exit and the
+        server's joins. Returns a summary."""
+        self.proc.stdin.write("shutdown\n")
+        self.proc.stdin.flush()
+        done = self._expect("DONE")
+        rc = self.proc.wait(timeout=30)
+        self.proc.stdin.close()
+        self.reader.join(timeout=10)
+        self.thread.join(timeout=10)
+        self.errf.close()
+        check(rc == 0 and not done["leaked"],
+              f"vm plugin: the engine child exited {rc}, loaded "
+              f"{done['leaked']}")
+        check(not self.thread.is_alive() and not self.server.threads_left
+              and not os.path.exists(self.sock),
+              f"vm plugin: the server's threads {self.server.threads_left} "
+              f"(listener alive {self.thread.is_alive()})")
+        return (f"the engine child exited 0 after shutdown over the socket "
+                f"({done['rt']['shutdown']:.2f} ms) holding no torch, jax "
+                f"or coreth_tpu module; the server's listener and "
+                f"connection threads joined, its socket removed")
+
+    def kill(self) -> None:
+        """After a failure: stop the child and the server, whatever their
+        state."""
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        self.server.dispatch("shutdown", {})
+        self.thread.join(timeout=10)
+        if self.reader is not None:
+            self.reader.join(timeout=10)
+
+
 def vm_block(vm, world: World, oracle: Oracle, txs, coinbase: list,
              recs, atomic=None, label="vm", dev=None, issued=False,
-             rpc=None, wallet=None):
+             rpc=None, wallet=None, engine=None):
     """One block through the VM: `txs` (and `atomic`'s two txs) issued
     through vm.issue_tx and vm.issue_atomic_tx (unless `issued`: already
     in the tx pool from a build that failed), or with `rpc` (an RpcRun)
@@ -3537,10 +3787,13 @@ def vm_block(vm, world: World, oracle: Oracle, txs, coinbase: list,
     eth_sendTransaction over WS and `atomic`'s as its own issue() builds
     them (a _WalletAtomic: the node's wallet); then vm.build_block() →
     vmb.verify() → vm.set_preference(vmb.id()) → vmb.accept() and the
-    acceptor drained. Its header root must equal the EVM-independent
-    oracle's (evm_oracle_block over the block's own transaction order,
-    plus `atomic`'s changes), the head and the last accepted block must be
-    it. `recs`: the storage programs' and the executor's K1 recorders.
+    acceptor drained, or with `engine` (an _Engine) the same four calls
+    made by the engine child over the plugin socket (the times and K1
+    launches then taken on the VM's side of it). Its header root must
+    equal the EVM-independent oracle's (evm_oracle_block over the block's
+    own transaction order, plus `atomic`'s changes), the head and the last
+    accepted block must be it. `recs`: the storage programs' and the
+    executor's K1 recorders.
     Returns (block, receipts, touched, writes, stats)."""
     chain = vm.blockchain
     decoded = [Transaction.decode(t.blob) for t in txs]
@@ -3564,24 +3817,33 @@ def vm_block(vm, world: World, oracle: Oracle, txs, coinbase: list,
     check(vm.txpool.stats()[0] == len(txs),
           f"{label}: the tx pool holds {vm.txpool.stats()}, not "
           f"{len(txs)} pending")
-    n0 = [len(r.records) for r in recs]
-    t0 = time.perf_counter()
-    vmb = vm.build_block()
-    build_ms = (time.perf_counter() - t0) * 1e3
-    n1 = [len(r.records) for r in recs]
-    t0 = time.perf_counter()
-    vmb.verify()
-    verify_ms = (time.perf_counter() - t0) * 1e3
-    n2 = [len(r.records) for r in recs]
-    mirror = chain.mirror
-    win = (window_ms(dev, mirror.ex.last_events)
-           if dev is not None and mirror is not None and not
-           mirror.host_mode else None)
-    vm.set_preference(vmb.id())
-    t_accept = time.perf_counter()
-    vmb.accept()
-    chain.drain_acceptor_queue()
-    accept_ms = (time.perf_counter() - t_accept) * 1e3
+    if engine is not None:
+        vmb, calls = engine.block(vm)
+        build_ms, build_k1, _t = calls["buildBlock"]
+        verify_ms, verify_k1, _t = calls["blockVerify"]
+        accept_ms, _k, t_accept = calls["blockAccept"]
+        win = engine.server.window if dev is not None else None
+    else:
+        n0 = [len(r.records) for r in recs]
+        t0 = time.perf_counter()
+        vmb = vm.build_block()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        n1 = [len(r.records) for r in recs]
+        t0 = time.perf_counter()
+        vmb.verify()
+        verify_ms = (time.perf_counter() - t0) * 1e3
+        n2 = [len(r.records) for r in recs]
+        build_k1 = [b - a for a, b in zip(n0, n1)]
+        verify_k1 = [b - a for a, b in zip(n1, n2)]
+        mirror = chain.mirror
+        win = (window_ms(dev, mirror.ex.last_events)
+               if dev is not None and mirror is not None and not
+               mirror.host_mode else None)
+        vm.set_preference(vmb.id())
+        t_accept = time.perf_counter()
+        vmb.accept()
+        chain.drain_acceptor_queue()
+        accept_ms = (time.perf_counter() - t_accept) * 1e3
     eth = vmb.eth_block
     check(len(eth.transactions) == len(txs),
           f"{label} block {eth.number}: {len(eth.transactions)} of "
@@ -3608,8 +3870,7 @@ def vm_block(vm, world: World, oracle: Oracle, txs, coinbase: list,
           f"{label} block {eth.number}: not the head and last accepted")
     stats = dict(issue=issue_ms, build=build_ms, verify=verify_ms,
                  accept=accept_ms, t_accept=t_accept, window=win,
-                 build_k1=[b - a for a, b in zip(n0, n1)],
-                 verify_k1=[b - a for a, b in zip(n1, n2)])
+                 build_k1=build_k1, verify_k1=verify_k1)
     return vmb, receipts, touched, writes, stats
 
 
@@ -3845,74 +4106,114 @@ def phase_vm(dev, vm, mem: Memory, world: World, oracle: Oracle, n_blocks,
     ws_moved = {n: default_registry.counter(n).count() for n in ws_names}
     loud_names = LOUD_CHAIN + OPTION_FALLBACKS + LOUD_DEVICE
     loud = {n: default_registry.counter(n).count() for n in loud_names}
+    # the engine: the VM served on a unix socket (VMServer, its thread in
+    # this process, where the VM holds the card) and the child that drives
+    # each block's lifecycle over it
+    engine = _Engine(vm, tempfile.mkdtemp(prefix="plugin_"),
+                     (rec_storage, rec_resident), dev)
+    log(f"vm plugin: VMServer(vm) serving the unix socket {engine.sock}; "
+        f"the engine child (subprocess, the plugin client alone) started "
+        f"and shook hands in {engine.start_ms:.1f} ms (connect "
+        f"{engine.start_rt['connect']:.2f} ms, handshake round trip "
+        f"{engine.start_rt['handshake']:.2f} ms)")
     keccak_cuda.reset_counts()
     planned_mod.planned_fallbacks = 0
     touched_all, written = set(), defaultdict(set)
     gas_all = wall_all = 0.0
     wallet = watomic = None
-    with _GcPauses() as pauses:
-        for b, txs in enumerate(signed):
-            if b == 1:  # the wallet's block
-                wallet = _Wallet(wsc, world, signed, b)
-                watomic = _WalletAtomic(wsc, vm, mem, world)
-                log(f"vm: wallet keys imported and unlocked over WS "
-                    f"(personal_importRawKey / personal_unlockAccount ms: "
-                    + ", ".join(f"{a:.1f} / {u:.1f}"
-                                for a, u in wallet.key_ms)
-                    + f"), {len(wallet.objs)} of the block's transfers "
-                    f"re-signed from them, a UTXO of {WALLET_IMPORT} nAVAX "
-                    f"seeded for the avax key; {wallet.setup_ms:.1f} ms")
-            blk_atomic = atomic if b == 0 else watomic if b == 1 else None
-            vmb, receipts, touched, writes, st = vm_block(
-                vm, world, oracle, txs, coinbase, (rec_storage, rec_resident),
-                atomic=blk_atomic, dev=dev, rpc=rpc,
-                wallet=wallet if b == 1 else None)
-            pushed = ws_block_pushes(wsc, subs, vmb, receipts, txs,
-                                     wallet if b == 1 else None, st)
-            if blk_atomic is not None:
-                blk_atomic.check_shared_memory(mem, vm.ctx)
-            t0 = time.perf_counter()
-            reads = rpc_block_reads(rpc, metrics_url, vm, vmb, txs, receipts,
-                                    world, touched, writes, blk_atomic)
-            if b == 0:  # the next block's delta stays on the card
-                reads += "; " + rpc_proofs(rpc, vmb, world, oracle, touched,
-                                           writes, seed + b)
-            reads_ms = (time.perf_counter() - t0) * 1e3
-            touched_all |= touched
-            for c, w in writes.items():
-                written[c].update(w)
-            eth = vmb.eth_block
-            gas = eth.header.gas_used
-            wall = (st["build"] + st["verify"]) / 1e3
-            gas_all += gas
-            wall_all += wall
-            rec = chain.flight_recorder.find(eth.hash())
-            log(f"vm block {eth.number}: {len(eth.transactions)} "
-                f"transactions, {len(vmb.atomic_txs)} atomic, gas used {gas}"
-                f"; issue {st['issue']:.1f} ms, build_block "
-                f"{st['build']:.1f} ms (K1 launches: storage programs "
-                f"{st['build_k1'][0]}, resident executor "
-                f"{st['build_k1'][1]}), verify {st['verify']:.1f} ms (K1 "
-                f"launches: storage programs {st['verify_k1'][0]}, resident "
-                f"executor {st['verify_k1'][1]}; flight record phases (ms) "
-                + ", ".join(f"{k} {v * 1e3:.1f}"
-                            for k, v in rec["phases"].items())
-                + f"), accept and drain {st['accept']:.1f} ms; mirror device"
-                f" window {fmt_window(st['window'])}; {gas / wall / 1e6:.3f}"
-                f" Mgas/s over build + verify; root {eth.header.root.hex()}"
-                f" == the EVM-independent oracle's; {card}")
-            log(f"vm block {eth.number}: over RPC {reads}, all equal to the "
-                f"block and the oracle's world, in {reads_ms:.1f} ms; over WS"
-                f" {pushed}")
-            if b == 1:
-                log(f"vm block {eth.number}: the wallet's {len(wallet.objs)} "
-                    f"eth_sendTransaction over WS answered the harness's "
-                    f"hashes; avax.import {watomic.imp_id} (fee "
-                    f"{watomic.fees[0]} nAVAX) and avax.export "
-                    f"{watomic.exp_id} (fee {watomic.fees[1]} nAVAX), built "
-                    f"by the node's tx builder, counted by the oracle; the "
-                    f"shared memory holds the export's UTXO and not the "
-                    f"import's")
+    try:
+        with _GcPauses() as pauses:
+            for b, txs in enumerate(signed):
+                if b == 1:  # the wallet's block
+                    wallet = _Wallet(wsc, world, signed, b)
+                    watomic = _WalletAtomic(wsc, vm, mem, world)
+                    log(f"vm: wallet keys imported and unlocked over WS "
+                        f"(personal_importRawKey / personal_unlockAccount ms: "
+                        + ", ".join(f"{a:.1f} / {u:.1f}"
+                                    for a, u in wallet.key_ms)
+                        + f"), {len(wallet.objs)} of the block's transfers "
+                        f"re-signed from them, a UTXO of {WALLET_IMPORT} "
+                        f"nAVAX seeded for the avax key; "
+                        f"{wallet.setup_ms:.1f} ms")
+                blk_atomic = atomic if b == 0 else watomic if b == 1 else None
+                vmb, receipts, touched, writes, st = vm_block(
+                    vm, world, oracle, txs, coinbase,
+                    (rec_storage, rec_resident), atomic=blk_atomic, dev=dev,
+                    rpc=rpc, wallet=wallet if b == 1 else None,
+                    engine=engine)
+                pushed = ws_block_pushes(wsc, subs, vmb, receipts, txs,
+                                         wallet if b == 1 else None, st)
+                if blk_atomic is not None:
+                    blk_atomic.check_shared_memory(mem, vm.ctx)
+                t0 = time.perf_counter()
+                reads = rpc_block_reads(rpc, metrics_url, vm, vmb, txs,
+                                        receipts, world, touched, writes,
+                                        blk_atomic)
+                if b == 0:  # the next block's delta stays on the card
+                    reads += "; " + rpc_proofs(rpc, vmb, world, oracle,
+                                               touched, writes, seed + b)
+                reads_ms = (time.perf_counter() - t0) * 1e3
+                touched_all |= touched
+                for c, w in writes.items():
+                    written[c].update(w)
+                eth = vmb.eth_block
+                gas = eth.header.gas_used
+                wall = (st["build"] + st["verify"]) / 1e3
+                gas_all += gas
+                wall_all += wall
+                rec = chain.flight_recorder.find(eth.hash())
+                log(f"vm block {eth.number}: {len(eth.transactions)} "
+                    f"transactions, {len(vmb.atomic_txs)} atomic, gas used "
+                    f"{gas}; issue {st['issue']:.1f} ms, build_block "
+                    f"{st['build']:.1f} ms (K1 launches: storage programs "
+                    f"{st['build_k1'][0]}, resident executor "
+                    f"{st['build_k1'][1]}), verify {st['verify']:.1f} ms (K1 "
+                    f"launches: storage programs {st['verify_k1'][0]}, "
+                    f"resident executor {st['verify_k1'][1]}; flight record "
+                    f"phases (ms) " + ", ".join(
+                        f"{k} {v * 1e3:.1f}"
+                        for k, v in rec["phases"].items())
+                    + f"), accept and drain {st['accept']:.1f} ms; mirror "
+                    f"device window {fmt_window(st['window'])}; "
+                    f"{gas / wall / 1e6:.3f} Mgas/s over build + verify; "
+                    f"root {eth.header.root.hex()} == the EVM-independent "
+                    f"oracle's; {card}")
+                log(f"vm block {eth.number}: over RPC {reads}, all equal to "
+                    f"the block and the oracle's world, in {reads_ms:.1f} ms;"
+                    f" over WS {pushed}")
+                rt, side = engine.rts[-1], engine.vm_side[-1]
+                log(f"vm block {eth.number}: built, verified, preferred and "
+                    f"accepted by the engine child over the plugin socket; "
+                    f"round trip / VM side (ms): " + ", ".join(
+                        f"{m} {rt[m]:.1f} / {side[m]:.1f}"
+                        for m in ENGINE_CALLS)
+                    + f", lastAccepted {rt['lastAccepted']:.2f}; {card}")
+                if b == 1:
+                    log(f"vm block {eth.number}: the wallet's "
+                        f"{len(wallet.objs)} eth_sendTransaction over WS "
+                        f"answered the harness's hashes; avax.import "
+                        f"{watomic.imp_id} (fee {watomic.fees[0]} nAVAX) and "
+                        f"avax.export {watomic.exp_id} (fee "
+                        f"{watomic.fees[1]} nAVAX), built by the node's tx "
+                        f"builder, counted by the oracle; the shared memory "
+                        f"holds the export's UTXO and not the import's")
+        plugin = engine.close()
+    except BaseException:
+        engine.kill()
+        raise
+    shutil.rmtree(os.path.dirname(os.path.abspath(engine.sock)),
+                  ignore_errors=True)
+    over = {m: [rt[m] - side[m] for rt, side in zip(engine.rts,
+                                                    engine.vm_side)]
+            for m in ENGINE_CALLS}
+    log("vm plugin: " + plugin + "; per call the engine's round trip / the "
+        "VM side (ms): " + "; ".join(
+            f"block {b + 1} " + ", ".join(
+                f"{m} {rt[m]:.1f} / {side[m]:.1f}" for m in ENGINE_CALLS)
+            for b, (rt, side) in enumerate(zip(engine.rts, engine.vm_side)))
+        + "; the boundary's own share (round trip less the VM side), mean "
+        + ", ".join(f"{m} {np.mean(v):.2f}" for m, v in over.items())
+        + f" ms; {card}")
     launches, coop = keccak_cuda.launches, keccak_cuda.launches_coop
     check(len(vm.mempool) == 0 and not vm.mempool.issued
           and vm.txpool.stats() == (0, 0),
@@ -4324,8 +4625,8 @@ def rpc_commitment(vm, rec_k2, world: World, touched, rpc_stats: RpcStats,
     RPC_WITNESSES touched accounts, each
     verified with bintrie/witness.verify_witness against the returned
     bintrieRoot (the shadow's root of the head) to the oracle's account;
-    debug_commitmentStatus with the shadow unquarantined. Returns a
-    summary."""
+    debug_commitmentStatus with the shadow unquarantined. Returns (the
+    messages, the digests the HTTP call answered, a summary)."""
     server = create_handlers(vm)
     rpc = RpcRun(f"http://127.0.0.1:{server.serve_http('127.0.0.1', 0)}",
                  rpc_stats)
@@ -4344,6 +4645,7 @@ def rpc_commitment(vm, rec_k2, world: World, touched, rpc_stats: RpcStats,
                       lambda: bound.call("keccak256Batch", msgs))
     check(got == want, "commitment rpc: BoundContract.call of "
           "keccak256Batch != native keccak256")
+    http_got = got
     check(len(rec_k2.records) == k2a + 1,
           f"commitment rpc: the BoundContract call made "
           f"{len(rec_k2.records) - k2a} K2 launches, not 1")
@@ -4381,7 +4683,8 @@ def rpc_commitment(vm, rec_k2, world: World, touched, rpc_stats: RpcStats,
     check(st["backend"] == "bintrie-shadow"
           and st["shadow"]["quarantined"] is False,
           f"commitment rpc: debug_commitmentStatus {st}")
-    return (f"eth_call of keccak256Batch over {SHADOW_MSGS} x "
+    return msgs, http_got, (
+            f"eth_call of keccak256Batch over {SHADOW_MSGS} x "
             f"{SHADOW_MSG_BYTES} B through BoundContract over HTTP and again "
             f"over WS: 1 K2 launch each, the digests native keccak256's; "
             f"{len(picks)} debug_stateWitness verified against "
@@ -4587,8 +4890,8 @@ def phase_commitment(dev, n_accounts, n_blocks, rpc_stats: RpcStats, seed,
               and len(rec_k2.records) == k2a + 1
               and left == 10**7 - tpu_keccak.batch_gas(msgs_all[0]),
               "commitment: contract.run != the host batch keccak")
-        rpc_summary = rpc_commitment(vm, rec_k2, world, sorted(touched_all),
-                                     rpc_stats, seed + 4)
+        xmsgs, xhttp, rpc_summary = rpc_commitment(
+            vm, rec_k2, world, sorted(touched_all), rpc_stats, seed + 4)
     finally:
         bk.impl = bk_impl
     k1, k1_coop = keccak_cuda.launches, keccak_cuda.launches_coop
@@ -4681,7 +4984,7 @@ def phase_commitment(dev, n_accounts, n_blocks, rpc_stats: RpcStats, seed,
     log(f"commitment: phase before the state sync "
         f"{time.perf_counter() - t_phase:.1f} s; {card}")
     sync = phase_state_sync(dev, vm, world, oracle, client_genesis,
-                            sync_txs, coinbase, card)
+                            sync_txs, coinbase, (xmsgs, xhttp), card)
     vm.shutdown()
     threads = threads_left(threads_before)
     check(not threads, f"commitment: threads left after vm.shutdown(): "
@@ -4739,7 +5042,7 @@ class _LeafCount:
 
 
 def phase_state_sync(dev, server, world: World, oracle: Oracle,
-                     genesis: Genesis, txs, coinbase: list, card):
+                     genesis: Genesis, txs, coinbase: list, xcall, card):
     """State sync on the card (module docstring, phase 8f), served by the
     commitment VM `server` (phase 8c), whose commit-interval and
     state-sync-commit-interval make its last block a syncable summary. A
@@ -4751,16 +5054,27 @@ def phase_state_sync(dev, server, world: World, oracle: Oracle,
     client's resident mirror over the synced trie on the card (K1). Then
     the server builds and accepts SYNC_BLOCKS blocks of `txs` through
     vm_block (each root the oracle's), and the client parses, verifies and
-    accepts each: every root the server's. Every K1 and K2 launch goes
-    through a recorder. Returns (the K1 recorder, K1 launches, of them
-    cooperative, the K2 recorder, K2 launches, of them cooperative, K2's
-    padding lanes)."""
+    accepts each: every root the server's. The transport serves the
+    server's own Network (its request handler the sync handler), so sync
+    and gossip share the one route: after the sync the faulty peer is
+    dropped, each VM gets a Gossiper over its Network, and the first
+    block's transactions are issued to the client's pool alone; they reach
+    the server's pool only by gossip, which must hold every one of them
+    before build_block, with no gossip drop or timeout counted. Then the
+    cross-chain eth_call both ways of 8c's keccak256Batch call (`xcall`:
+    its messages and the digests it answered over HTTP): the client asks
+    the server's chain, the server asks the client's synced head, each
+    answer those digests and the host Keccak's, each with a K2 launch.
+    Every K1 and K2 launch goes through a recorder. Returns (the K1
+    recorder, K1 launches, of them cooperative, the K2 recorder, K2
+    launches, of them cooperative, K2's padding lanes)."""
     from coreth_tpu_torch.ethdb.sqlitedb import SQLiteDB
     from coreth_tpu_torch.peer.network import Network
     from coreth_tpu_torch.peer.testing import FaultyTransport
     from coreth_tpu_torch.peer.transport import TransportServer, dial
     from coreth_tpu_torch.sync.client import SyncClient
     from coreth_tpu_torch.vm.api import DebugMetricsAPI
+    from coreth_tpu_torch.vm.gossiper import GOSSIP_ETH_TXS, Gossiper
     from coreth_tpu_torch.vm.syncervm import StateSyncClient, \
         StateSyncServer
 
@@ -4782,7 +5096,8 @@ def phase_state_sync(dev, server, world: World, oracle: Oracle,
     bk_impl = bk.impl
     bk.reset_totals()
     tmp = tempfile.mkdtemp(prefix="state_sync_")
-    db = tcp = good = other = net = cvm = None
+    db = tcp = good = other = net = snet = cvm = None
+    gossipers = []
     keccak_cuda.reset_counts()
     pc._impl = keccak_cuda.segment_keccak = rec
     bk.impl = rec_k2
@@ -4808,7 +5123,11 @@ def phase_state_sync(dev, server, world: World, oracle: Oracle,
         check(old_mirror is not None and not old_mirror.host_mode,
               "state sync: the client's mirror is not on the device")
         n_boot = len(rec.records)
-        tcp = TransportServer(server.sync_handler.handle)
+        # the server's Network: its request handler the sync handler, its
+        # app_request the transport's handler (gossip rides the same route)
+        snet = Network(self_id=b"server")
+        snet.set_request_handler(server.sync_handler.handle)
+        tcp = TransportServer(snet.app_request)
         port = tcp.serve("127.0.0.1", 0)
         good, other = dial("127.0.0.1", port), dial("127.0.0.1", port)
         faulty = FaultyTransport(other, script=["corrupt", "drop"])
@@ -4883,13 +5202,110 @@ def phase_state_sync(dev, server, world: World, oracle: Oracle,
             f"{len(picks)} accounts and {5 * len(world.storage)} slots "
             f"equal the oracle's; {card}")
 
+        # the cross-chain eth_call both ways: 8c's keccak256Batch call
+        msgs, http_digests = xcall
+        net.register_cross_chain_handler(server.chain_id_bytes,
+                                         server.handle_cross_chain_request)
+        snet.register_cross_chain_handler(cvm.chain_id_bytes,
+                                          cvm.handle_cross_chain_request)
+        call = {"to": "0x" + TPU_KECCAK_ADDR.hex(),
+                "data": "0x" + batch_calldata(msgs).hex()}
+        abi = ABI(KECCAK_BATCH_ABI)
+        want = [keccak256(m) for m in msgs]
+        check(want == http_digests, "state sync: 8c's HTTP answer != the "
+              "host Keccak")
+        xcalls = []
+        for who, caller, network, callee in (
+                ("client -> server", cvm, net, server),
+                ("server -> client", server, snet, cvm)):
+            k2a = len(rec_k2.records)
+            t0 = time.perf_counter()
+            out = caller.cross_chain_eth_call(network, callee.chain_id_bytes,
+                                              call)
+            ms = (time.perf_counter() - t0) * 1e3
+            got, = abi.unpack("keccak256Batch", out)
+            n2 = len(rec_k2.records) - k2a
+            check(got == want, f"state sync: the cross-chain eth_call "
+                  f"{who} != the host Keccak and 8c's HTTP answer")
+            check(dev.type != "cuda" or n2 >= 1,
+                  f"state sync: the cross-chain eth_call {who} launched no "
+                  f"K2")
+            xcalls.append(f"{who} {ms:.1f} ms, {n2} K2 launch"
+                          f"{'es' if n2 != 1 else ''}")
+        log(f"state sync cross-chain: eth_call of keccak256Batch over "
+            f"{len(msgs)} x {len(msgs[0])} B through "
+            f"VM.cross_chain_eth_call / handle_cross_chain_request both ways"
+            f" ({'; '.join(xcalls)}); each answer the host Keccak's and 8c's"
+            f" over HTTP; {card}")
+
+        # gossip: the faulty peer has served the sync and is dropped, so
+        # each gossip takes one route; a Gossiper a VM over its Network
+        net.disconnect(b"faulty")
+        gossipers += [Gossiper(server, snet), Gossiper(cvm, net)]
+        heard, sent = set(), []
+
+        def heard_on_server(_sender, payload):
+            if payload[:1] == bytes([GOSSIP_ETH_TXS]):
+                for blob in rlp.decode(payload[1:]):
+                    heard.add(keccak256(bytes(blob)))
+
+        snet.subscribe_gossip(heard_on_server)
+        net_gossip = net.gossip
+
+        def counted(payload):
+            sent.append(len(payload))
+            net_gossip(payload)
+
+        net.gossip = counted
+        g_names = ("gossip/drops/empty", "gossip/drops/unknown_kind",
+                   "gossip/drops/malformed", "gossip/drops/eth_tx_rejected",
+                   "gossip/drops/atomic_tx_rejected", "peer/gossip_timeouts",
+                   "peer/drops/gossip_send_failure",
+                   "peer/drops/gossip_handler_error")
+        g0 = {n: default_registry.counter(n).count() for n in g_names}
+
         # the server's next blocks, parsed, verified and accepted by the
-        # client
+        # client; the first one's transactions issued to the client alone
         per = []
         for b, block_txs in enumerate(txs[:SYNC_BLOCKS]):
+            gossip_note = ""
+            if b == 0:
+                t0 = time.perf_counter()
+                for t in block_txs:
+                    cvm.issue_tx(Transaction.decode(t.blob))
+                g_ms = (time.perf_counter() - t0) * 1e3
+                hashes = {keccak256(t.blob) for t in block_txs}
+                check(cvm.txpool.stats()[0] == len(block_txs),
+                      f"state sync: the client's pool holds "
+                      f"{cvm.txpool.stats()}, not {len(block_txs)} pending")
+                check(server.txpool.stats()[0] == len(block_txs)
+                      and all(server.txpool.has(h) for h in hashes)
+                      and heard == hashes,
+                      f"state sync: the server's pool holds "
+                      f"{server.txpool.stats()} after gossip ({len(heard)} "
+                      f"heard), not the {len(block_txs)} issued to the "
+                      f"client")
+                moved = {n: default_registry.counter(n).count() - g0[n]
+                         for n in g_names}
+                check(not any(moved.values()),
+                      f"state sync: gossip counters moved {moved}")
             vmb, _r, _t, _w, st = vm_block(
                 server, world, oracle, block_txs, coinbase, (rec,),
-                label=f"state sync server block {b + 1}", dev=dev)
+                label=f"state sync server block {b + 1}", dev=dev,
+                issued=b == 0)
+            if b == 0:
+                origin = {keccak256(tx.encode()) in heard
+                          for tx in vmb.eth_block.transactions}
+                check(origin == {True}, "state sync: the gossip-fed block "
+                      "holds a transaction the server did not hear")
+                gossip_note = (
+                    f"; its {len(block_txs)} transactions issued to the "
+                    f"client's pool in {g_ms:.1f} ms reached the server by "
+                    f"gossip alone ({len(sent)} messages sent, "
+                    f"{sum(sent)} bytes, {len(heard)} transactions heard), "
+                    f"all {len(vmb.eth_block.transactions)} of the block by "
+                    f"gossip, 0 by the server's own issue; no gossip drop "
+                    f"or timeout")
             k1a, k2a = len(rec.records), len(rec_k2.records)
             t0 = time.perf_counter()
             parsed = cvm.parse_block(vmb.bytes())
@@ -4909,10 +5325,15 @@ def phase_state_sync(dev, server, world: World, oracle: Oracle,
                 f"{st['build']:.1f} ms; client parse + verify "
                 f"{verify_ms:.1f} ms with {n1} K1 and {n2} K2 launches, "
                 f"accepted; root {got.root.hex()[:16]}.. == the server's "
-                f"== the oracle's; {card}")
+                f"== the oracle's{gossip_note}; {card}")
         check(dev.type != "cuda" or all(n1 > 0 for _v, n1, _n2 in per),
               "state sync: a client verify launched no K1")
+        check(cvm.txpool.stats() == (0, 0) and server.txpool.stats()
+              == (0, 0), f"state sync: pools after the blocks: client "
+              f"{cvm.txpool.stats()}, server {server.txpool.stats()}")
     finally:
+        for g in gossipers:
+            g.stop()
         pc._impl, keccak_cuda.segment_keccak = pc_impl, seg
         bk.impl = bk_impl
         for c in (good, other):
@@ -4921,6 +5342,8 @@ def phase_state_sync(dev, server, world: World, oracle: Oracle,
         if net is not None:
             net.close()
         stopped = tcp.stop() if tcp is not None else []
+        if snet is not None:
+            snet.close()
         if cvm is not None:
             cvm.shutdown()
         if db is not None:
@@ -4946,6 +5369,254 @@ def phase_state_sync(dev, server, world: World, oracle: Oracle,
         f"{card}")
     return (rec, k1, k1_coop, rec_k2, k2, k2_coop,
             bk.padded_lanes - bk.lanes)
+
+
+# ------------------------------------------------------ the prune phase
+
+# phase 8g: blocks before the prune and after the reopen, each of
+# PRUNE_CALLS contract calls and PRUNE_TRANSFERS transfers
+PRUNE_BLOCKS = 4
+PRUNE_MORE = 2
+PRUNE_CALLS = 4
+PRUNE_TRANSFERS = 150
+PRUNE_INTERVAL = 2  # the chain's commit interval
+
+
+def _key_stats(db) -> tuple:
+    """(entries, 32-byte keys) of a store."""
+    n = n32 = 0
+    for k, _v in db.iterate():
+        n += 1
+        n32 += len(k) == 32
+    return n, n32
+
+
+def phase_prune(dev, n_accounts, seed, card):
+    """The offline prune under a resident chain (module docstring, phase
+    8g): a world of its own at `n_accounts` (the main world's shape) with
+    its own oracle; a resident BlockChain on the device, commit interval
+    PRUNE_INTERVAL, over a SQLiteDB in a temporary directory (its genesis
+    commit and mirror boot on K1). PRUNE_BLOCKS + PRUNE_MORE blocks are
+    made up front by generate_chain over an overlay of that store (the CPU
+    Hasher; each root the oracle's). The chain takes the first
+    PRUNE_BLOCKS (insert, accept: the storage programs and the resident
+    executor on K1), stop() writes the shutdown export, then
+    Pruner.prune(tip root, genesis root) sweeps the store on the host; a
+    reopened resident chain reboots its mirror over the pruned store on
+    K1, its head the tip, a sample of accounts and slots the oracle's, and
+    takes the last PRUNE_MORE blocks, each root the oracle's;
+    recover_pruning() is then False. Every K1 launch goes through a
+    recorder. Returns (the K1 recorder, K1 launches, of them
+    cooperative)."""
+    from coreth_tpu_torch.core.pruner import PRUNING_IN_PROGRESS_KEY, Pruner
+    from coreth_tpu_torch.ethdb.sqlitedb import SQLiteDB
+
+    t_phase = time.perf_counter()
+    threads_before = set(threading.enumerate())
+    cuda = dev.type == "cuda"
+    cfg = params.TEST_CHAIN_CONFIG
+    t0 = time.perf_counter()
+    world = World(n_accounts, max(1, n_accounts // 1000), 100, seed,
+                  n_keyed=EVM_KEYED)
+    oracle = Oracle(world)
+    genesis_root = oracle.root()
+    # the genesis over copies of the world's lists and slot maps, which
+    # the oracle's blocks update in place
+    genesis = genesis_alloc(world.snapshot())
+    signed = evm_transactions(world, PRUNE_BLOCKS + PRUNE_MORE, seed + 1,
+                              n_calls=PRUNE_CALLS,
+                              n_transfers=PRUNE_TRANSFERS)
+    world_s = time.perf_counter() - t0
+    rec = _K1Recorder(keccak_cuda.segment_keccak)
+    pc = default_planned_commit(dev)
+    pc_impl, seg = pc._impl, keccak_cuda.segment_keccak
+    tmp = tempfile.mkdtemp(prefix="prune_")
+    db = chain = None
+    names = LOUD + LOUD_DEVICE + ("core/pruner/account_node_decode_error",)
+    before = {n: default_registry.counter(n).count() for n in names}
+    # counted by both packages' pruners for every extension node whose
+    # child is a hash (ROADMAP Queue 3): read, not held at 0
+    ext_name = "core/pruner/account_leaf_decode_error"
+    ext0 = default_registry.counter(ext_name).count()
+    keccak_cuda.reset_counts()
+    pc._impl = keccak_cuda.segment_keccak = rec
+    ccfg = CacheConfig(resident_account_trie=True,
+                       commit_interval=PRUNE_INTERVAL)
+    try:
+        db = SQLiteDB(os.path.join(tmp, "chain.db"), sync=False)
+        t0 = time.perf_counter()
+        chain = BlockChain(db, ccfg, cfg, genesis, new_dummy_engine(),
+                           device=dev)
+        boot_ms = (time.perf_counter() - t0) * 1e3
+        n_boot = len(rec.records)
+        gen_block = chain.genesis_block
+        check(gen_block.root == genesis_root and chain.mirror is not None
+              and not chain.mirror.host_mode,
+              "prune: the genesis root is not the oracle's or the mirror "
+              "is not on the device")
+        # the blocks, made once over an overlay of the genesis store
+        t0 = time.perf_counter()
+        maker = Database(TrieDatabase(_Overlay(db)))
+        blocks, receipts = generate_chain(
+            cfg, gen_block, new_dummy_engine(), maker, len(signed),
+            gen=lambda i, bg: [bg.add_tx(Transaction.decode(t.blob))
+                               for t in signed[i]])
+        coinbase, roots = [0], []
+        for txs, b, r in zip(signed, blocks, receipts):
+            want, _t, _w = evm_oracle_block(world, oracle, txs, r,
+                                            b.header.base_fee, coinbase)
+            roots.append(want)
+            check(b.root == want, f"prune: made block {b.number} root != "
+                  f"the oracle's")
+            if len(roots) == PRUNE_BLOCKS:
+                tip_world = world.snapshot()
+        make_ms = (time.perf_counter() - t0) * 1e3
+        del maker
+
+        def take(ch, bs):
+            per = []
+            for b in bs:
+                t1 = time.perf_counter()
+                pb = Block.decode(b.encode())
+                ch.insert_block(pb)
+                ch.set_preference(pb)
+                ch.accept(pb)
+                per.append((time.perf_counter() - t1) * 1e3)
+            ch.drain_acceptor_queue()
+            check(ch.acceptor_error is None and not ch.bad_blocks,
+                  f"prune: acceptor error {ch.acceptor_error}")
+            return per
+
+        n0 = len(rec.records)
+        first = take(chain, blocks[:PRUNE_BLOCKS])
+        tip = blocks[PRUNE_BLOCKS - 1]
+        check(chain.last_accepted.hash() == tip.hash()
+              and chain.mirror.root_of(tip.hash()) == roots[PRUNE_BLOCKS - 1],
+              "prune: the chain's head is not the tip or its mirror root "
+              "not the oracle's")
+        n_first = len(rec.records) - n0
+        t0 = time.perf_counter()
+        chain.stop()  # the shutdown export: the tip's image on disk
+        stop_ms = (time.perf_counter() - t0) * 1e3
+        chain = None
+        st0 = db.stat()
+        n_all, n32 = _key_stats(db)
+        pruner = Pruner(db, TrieDatabase(db))
+        t0 = time.perf_counter()
+        deleted = pruner.prune(tip.root, gen_block.root)
+        prune_ms = (time.perf_counter() - t0) * 1e3
+        st1 = db.stat()
+        n_all1, n32_1 = _key_stats(db)
+        check(deleted > 0 and n32 - n32_1 == deleted
+              and n_all - n_all1 == deleted,
+              f"prune: {deleted} deleted, 32-byte keys {n32} -> {n32_1}")
+        check(db.get(tip.root) is not None
+              and db.get(gen_block.root) is not None
+              and db.get(PRUNING_IN_PROGRESS_KEY) is None,
+              "prune: the tip or genesis root is gone, or the marker stayed")
+
+        # reopen: the mirror reboots over the pruned store on the device
+        n0 = len(rec.records)
+        t0 = time.perf_counter()
+        chain = BlockChain(db, ccfg, cfg, genesis, new_dummy_engine(),
+                           device=dev)
+        reopen_ms = (time.perf_counter() - t0) * 1e3
+        n_reboot = len(rec.records) - n0
+        check(chain.last_accepted.hash() == tip.hash()
+              and chain.current_block.hash() == tip.hash()
+              and chain.mirror is not None and not chain.mirror.host_mode
+              and chain.mirror.root_of(tip.hash()) == tip.root,
+              "prune: the reopened chain's head is not the tip, or its "
+              "mirror is not on the device over the tip's root")
+        check(not cuda or n_reboot > 0,
+              "prune: the mirror reboot launched no K1")
+        rng = np.random.default_rng(seed)
+        picks = sorted(set(int(i) for i in rng.choice(
+            len(world.addrs), 200, replace=False)))
+
+        def sample(w: World, label) -> int:
+            """The picked accounts and 5 slots a contract read from the
+            chain's head state against `w`; returns the slots read."""
+            cst = chain.state()
+            for i in picks:
+                a = w.addrs[i]
+                check(cst.get_balance(a) == w.balance[i]
+                      and cst.get_nonce(a) == w.nonce[i],
+                      f"prune: {label}: account {i} differs from the "
+                      f"oracle's")
+            n = 0
+            for c in w.storage:
+                for key in list(w.storage[c])[:5]:
+                    check(cst.get_state(w.addrs[c], key)
+                          == w.storage[c][key],
+                          f"prune: {label}: a slot of contract {c} differs")
+                    n += 1
+            return n
+
+        n_slots = sample(tip_world, "the reopened tip")
+        n0 = len(rec.records)
+        more = take(chain, blocks[PRUNE_BLOCKS:])
+        n_more = len(rec.records) - n0
+        head = chain.last_accepted
+        check(head.hash() == blocks[-1].hash() and head.root == roots[-1]
+              and chain.mirror.root_of(head.hash()) == roots[-1],
+              "prune: the reopened chain's blocks did not land on the "
+              "oracle's roots")
+        sample(world, "the last block")
+        check(Pruner(db, TrieDatabase(db)).recover_pruning(gen_block.root)
+              is False, "prune: recover_pruning() ran a prune")
+        chain.stop()
+        chain = None
+    finally:
+        pc._impl, keccak_cuda.segment_keccak = pc_impl, seg
+        if chain is not None:
+            chain.stop()
+        if db is not None:
+            db.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    k1, k1_coop = keccak_cuda.launches, keccak_cuda.launches_coop
+    check(not cuda or k1 == len(rec.records) > 0,
+          f"prune: K1 {k1} launches, {len(rec.records)} recorded")
+    check(keccak_cuda.blocks_launches == 0, "prune: K2 launched")
+    moved = {n: default_registry.counter(n).count() - before[n]
+             for n in names}
+    check(not any(moved.values()), f"prune: counters moved {moved}")
+    threads = threads_left(threads_before, servers=False)
+    check(not threads, f"prune: threads left: {threads}")
+    if cuda:
+        ran = check_variants(rec, "prune")
+        log("prune: every K1 launch ran the variant its shape calls for ("
+            + ", ".join(f"{VARIANT_NAME[v]} {n}" for v, n in ran.items())
+            + ")")
+    log(f"prune: world and oracle of {n_accounts} accounts "
+        f"({len(world.storage)} contracts x 100 slots) and "
+        f"{len(signed)} blocks signed in {world_s:.1f} s; a resident "
+        f"BlockChain (commit interval {PRUNE_INTERVAL}) on SQLite booted in "
+        f"{boot_ms:.1f} ms ({n_boot} K1 launches: the genesis commit and "
+        f"the mirror boot); {len(signed)} blocks of "
+        f"{PRUNE_CALLS + PRUNE_TRANSFERS} transactions made over an overlay"
+        f" in {make_ms:.1f} ms, every root the oracle's; {PRUNE_BLOCKS} "
+        f"inserted and accepted (ms " + ", ".join(f"{x:.1f}" for x in first)
+        + f"; {n_first} K1 launches), stop() with the shutdown export "
+        f"{stop_ms:.1f} ms; {card}")
+    ext = default_registry.counter(ext_name).count() - ext0
+    log(f"prune: Pruner.prune(tip, genesis) on the host in {prune_ms:.1f} "
+        f"ms: {n32} 32-byte keys of {n_all} entries, {deleted} deleted, "
+        f"{n32_1} kept (the marked nodes on disk; {ext_name} counted {ext}"
+        f", one an extension node over a hash, as in the reference); the "
+        f"store "
+        f"{st0['entries']} -> {st1['entries']} entries, {st0['bytes']} -> "
+        f"{st1['bytes']} bytes (SQLiteDB.stat: pages, no VACUUM); the tip "
+        f"and genesis roots on disk; {card}")
+    log(f"prune: reopened in {reopen_ms:.1f} ms, its mirror rebooted over "
+        f"the pruned store with {n_reboot} K1 launches, head the tip, "
+        f"{len(picks)} accounts and {n_slots} slots of it the oracle's; "
+        f"{PRUNE_MORE} more blocks (ms " + ", ".join(f"{x:.1f}" for x in more)
+        + f"; {n_more} K1 launches), every root and the same sample the "
+        f"oracle's; recover_pruning() False; K1 launches in the phase {k1} "
+        f"(cooperative {k1_coop}); no thread left; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    return rec, k1, k1_coop
 
 
 MESH_WIDTH = 4  # the virtual mesh on the one card: [cuda:0] * 4
@@ -5311,6 +5982,9 @@ def main() -> int:
     ap.add_argument("--chaos-steps", type=int, default=64,
                     help="steps of the chaos conductor on the card (phase "
                          "8e, seed 7, kill drill on)")
+    ap.add_argument("--prune-accounts", type=int, default=20_000,
+                    help="accounts of the prune phase's own world (phase "
+                         "8g)")
     ap.add_argument("--device", default="cuda",
                     help="'cpu' rehearses with the plain versions")
     args = ap.parse_args()
@@ -5540,6 +6214,14 @@ def main() -> int:
     cx_err, cx_ms, cx_plain, cx_inputs, cx_kernel = check_and_time_k2(
         ch_rec2, "chaos probes", ch_pad, profile_reps=10)
     del ch_rec1, ch_rec2
+    # the offline prune under a resident chain, and its reopen
+    mark(t_start, "prune")
+    pr_rec, pr_k1, pr_k1_coop = phase_prune(dev, args.prune_accounts,
+                                            args.seed + 12, card)
+    pr_err, pr_ms, pr_plain, pr_shapes, pr_kernel = time_k1(
+        dev, [r[0] for r in pr_rec.records], "prune", per_segment=False,
+        outputs=[r[1] for r in pr_rec.records])
+    del pr_rec
     mark(t_start, "watchdog drill")
     phase_watchdog_drill(dev, args.seed + 4)
     ran = defaultdict(int)
@@ -5568,7 +6250,7 @@ def main() -> int:
     k1_shapes = (g_shapes + cb_shapes + b_shapes + e1_shapes + cs_shapes
                  + cr_shapes + vs_shapes + vr_shapes + rg_shapes + rb_shapes
                  + ds_shapes + sh_shapes + cm_shapes + ml_shapes + sy_shapes
-                 + ch_shapes)
+                 + ch_shapes + pr_shapes)
     k1_bound, k1_by = k1_bound_ms(k1_shapes)
     rk_bound, rk_by = k1_bound_ms(rg_shapes + rb_shapes)
     log(f"K1 bound over the mirror's inputs {rk_bound:.4f} ms ({rk_by}; "
@@ -5577,10 +6259,10 @@ def main() -> int:
         f"{rb_ms:.4f} ms")
     k1_launches = (g_launches + cb_launches + b_launches + evm_planned.k1
                    + c_launches + v_launches + m_launches + d_launches
-                   + cm_k1 + ml_k1 + sy_k1 + ch_k1)
+                   + cm_k1 + ml_k1 + sy_k1 + ch_k1 + pr_k1)
     k1_coop = (g_coop + cb_coop + b_coop + evm_planned.k1_coop + c_coop
                + v_coop + m_coop + d_coop + cm_k1_coop + ml_k1_coop
-               + sy_k1_coop + ch_k1_coop)
+               + sy_k1_coop + ch_k1_coop + pr_k1_coop)
     k2_inputs = (bg_inputs + bb_inputs + e2_inputs + dk_inputs + ck_inputs
                  + mk_inputs + sk_inputs + cx_inputs)
     k2_bound, k2_by = k2_bound_ms(k2_inputs)
@@ -5593,17 +6275,21 @@ def main() -> int:
         f"{evm_planned.k1}, chain inserts {c_launches}, vm blocks "
         f"{v_launches}, mirrors {m_launches}, ladder drill {d_launches}, "
         f"commitment VM {cm_k1} (of them the shadow {len(sh_shapes)}), "
-        f"mesh and legacy executors {ml_k1}, state sync {sy_k1}, chaos "
-        f"{ch_k1}; K2 batched genesis "
+        f"mesh and legacy executors {ml_k1}, state sync {sy_k1} (its "
+        f"gossip-fed block among them), chaos {ch_k1}, prune and reopen "
+        f"{pr_k1}; K2 batched genesis "
         f"{bg_launches}, batched block {bb_launches}, evm batched "
         f"{evm_batched.k2}, ladder drill probes {d_k2}, the keccak "
         f"precompile {cm_k2}, mesh and legacy executors {ml_k2}, state "
-        f"sync {sy_k2}, chaos probes {ch_k2}")
+        f"sync {sy_k2} (the cross-chain calls among them), chaos probes "
+        f"{ch_k2}")
     log(f"rpc: the VM blocks' transactions entered by eth_sendRawTransaction"
         f" and avax.issueTx over HTTP, the wallet's by eth_sendTransaction, "
-        f"avax.import and avax.export over WS (their K1 launches "
-        f"{v_launches}); the commitment VM's keccak256Batch eth_call through"
-        f" BoundContract over HTTP and over WS, 1 K2 launch each; "
+        f"avax.import and avax.export over WS, the blocks built, verified "
+        f"and accepted by the engine child over the plugin socket (their K1"
+        f" launches {v_launches}); the commitment VM's keccak256Batch "
+        f"eth_call through BoundContract over HTTP and over WS, 1 K2 "
+        f"launch each; "
         f"{rpc_stats.summary()}; {card}")
     log(f"peak RSS {rss_gib():.1f} GiB")
     left = descendants()
@@ -5619,14 +6305,14 @@ def main() -> int:
         "launches": k1_launches,
         "max_abs_err": max(grid_err, g_err, cb_err, b_err, e1_err, cs_err,
                            cr_err, vs_err, vr_err, rg_err, rb_err, ds_err,
-                           sh_err, cm_err, ml_err, sy_err, ch_err),
+                           sh_err, cm_err, ml_err, sy_err, ch_err, pr_err),
         "ms": (g_ms + cb_ms + b_ms + e1_ms + cs_ms + cr_ms + vs_ms + vr_ms
                + rg_ms + rb_ms + ds_ms + sh_ms + cm_ms + ml_ms + sy_ms
-               + ch_ms),
+               + ch_ms + pr_ms),
         "plain_ms": (g_plain + cb_plain + b_plain + e1_plain + cs_plain
                      + cr_plain + vs_plain + vr_plain + rg_plain + rb_plain
                      + ds_plain + sh_plain + cm_plain + ml_plain + sy_plain
-                     + ch_plain),
+                     + ch_plain + pr_plain),
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": None,
@@ -5635,7 +6321,7 @@ def main() -> int:
                                   cr_kernel, vs_kernel, vr_kernel,
                                   rg_kernel, rb_kernel, ds_kernel,
                                   sh_kernel, cm_kernel, ml_kernel,
-                                  sy_kernel, ch_kernel),
+                                  sy_kernel, ch_kernel, pr_kernel),
     }, {
         "name": "keccak_blocks",
         "route": "cuda",

@@ -8,10 +8,11 @@ gating.
 
 Every knob that no module of the port reads raises NotImplementedError
 from validate(), naming its ROADMAP item, when set away from its default
-(NOT_PORTED): the knobs of the gossiper, which the port does not have
-yet, and those of config.go that neither package's VM, chain or RPC tier
-reads (state-sync-enabled and its siblings among them: only this Config
-names them). The sync-* knobs configure SyncClient.from_config and its
+(NOT_PORTED): those of config.go that neither package's VM, chain, RPC
+tier or gossiper reads (state-sync-enabled and its siblings among them,
+remote-gossip-only-enabled and regossip-tx-queue-size too: only this
+Config names them). regossip-frequency and regossip-max-txs configure
+vm/gossiper.Gossiper. The sync-* knobs configure SyncClient.from_config and its
 peer ladder (sync/client.py); state-sync-commit-interval is validated
 against commit-interval, as in the reference.
 A VM never boots with a knob silently ignored; keys Config does not know
@@ -509,12 +510,10 @@ class Config:
 
 # (ROADMAP "Still to port" item, knobs): each raises away from its default
 NOT_PORTED = (
-    ("10c (vm/gossiper.py)",
-     ("remote_gossip_only_enabled", "regossip_frequency", "regossip_max_txs",
-      "regossip_tx_queue_size")),
-    ("10 (config.go knobs that neither package's VM, chain or RPC tier "
-     "reads)",
-     ("trie_clean_cache", "trie_dirty_commit_target", "snapshot_cache",
+    ("10 (config.go knobs that neither package's VM, chain, RPC tier or "
+     "gossiper reads)",
+     ("remote_gossip_only_enabled", "regossip_tx_queue_size",
+      "trie_clean_cache", "trie_dirty_commit_target", "snapshot_cache",
       "accepted_cache_size", "allow_unprotected_txs", "preimages_enabled",
       "snapshot_async", "snapshot_verification_enabled",
       "accepted_queue_limit", "allow_missing_tries", "offline_pruning_enabled",

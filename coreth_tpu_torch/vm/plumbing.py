@@ -1,17 +1,15 @@
-"""Small VM plumbing: fork-scheduled gas-price floors (semantics of coreth
-plugin/evm/gasprice_update.go); counterpart of coreth_tpu/vm/plumbing.py.
-
-Not ported: the static genesis-builder service, the ext-data-hash repair
-table and the VM factory (StaticService, load_ext_data_hashes,
-repaired_ext_data_hash, factory_new), which belong to the plugin (ROADMAP
-"Still to port", item 10).
+"""Small VM plumbing: fork-scheduled gas-price floors, the static
+genesis-builder service, the ext-data-hash repair table and the VM
+factory (semantics of coreth plugin/evm/{gasprice_update,static_service,
+ext_data_hashes,factory}.go); counterpart of coreth_tpu/vm/plumbing.py.
 """
 
 from __future__ import annotations
 
+import json
 import threading
 import time
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from .. import params
 
@@ -64,3 +62,47 @@ class GasPriceUpdater:
         for t in self._timers:
             t.cancel()
         self._timers.clear()
+
+
+class StaticService:
+    """static_service.go: BuildGenesis — marshal a genesis spec to the
+    hex blob Initialize takes, with no chain running."""
+
+    def buildGenesis(self, genesis_obj: dict) -> dict:
+        blob = json.dumps(genesis_obj, sort_keys=True).encode()
+        return {"bytes": "0x" + blob.hex(), "encoding": "hex"}
+
+
+# ext_data_hashes.go: on fuji/mainnet some historical blocks carry an
+# ExtDataHash that must map to a REPAIRED hash (bonus-block cleanup).
+# The reference embeds network-specific JSON; networks without a list
+# (test/local) ban nothing.
+_ext_data_hashes: Dict[int, Dict[bytes, bytes]] = {}
+
+
+def load_ext_data_hashes(network_id: int, raw_json: bytes) -> None:
+    """Install a network's {extDataHash: repairedHash} map (the go:embed
+    fuji/mainnet JSON analog; hex-keyed)."""
+    table = {
+        bytes.fromhex(k.removeprefix("0x")): bytes.fromhex(
+            v.removeprefix("0x"))
+        for k, v in json.loads(raw_json).items()
+    }
+    _ext_data_hashes[network_id] = table
+
+
+def repaired_ext_data_hash(network_id: int, h: bytes) -> Optional[bytes]:
+    """The repaired hash for [h] on [network_id], or None if unmapped."""
+    return _ext_data_hashes.get(network_id, {}).get(h)
+
+
+def factory_new(**initialize_kwargs):
+    """factory.go Factory.New: construct an uninitialized VM (the node
+    calls Initialize separately); kwargs pre-bind Initialize args for
+    test harnesses."""
+    from .vm import VM
+
+    vm = VM()
+    if initialize_kwargs:
+        vm.initialize(**initialize_kwargs)
+    return vm

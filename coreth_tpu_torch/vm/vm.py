@@ -30,9 +30,11 @@ fast path when the chain runs one); a state-syncing node wraps its VM in
 vm/syncervm.StateSyncClient, which debug_syncStatus then finds as
 `vm.state_sync_client`.
 
-Left out, with its ROADMAP "Still to port" item: the cross-chain eth_call
-both ways (handle_cross_chain_request and cross_chain_eth_call raise,
-item 10c's last slice, with the gossiper and the plugin).
+The cross-chain eth_call both ways: handle_cross_chain_request serves an
+EthCallRequest against this chain's latest accepted state (register it
+with Network.register_cross_chain_handler(vm.chain_id_bytes, ...)), and
+cross_chain_eth_call asks another chain's VM; execution errors travel
+in-band in the EthCallResponse.
 """
 
 from __future__ import annotations
@@ -605,20 +607,49 @@ class VM:
     # read-only call against OUR latest accepted state ------------------
 
     def handle_cross_chain_request(self, blob: bytes) -> bytes:
-        """Not ported: the typed cross-chain dispatcher (ROADMAP "Still
-        to port", item 10c's last slice, with the gossiper and the
-        plugin)."""
-        raise NotImplementedError(
-            "cross-chain eth_call serving is not ported (ROADMAP 'Still to "
-            "port', item 10c's last slice: the cross-chain eth_call)")
+        """Typed cross-chain dispatcher: register with
+        Network.register_cross_chain_handler(vm.chain_id_bytes, ...)."""
+        import json as _json
+
+        from ..sync.messages import (EthCallRequest, EthCallResponse,
+                                     decode_message)
+
+        msg = decode_message(blob)
+        if not isinstance(msg, EthCallRequest):
+            raise VMError(f"unsupported cross-chain request {type(msg)}")
+        backend = getattr(self, "eth_backend", None)
+        if backend is None:
+            from ..eth.backend import EthBackend
+
+            backend = EthBackend(self.blockchain, self.txpool)
+            self.eth_backend = backend
+        try:
+            call_obj = _json.loads(msg.request_args.decode())
+            result, _, _ = backend.do_call(call_obj, "latest")
+        except Exception as e:  # noqa: BLE001 — errors travel in-band
+            return EthCallResponse(result=b"", error=str(e).encode()).encode()
+        if result.err is not None:
+            return EthCallResponse(result=result.return_data,
+                                   error=str(result.err).encode()).encode()
+        return EthCallResponse(result=result.return_data).encode()
 
     def cross_chain_eth_call(self, network, chain_id: bytes,
                              call_obj: dict, deadline: float = 10.0):
-        """Not ported: the client side of the cross-chain eth_call
-        (ROADMAP "Still to port", item 10c's last slice)."""
-        raise NotImplementedError(
-            "cross-chain eth_call is not ported (ROADMAP 'Still to port', "
-            "item 10c's last slice: the cross-chain eth_call)")
+        """Client side: eth_call on [chain_id]'s VM over the cross-chain
+        transport. Returns the raw return data; raises VMError with the
+        remote error string on failure."""
+        import json as _json
+
+        from ..sync.messages import EthCallRequest, decode_message
+
+        req = EthCallRequest(
+            request_args=_json.dumps(call_obj).encode()).encode()
+        resp = decode_message(
+            network.send_cross_chain_request(chain_id, req, deadline))
+        if resp.error:
+            raise VMError(
+                f"cross-chain eth_call failed: {resp.error.decode()}")
+        return resp.result
 
     def issue_atomic_tx(self, tx: Tx) -> None:
         tx.semantic_verify(self, self._next_base_fee())

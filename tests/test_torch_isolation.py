@@ -540,6 +540,60 @@ with tempfile.TemporaryDirectory() as d:
     net.close()
     assert tcp.stop() == []
 assert isinstance(LockOrderWitness().violations, list)
+
+# the VM's network and process boundary and the offline pruner: a VM
+# served over a unix socket to a RemoteVM, a Gossiper's inbound path, the
+# cross-chain eth_call to itself, the plumbing, a prune of a small store
+import socket
+import threading
+from coreth_tpu_torch.core.pruner import Pruner, ShutdownTracker
+from coreth_tpu_torch.core.types import Signer, Transaction
+from coreth_tpu_torch.crypto.secp256k1 import priv_to_address
+from coreth_tpu_torch.plugin import RemoteVM, VMServer, protocol
+from coreth_tpu_torch.vm.gossiper import Gossiper, encode_tx_gossip
+from coreth_tpu_torch.vm.plumbing import StaticService, factory_new
+from coreth_tpu_torch.vm.shared_memory import Memory
+from coreth_tpu_torch.vm.vm import VM, SnowContext
+
+key = b"\x11" * 32
+gvm = VM()
+gvm.initialize(SnowContext(shared_memory=Memory()), MemoryDB(),
+               Genesis(config=params.TEST_CHAIN_CONFIG,
+                       gas_limit=params.CORTINA_GAS_LIMIT,
+                       alloc={priv_to_address(key):
+                              GenesisAccount(balance=10**24)}),
+               config_bytes=b'{"device-hasher": "off"}', device="cpu")
+gnet = Network()
+Gossiper(gvm, gnet)
+gtx = Signer(43112).sign(Transaction(
+    type=2, chain_id=43112, nonce=0, max_fee=10**12, max_priority_fee=10**9,
+    gas=21000, to=b"\xbb" * 20, value=1), key)
+gnet.app_request(b"peer", b"\xff" + encode_tx_gossip([gtx]))
+assert gvm.txpool.has(gtx.hash())
+gnet.register_cross_chain_handler(gvm.chain_id_bytes,
+                                  gvm.handle_cross_chain_request)
+assert gvm.cross_chain_eth_call(gnet, gvm.chain_id_bytes, {
+    "to": "0x" + "bb" * 20}) == b""
+with tempfile.TemporaryDirectory() as d:
+    srv = VMServer(gvm, os.path.join(d, "vm.sock"))
+    st = threading.Thread(target=srv.serve_forever)
+    st.start()
+    remote = RemoteVM(os.path.join(d, "vm.sock"))
+    assert remote.health() and remote.last_accepted().height == 0
+    remote.shutdown()
+    st.join(10)
+    assert not st.is_alive() and srv.threads_left == []
+gnet.close()
+gvm.shutdown()
+a, b = socket.socketpair()
+protocol.send_msg(a, {"id": 1})
+assert protocol.recv_msg(b) == {"id": 1}
+a.close()
+b.close()
+assert StaticService().buildGenesis({})["encoding"] == "hex"
+assert factory_new().initialized is False
+assert ShutdownTracker(MemoryDB()).mark_start() is False
+assert Pruner(stdb.diskdb, stdb).prune(sroot) == 0
 out = run_chaos(seed=5, steps=6, kill_drill=False, device="cpu")
 assert out["violations"] == [] and out["final"]["height"] > 0
 leaked = [m for m in sys.modules if refused(m)]
@@ -624,7 +678,9 @@ def test_no_source_imports_jax_or_coreth_tpu():
                 "sync/__init__.py", "sync/messages.py", "sync/client.py",
                 "sync/handlers.py", "sync/statesync.py", "peer/__init__.py",
                 "peer/network.py", "peer/transport.py", "peer/testing.py",
-                "vm/syncervm.py"):
+                "vm/syncervm.py", "vm/gossiper.py", "plugin/__init__.py",
+                "plugin/protocol.py", "plugin/server.py", "plugin/client.py",
+                "core/pruner.py"):
         assert os.path.join("coreth_tpu_torch", mod) in names, mod
     assert not bad, bad
 
@@ -644,10 +700,100 @@ def test_chaos_kill_child_source_imports_only_the_port():
     assert not roots & set(FORBIDDEN), roots
 
 
+def _imports(tree) -> set:
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add((node.module or "").split(".")[0])
+    return roots
+
+
+def _engine_child() -> str:
+    """chip_smoke.py's _ENGINE_CHILD source, read from its AST (importing
+    chip_smoke would import torch and the whole port)."""
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    for node in tree.body:
+        if (isinstance(node, ast.Assign)
+                and getattr(node.targets[0], "id", "") == "_ENGINE_CHILD"):
+            return node.value.value
+    raise AssertionError("chip_smoke.py has no _ENGINE_CHILD")
+
+
+def test_engine_child_imports_only_the_plugin_client():
+    """chip_smoke.py's engine child (phase 7d) is source text the AST scan
+    of the port cannot see: it imports the plugin client alone, and its
+    own guard refuses torch beside the forbidden packages."""
+    child = _engine_child()
+    assert _imports(ast.parse(child)) == {"json", "sys", "time",
+                                          "coreth_tpu_torch"}
+    assert "from coreth_tpu_torch.plugin.client import" in child
+    assert '"torch")' in child
+
+
+def test_engine_child_runs_under_its_guard(tmp_path):
+    """The engine child against a port VM served here: its handshake is
+    the VM's last accepted block, and after `shutdown` it exits 0 having
+    loaded no torch, jax, jaxlib, coreth_tpu or cryptography module; the
+    server's threads are joined."""
+    import threading
+
+    from coreth_tpu_torch import params
+    from coreth_tpu_torch.core.genesis import Genesis
+    from coreth_tpu_torch.ethdb import MemoryDB
+    from coreth_tpu_torch.plugin import VMServer
+    from coreth_tpu_torch.vm.shared_memory import Memory
+    from coreth_tpu_torch.vm.vm import VM, SnowContext
+
+    vm = VM()
+    vm.initialize(SnowContext(shared_memory=Memory()), MemoryDB(),
+                  Genesis(config=params.TEST_CHAIN_CONFIG, alloc={}),
+                  config_bytes=b'{"device-hasher": "off"}', device="cpu")
+    sock_dir = __import__("tempfile").mkdtemp(prefix="eng")
+    sock = os.path.join(sock_dir, "vm.sock")
+    srv = VMServer(vm, sock)
+    t = threading.Thread(target=srv.serve_forever)
+    t.start()
+    try:
+        r = subprocess.run(
+            [sys.executable, "-c", _engine_child(), sock, REPO],
+            input="shutdown\n", capture_output=True, text=True,
+            timeout=120, cwd=str(tmp_path))
+    finally:
+        t.join(10)
+        vm.shutdown()
+        os.rmdir(sock_dir)
+    assert r.returncode == 0, r.stderr[-3000:]
+    lines = dict(line.split(" ", 1) for line in r.stdout.splitlines())
+    assert json.loads(lines["READY"])["last"] == \
+        vm.last_accepted().id().hex()
+    assert json.loads(lines["DONE"])["leaked"] == []
+    assert not t.is_alive() and srv.threads_left == []
+
+
+def test_plugin_test_child_imports_only_the_port():
+    """tests/test_torch_plugin.py runs as the VM's child process: its
+    module-level imports and its _child function reach neither jax,
+    jaxlib, coreth_tpu nor cryptography (the twins' reference imports
+    live inside the parent's fixtures and cases)."""
+    path = os.path.join(REPO, "tests", "test_torch_plugin.py")
+    tree = ast.parse(open(path).read(), path)
+    top = ast.Module(body=[n for n in tree.body
+                           if isinstance(n, (ast.Import, ast.ImportFrom))],
+                     type_ignores=[])
+    child, = [n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == "_child"]
+    roots = _imports(top) | _imports(child)
+    assert not roots & set(FORBIDDEN), roots
+    main = tree.body[-1]
+    assert isinstance(main, ast.If) and "_child" in ast.unparse(main)
+
+
 def test_relative_imports_resolve_inside_the_port():
     """Every relative import of a port module names a module the port has
-    (the parts left out, such as vm/gossiper.py or plugin/, are never
-    imported, not even lazily)."""
+    (the part left out, analysis/, is never imported, not even
+    lazily)."""
     root = os.path.join(REPO, "coreth_tpu_torch")
 
     def exists(base, dotted):

@@ -501,6 +501,11 @@ def test_transport_round_trip_reconnect_and_stop_joins_every_thread():
     net.connect(b"p", peer)
     assert net.send_request(b"p", b"abc") == b"cba"
     peer.gossip(b"hello")
+    # gossip is fire-and-forget: let the server read it before the
+    # connection is severed, or the sever may drop it in flight
+    deadline = time.time() + 5
+    while not seen and time.time() < deadline:
+        time.sleep(0.01)
     reconnects = default_registry.counter("peer/reconnects").count()
     deadline = time.time() + 5
     while srv.sever_all() == 0 and time.time() < deadline:

@@ -9,9 +9,9 @@ versions) over its own MemoryDB and shared Memory, drives both through
 the same snowman calls, and after each step requires equal block bytes and
 hashes, statuses, heads and last-accepted blocks, state roots, atomic-trie
 roots, shared-memory contents and mempool state. Left out: TestVMSyncServer
-(the port has no sync server yet: ROADMAP "Still to port", item 10).
-Added: each knob whose part is not ported raises at initialize, naming
-its item, and the parts left out raise or stay None.
+(tests/test_torch_sync.py holds the sync server to the reference's).
+Added: each knob that no module of the port reads raises at initialize,
+naming its item; the cross-chain eth_call answers as the reference's.
 """
 
 import json
@@ -437,7 +437,7 @@ def test_vm_boots_from_config_bytes():
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("regossip-frequency", 5.0, "item 10"),
+    ("remote-gossip-only-enabled", True, "neither package"),
     ("state-sync-enabled", True, "item 10"),
     ("keystore-insecure-unlock-allowed", True, "item 10 "),
     ("accepted-cache-size", 64, "item 10"),
@@ -477,15 +477,17 @@ def test_not_ported_knob_raises(knob, value, item):
     ("lock-slow-hold-budget", 0.5),
     ("sync-max-attempts", 7),
     ("state-sync-commit-interval", 8192),
+    ("regossip-frequency", 5.0),
 ])
 def test_ported_knob_boots(knob, value, tmp_path):
     """The knobs that refused the boot until the RPC tier, the profilers
     and the metrics endpoint were ported (ROADMAP item 10a), the
     WebSocket and keystore knobs (item 10b), the lock witness's budget
-    (item 8b) and the state-sync knobs the reference reads (10c: the
+    (item 8b), the state-sync knobs the reference reads (10c: the
     sync-* knobs of SyncClient.from_config, state-sync-commit-interval
-    validated against commit-interval): the port's VM boots with each,
-    and its shutdown leaves no thread behind."""
+    validated against commit-interval) and the gossiper's regossip
+    ticker (Queue 1 slice A): the port's VM boots with each, and its
+    shutdown leaves no thread behind."""
     if knob in ("continuous-profiler-dir", "keystore-directory",
                 "keystore-external-signer"):
         value = str(tmp_path / value)
@@ -523,6 +525,14 @@ def test_ported_knob_boots(knob, value, tmp_path):
 
         assert SyncClient.from_config(
             Network(), vm.full_config).max_attempts == value
+    if knob == "regossip-frequency":
+        from coreth_tpu_torch.peer.network import Network
+        from coreth_tpu_torch.vm.gossiper import Gossiper
+
+        g = Gossiper(vm, Network())
+        assert g.regossip_interval == value
+        g.start_regossip()
+        g.stop()
     vm.shutdown()
     deadline = time.time() + 5
     while set(threading.enumerate()) - before and time.time() < deadline:
@@ -559,16 +569,28 @@ def test_mesh_and_fused_knobs_boot(knobs):
 
 
 def test_left_out_parts_raise_or_stay_none():
+    """The sync server (item 10c) and the cross-chain eth_call (Queue 1
+    slice A) are ported: each VM answers the other's call over one
+    Network's cross-chain registry; the keystore stays None unless
+    configured."""
+    from coreth_tpu_torch.peer.network import Network
     from coreth_tpu_torch.sync.handlers import SyncHandler
+    from coreth_tpu_torch.sync.messages import EthCallRequest
 
     t = Twin()
     vm = t.vm["port"]
-    # the sync server is ported (item 10c); the cross-chain call is not
     assert isinstance(vm.sync_handler, SyncHandler) and vm.keystore is None
-    with pytest.raises(NotImplementedError, match="item 10"):
-        vm.handle_cross_chain_request(b"")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        vm.cross_chain_eth_call(None, X_CHAIN, {})
+    net = Network()
+    net.register_cross_chain_handler(X_CHAIN, vm.handle_cross_chain_request)
+    call = {"to": "0x" + DEST.hex(), "from": "0x" + ADDR.hex()}
+    assert vm.cross_chain_eth_call(net, X_CHAIN, call) == b""
+    ref = t.vm["jax"].handle_cross_chain_request(
+        EthCallRequest(json.dumps(call).encode()).encode())
+    assert vm.handle_cross_chain_request(
+        EthCallRequest(json.dumps(call).encode()).encode()) == ref
+    with pytest.raises(VMError, match="unsupported cross-chain request"):
+        vm.handle_cross_chain_request(ref)
+    net.close()
     t.shutdown()
 
 
