@@ -365,6 +365,25 @@ Phases (each passes or the script exits non-zero):
      (SQLiteDB.stat), the reboot's K1 launches and the phase's wall.
      Every K1 launch goes through a recorder and is held against the
      plain version
+  8h. graft entry (phase_graft): the port's counterpart of the repo's
+     __graft_entry__.py, coreth_tpu_torch/graft_entry.py. entry() on the
+     card: one planned-commit segment step of a real 300-leaf plan on K1,
+     its words and digests bit-equal to the same step with the plain
+     segment hash on the card and on the CPU; the step over every
+     segment of that plan, in order, gives the native host digests of
+     every real lane and the root. dryrun_multichip(4, device=<card>) on
+     [cuda:0] * 4 (and on the real devices when the machine has
+     several): commit_step (K2 a shard), the segment hash sharded over
+     4 x 1024 lanes (K1 a shard) against its plain version and the host
+     Keccak, a planned commit of 20,000 leaves (the dry run's default)
+     sharded over the mesh, every real lane's digest the host oracle's, and the
+     resident executor split over the mesh through 3 churn rounds and a
+     rollback, every root the host oracle's. Then the analysis gate,
+     python -m coreth_tpu_torch.analysis cold in a child under an import
+     guard (jax, jaxlib, coreth_tpu and cryptography refused): 0 new
+     findings, no stale baseline entry. Every K1 and K2 launch goes
+     through a recorder and is held against the plain versions; the
+     phase's wall and launches are printed
   9. watchdog drill: a 2,000-key mirror whose executor hangs once: the
      commit raises DeviceWedgedError with the applied stack unchanged and
      nothing on the host; the drill then asks for the host
@@ -394,6 +413,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -414,7 +434,7 @@ from unittest import mock
 import numpy as np
 import torch
 
-from coreth_tpu_torch import fault, params, parallel, rlp
+from coreth_tpu_torch import fault, graft_entry, params, parallel, rlp
 from coreth_tpu_torch.accounts.abi import ABI
 from coreth_tpu_torch.accounts.bind import BoundContract
 from coreth_tpu_torch.accounts.keystore import decrypt_key
@@ -451,7 +471,7 @@ from coreth_tpu_torch.plugin import VMServer
 from coreth_tpu_torch.ops.keccak_staged import segment_keccak_plain
 from coreth_tpu_torch.ops.keccak_torch import RATE, BatchedKeccak, \
     default_batched_keccak, digest_words_to_bytes, int32_to_words, \
-    keccak256_blocks_plain, pack_messages, words_to_int32
+    keccak256_blocks_plain, pack_messages, to_int32, words_to_int32
 from coreth_tpu_torch.state.account import EMPTY_CODE_HASH, Account, \
     normalize_state_key
 from coreth_tpu_torch.state.database import Database
@@ -5951,6 +5971,150 @@ def phase_chaos(dev, steps: int, card):
     return rec, k1, k1_coop, rec_k2, k2, k2_coop, pad
 
 
+# ------------------------------------------------- the graft entry phase
+
+_ANALYSIS_CHILD = r"""
+import json, sys
+
+FORBIDDEN = ("jax", "jaxlib", "coreth_tpu", "cryptography")
+
+
+def refused(name):
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if refused(name):
+            raise ImportError(f"the gate must not import {name}")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+sys.path.insert(0, sys.argv[1])
+from coreth_tpu_torch.analysis.__main__ import main
+
+rc = main(["--json", "--strict-baseline", "--no-cache"])
+print("LEAKED " + json.dumps(sorted(m for m in sys.modules if refused(m))))
+sys.exit(rc)
+"""
+
+
+def phase_analysis_gate() -> str:
+    """python -m coreth_tpu_torch.analysis, cold, in a child under an
+    import guard that refuses jax, jaxlib, coreth_tpu and cryptography:
+    0 new findings, no stale baseline entry. Returns its summary."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _ANALYSIS_CHILD,
+                        os.path.dirname(os.path.abspath(__file__))],
+                       capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    leaked = next((ln for ln in r.stdout.splitlines()
+                   if ln.startswith("LEAKED ")), "LEAKED null")
+    check(r.returncode == 0 and leaked == "LEAKED []",
+          f"analysis gate: rc {r.returncode}, {leaked}: "
+          f"{r.stdout[-2000:]} {r.stderr[-2000:]}")
+    out = json.loads(r.stdout[:r.stdout.index("LEAKED ")])
+    check(out["new"] == [] and out["unused_baseline"] == [],
+          f"analysis gate: {out}")
+    return (f"0 new findings, {out['suppressed']} baselined, 0 stale "
+            f"baseline entries, {wall:.1f} s cold in a guarded child")
+
+
+def phase_graft(dev, card):
+    """The port's graft entry (module docstring, phase 8h). Every K1 and
+    K2 launch goes through one recorder each (the wrappers keccak_cuda.
+    segment_keccak and keccak256_blocks replaced by recorders while the
+    phase builds and runs its steps and meshes). Returns (K1 recorder, K2
+    recorder, K1 launches, of them cooperative, K2 launches, of them
+    cooperative)."""
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    rec1 = _K1Recorder(launch=keccak_cuda.segment_keccak)
+    rec2 = _K2Recorder(launch=keccak_cuda.keccak256_blocks)
+    plan = graft_entry.entry_plan()
+    specs = plan.export_words()[0]
+    root, want_dig, real = plan.execute_cpu_digests()
+    keccak_cuda.reset_counts()
+    with mock.patch.object(keccak_cuda, "segment_keccak", rec1), \
+            mock.patch.object(keccak_cuda, "keccak256_blocks", rec2):
+        # entry(): the flagship step, K1 on the card
+        t0 = time.perf_counter()
+        fn, args = graft_entry.entry(dev)
+        words, dig = fn(*args)
+        entry_ms = (time.perf_counter() - t0) * 1e3
+        check(len(rec1.records) == 1, f"graft entry: {len(rec1.records)} "
+              f"K1 launches for one step")
+        pfn, pargs = graft_entry.entry(dev, seg_impl=segment_keccak_plain)
+        pw, pd = pfn(*pargs)
+        cfn, cargs = graft_entry.entry("cpu", seg_impl=segment_keccak_plain)
+        cw, cd = cfn(*cargs)
+        check(torch.equal(words, pw) and torch.equal(dig, pd)
+              and torch.equal(words.cpu(), cw) and torch.equal(dig.cpu(), cd),
+              "graft entry: the step on K1 != the plain version's (on the "
+              "card and on the CPU)")
+        # the same step over every segment of the entry's plan, in order,
+        # is the whole commit: every real lane the native host digest
+        w, d = args[0], args[1]
+        for i, sp in enumerate(specs):
+            step = functools.partial(
+                graft_entry.segment_step, keccak_cuda.segment_keccak,
+                lanes=sp.lanes, blocks=sp.blocks, npatch=sp.n_patches)
+            w64, d = step(w, d, *args[2:6],
+                          torch.tensor(i, dtype=torch.int32, device=dev))
+            w = to_int32(w64)
+        got = d[1:].cpu().numpy().view(np.uint8).reshape(-1, 32)
+        check(np.array_equal(got[real], want_dig[real])
+              and got[plan.root_pos].tobytes() == root,
+              "graft entry: the steps over the plan != the native host "
+              "digests")
+        log(f"graft entry: entry() on {dev}: one step of segment "
+            f"{int(args[6])} ({len(rec1.records[0][0])} lanes), "
+            f"{entry_ms:.1f} ms with the plan and the uploads; words and "
+            f"digests bit-equal to the plain version's on the card and on "
+            f"the CPU; the step over all {len(specs)} segments of the "
+            f"{graft_entry.ENTRY_LEAVES}-leaf plan gives the native host "
+            f"digests of its {int(real.sum())} lanes and the root")
+        # dryrun_multichip on a virtual mesh of the one card, and on the
+        # real devices when the machine has several
+        meshes = [(f"[{dev}] * {MESH_WIDTH}", dev)]
+        if cuda and torch.cuda.device_count() > 1:
+            meshes.append((f"cuda:0..{min(torch.cuda.device_count(), 4) - 1}",
+                           None))
+        for name, on in meshes:
+            n = MESH_WIDTH if on is not None else min(
+                torch.cuda.device_count(), MESH_WIDTH)
+            t0 = time.perf_counter()
+            summary = graft_entry.dryrun_multichip(n, device=on)
+            pl, res = summary["planned"], summary["resident"]
+            log(f"graft dryrun_multichip({n}) on {name}: "
+                f"{(time.perf_counter() - t0):.1f} s; commit_step "
+                f"{summary['commit_step']['lanes']} lanes, sharded K1 "
+                f"{summary['sharded_seg']['lanes']} lanes, planned "
+                f"{pl['nodes']} nodes in {pl['segments']} segments (lane "
+                f"buckets {pl['lane_buckets']}), resident "
+                f"{res['items']} items over {res['shards']} shards, "
+                f"{res['rounds']} rounds + rollback; every leg bit-exact "
+                f"against the host oracle")
+    k1, k1_coop = keccak_cuda.launches, keccak_cuda.launches_coop
+    k2, k2_coop = keccak_cuda.blocks_launches, keccak_cuda.blocks_launches_coop
+    check(len(rec1.records) > 0 and len(rec2.records) > 0,
+          "graft: a kernel of the phase was not launched")
+    check(not cuda or (k1 == len(rec1.records) and k2 == len(rec2.records)),
+          f"graft: K1 {k1} launches, {len(rec1.records)} recorded; K2 {k2}, "
+          f"{len(rec2.records)} recorded")
+    if cuda:
+        for label, ran in (("graft K1", check_variants(rec1, "graft K1")),
+                           ("graft K2", check_variants_k2(rec2, "graft K2"))):
+            log(f"{label}: every launch ran the variant its shape calls for ("
+                + ", ".join(f"{VARIANT_NAME[v]} {n}" for v, n in ran.items())
+                + ")")
+    log(f"analysis gate: {phase_analysis_gate()}")
+    log(f"graft entry: phase wall {time.perf_counter() - t_phase:.1f} s; "
+        f"launches K1 {len(rec1.records)}, K2 {len(rec2.records)}; {card}")
+    return rec1, rec2, k1, k1_coop, k2, k2_coop
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--accounts", type=int, default=1_000_000)
@@ -6222,6 +6386,17 @@ def main() -> int:
         dev, [r[0] for r in pr_rec.records], "prune", per_segment=False,
         outputs=[r[1] for r in pr_rec.records])
     del pr_rec
+    # the port's graft entry: entry() and dryrun_multichip on K1 and K2,
+    # and the analysis gate
+    mark(t_start, "graft entry")
+    gr_rec1, gr_rec2, gr_k1, gr_k1_coop, gr_k2, gr_k2_coop = phase_graft(
+        dev, card)
+    gr_err, gr_ms, gr_plain, gr_shapes, gr_kernel = time_k1(
+        dev, [r[0] for r in gr_rec1.records], "graft entry K1",
+        per_segment=False, outputs=[r[1] for r in gr_rec1.records])
+    gk_err, gk_ms, gk_plain, gk_inputs, gk_kernel = check_and_time_k2(
+        gr_rec2, "graft entry K2", 0, profile_reps=10)
+    del gr_rec1, gr_rec2
     mark(t_start, "watchdog drill")
     phase_watchdog_drill(dev, args.seed + 4)
     ran = defaultdict(int)
@@ -6250,7 +6425,7 @@ def main() -> int:
     k1_shapes = (g_shapes + cb_shapes + b_shapes + e1_shapes + cs_shapes
                  + cr_shapes + vs_shapes + vr_shapes + rg_shapes + rb_shapes
                  + ds_shapes + sh_shapes + cm_shapes + ml_shapes + sy_shapes
-                 + ch_shapes + pr_shapes)
+                 + ch_shapes + pr_shapes + gr_shapes)
     k1_bound, k1_by = k1_bound_ms(k1_shapes)
     rk_bound, rk_by = k1_bound_ms(rg_shapes + rb_shapes)
     log(f"K1 bound over the mirror's inputs {rk_bound:.4f} ms ({rk_by}; "
@@ -6259,12 +6434,12 @@ def main() -> int:
         f"{rb_ms:.4f} ms")
     k1_launches = (g_launches + cb_launches + b_launches + evm_planned.k1
                    + c_launches + v_launches + m_launches + d_launches
-                   + cm_k1 + ml_k1 + sy_k1 + ch_k1 + pr_k1)
+                   + cm_k1 + ml_k1 + sy_k1 + ch_k1 + pr_k1 + gr_k1)
     k1_coop = (g_coop + cb_coop + b_coop + evm_planned.k1_coop + c_coop
                + v_coop + m_coop + d_coop + cm_k1_coop + ml_k1_coop
-               + sy_k1_coop + ch_k1_coop + pr_k1_coop)
+               + sy_k1_coop + ch_k1_coop + pr_k1_coop + gr_k1_coop)
     k2_inputs = (bg_inputs + bb_inputs + e2_inputs + dk_inputs + ck_inputs
-                 + mk_inputs + sk_inputs + cx_inputs)
+                 + mk_inputs + sk_inputs + cx_inputs + gk_inputs)
     k2_bound, k2_by = k2_bound_ms(k2_inputs)
     k2_real, _ = k2_bound_ms(k2_inputs, bg_pad + bb_pad + e2_pad + d_pad
                              + cm_pad + ml_pad + sy_pad + ch_pad)
@@ -6277,12 +6452,12 @@ def main() -> int:
         f"commitment VM {cm_k1} (of them the shadow {len(sh_shapes)}), "
         f"mesh and legacy executors {ml_k1}, state sync {sy_k1} (its "
         f"gossip-fed block among them), chaos {ch_k1}, prune and reopen "
-        f"{pr_k1}; K2 batched genesis "
+        f"{pr_k1}, graft entry {gr_k1}; K2 batched genesis "
         f"{bg_launches}, batched block {bb_launches}, evm batched "
         f"{evm_batched.k2}, ladder drill probes {d_k2}, the keccak "
         f"precompile {cm_k2}, mesh and legacy executors {ml_k2}, state "
         f"sync {sy_k2} (the cross-chain calls among them), chaos probes "
-        f"{ch_k2}")
+        f"{ch_k2}, graft entry {gr_k2}")
     log(f"rpc: the VM blocks' transactions entered by eth_sendRawTransaction"
         f" and avax.issueTx over HTTP, the wallet's by eth_sendTransaction, "
         f"avax.import and avax.export over WS, the blocks built, verified "
@@ -6305,14 +6480,15 @@ def main() -> int:
         "launches": k1_launches,
         "max_abs_err": max(grid_err, g_err, cb_err, b_err, e1_err, cs_err,
                            cr_err, vs_err, vr_err, rg_err, rb_err, ds_err,
-                           sh_err, cm_err, ml_err, sy_err, ch_err, pr_err),
+                           sh_err, cm_err, ml_err, sy_err, ch_err, pr_err,
+                           gr_err),
         "ms": (g_ms + cb_ms + b_ms + e1_ms + cs_ms + cr_ms + vs_ms + vr_ms
                + rg_ms + rb_ms + ds_ms + sh_ms + cm_ms + ml_ms + sy_ms
-               + ch_ms + pr_ms),
+               + ch_ms + pr_ms + gr_ms),
         "plain_ms": (g_plain + cb_plain + b_plain + e1_plain + cs_plain
                      + cr_plain + vs_plain + vr_plain + rg_plain + rb_plain
                      + ds_plain + sh_plain + cm_plain + ml_plain + sy_plain
-                     + ch_plain + pr_plain),
+                     + ch_plain + pr_plain + gr_plain),
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": None,
@@ -6321,29 +6497,31 @@ def main() -> int:
                                   cr_kernel, vs_kernel, vr_kernel,
                                   rg_kernel, rb_kernel, ds_kernel,
                                   sh_kernel, cm_kernel, ml_kernel,
-                                  sy_kernel, ch_kernel, pr_kernel),
+                                  sy_kernel, ch_kernel, pr_kernel,
+                                  gr_kernel),
     }, {
         "name": "keccak_blocks",
         "route": "cuda",
         "source": "coreth_tpu_torch/ops/csrc/keccak_blocks.cu",
         "replaces": "coreth_tpu/ops/keccak_pallas.py:126",
         "launches": bg_launches + bb_launches + evm_batched.k2 + d_k2
-        + cm_k2 + ml_k2 + sy_k2 + ch_k2,
+        + cm_k2 + ml_k2 + sy_k2 + ch_k2 + gr_k2,
         "max_abs_err": max(grid2_err, bg_err, bb_err, e2_err, dk_err,
-                           ck_err, mk_err, sk_err, cx_err),
-        "ms": bg_ms + bb_ms + e2_ms + dk_ms + ck_ms + mk_ms + sk_ms + cx_ms,
+                           ck_err, mk_err, sk_err, cx_err, gk_err),
+        "ms": (bg_ms + bb_ms + e2_ms + dk_ms + ck_ms + mk_ms + sk_ms + cx_ms
+               + gk_ms),
         "plain_ms": (bg_plain + bb_plain + e2_plain + dk_plain + ck_plain
-                     + mk_plain + sk_plain + cx_plain),
+                     + mk_plain + sk_plain + cx_plain + gk_plain),
         "bound_ms": k2_bound,
         "bound_by": k2_by,
         "library_ms": None,
         "variants": variants_json(
             bg_launches + bb_launches + evm_batched.k2 + d_k2 + cm_k2
-            + ml_k2 + sy_k2 + ch_k2,
+            + ml_k2 + sy_k2 + ch_k2 + gr_k2,
             bg_coop + bb_coop + evm_batched.k2_coop + d_k2_coop + cm_k2_coop
-            + ml_k2_coop + sy_k2_coop + ch_k2_coop,
+            + ml_k2_coop + sy_k2_coop + ch_k2_coop + gr_k2_coop,
             bg_kernel, bb_kernel, e2_kernel, dk_kernel, ck_kernel,
-            mk_kernel, sk_kernel, cx_kernel),
+            mk_kernel, sk_kernel, cx_kernel, gk_kernel),
     }]}), flush=True)
     if dev.type != "cuda":
         return 0  # a rehearsal prints no result line

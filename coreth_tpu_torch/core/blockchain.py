@@ -948,13 +948,17 @@ class BlockChain:
         (ops/device._notify), so taking chainmu here cannot invert against
         a dispatch under it. A reboot that fails is counted
         (chain/mirror/reboot_error), logged at error level and noted in
-        the flight recorder; the mirror then stays on the host."""
+        the flight recorder; the mirror then stays on the host. The flag
+        is tested and cleared under chainmu, where take_over_host sets
+        it, so two promote events reboot the mirror once."""
         self.flight_recorder.note_event("device/" + kind, **fields)
         if kind == "promote" and self._mirror_degraded:
-            self._mirror_degraded = False
             # the takeover pinned the mirror's trie to host mode one-way;
             # residency only returns through a rebuild
             with self.chainmu:
+                if not self._mirror_degraded:
+                    return  # another promote event rebooted it
+                self._mirror_degraded = False
                 try:
                     self.reboot_mirror()
                     self.flight_recorder.note_event("mirror/reboot")

@@ -109,7 +109,9 @@ def _adopt_parent_main() -> None:
     uses), so that every worker forked from here finds it imported. Runs
     only in a forkserver started by the process that exported MAIN_ENV.
     If the import fails, each worker imports the module itself, as it
-    would without this."""
+    would without this, and the failure's traceback goes to the server's
+    stderr (the parent's): a forkserver reaches neither the metrics
+    registry nor the log, which SA011 keeps out of this module."""
     pid, _, prep = os.environ.get(MAIN_ENV, "").partition(":")
     if (not pid.isdigit() or int(pid) != os.getppid()
             or not sys.orig_argv[-1].startswith(_FORKSERVER_CMD)):
@@ -119,7 +121,9 @@ def _adopt_parent_main() -> None:
     try:
         spawn.prepare(json.loads(prep))
     except Exception:  # noqa: BLE001 — each worker then imports it itself
-        pass
+        import traceback
+
+        traceback.print_exc()
     finally:
         del current._inheriting
 

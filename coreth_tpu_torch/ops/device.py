@@ -229,7 +229,7 @@ class DeviceLadder:
             with self._dispatch_mu:
                 self._join_abandoned(what, timeout)
                 if timeout is None:
-                    failpoint(FP_DISPATCH)
+                    failpoint("ops/device/dispatch")
                     return fn(*args)
                 return self._watchdogged(fn, args, timeout, what)
         except BuildError:
@@ -265,7 +265,7 @@ class DeviceLadder:
 
         def work():
             try:
-                failpoint(FP_DISPATCH)
+                failpoint("ops/device/dispatch")
                 if abandoned.is_set():
                     raise DeviceWedgedError(f"{what} abandoned by the watchdog")
                 if stream is None:
@@ -369,7 +369,7 @@ class DeviceLadder:
         fn = _cached.get("fn")
 
         def probe():
-            failpoint(FP_PROBE)
+            failpoint("ops/device/probe")
             return fn([self.PROBE_MSG])
 
         try:
@@ -485,7 +485,7 @@ def _resolve_seam(device: DeviceLike) -> BatchedKeccak:
     failure counts ops/device/resolve_fail, keeps its cause for
     resolution_error() and raises."""
     try:
-        failpoint(FP_RESOLVE)
+        failpoint("ops/device/resolve")
         bk = default_batched_keccak(resolve(device))
     except Exception as e:
         from ..log import error, get_logger

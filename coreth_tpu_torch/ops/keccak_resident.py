@@ -475,7 +475,7 @@ class ResidentExecutor:
     def _fit(self, buf, n: int) -> torch.Tensor:
         if buf is not None and n <= buf.numel() <= 4 * n + _STAGING_SLACK:
             return buf
-        return torch.empty(n + n // 4, dtype=torch.int32,
+        return torch.empty(n + n // 4, dtype=torch.int32, device="cpu",
                            pin_memory=self.device.type == "cuda")
 
     # ---- one commit ----

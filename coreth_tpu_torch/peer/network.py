@@ -274,14 +274,17 @@ class Network:
         self.gossip_deadline = 2.0
 
     def _executor(self):
-        if self._pool is None:
-            from concurrent.futures import ThreadPoolExecutor
+        # made under the lock close() swaps it under: two first callers
+        # must not each make a pool, one of them never shut down
+        with self.lock:
+            if self._pool is None:
+                from concurrent.futures import ThreadPoolExecutor
 
-            # bounded: 16 workers caps concurrent in-flight transport
-            # calls; excess callers queue
-            self._pool = ThreadPoolExecutor(
-                max_workers=16, thread_name_prefix="peer-net")
-        return self._pool
+                # bounded: 16 workers caps concurrent in-flight transport
+                # calls; excess callers queue
+                self._pool = ThreadPoolExecutor(
+                    max_workers=16, thread_name_prefix="peer-net")
+            return self._pool
 
     def close(self) -> None:
         """Shut the request executor down and join its workers. A call

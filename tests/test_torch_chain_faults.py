@@ -523,7 +523,9 @@ def test_concurrent_readers_see_only_fully_published_views():
     finally:
         stop.set()
         for t in readers:
-            t.join()
+            t.join(60)
+        assert not [t for t in readers if t.is_alive()], \
+            "a reader did not stop within 60 s"
     assert not errors, errors[:5]
     p.check()
     p.stop()

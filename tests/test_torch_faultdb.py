@@ -15,6 +15,7 @@ import os
 import random
 import subprocess
 import sys
+import threading
 import time
 
 import pytest
@@ -281,10 +282,12 @@ def _until_ready(script, path, env=None):
     proc = subprocess.Popen([sys.executable, "-c", script, path, REPO],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, env=full)
+    # a child that hangs without a line is killed: readline() then ends
+    timer = threading.Timer(120, proc.kill)
+    timer.start()
     lines = []
     try:
-        deadline = time.time() + 120
-        while time.time() < deadline:
+        while True:
             line = proc.stdout.readline()
             if not line:
                 break
@@ -293,6 +296,7 @@ def _until_ready(script, path, env=None):
                 break
         assert "READY" in lines, (lines, proc.stderr.read()[-2000:])
     finally:
+        timer.cancel()
         proc.kill()  # SIGKILL: no atexit, no close, no flush
         proc.wait(30)
         proc.stdout.close()
@@ -347,6 +351,8 @@ def test_sigkill_torn_tail_repaired_at_reboot(tmp_path):
     proc = subprocess.Popen([sys.executable, "-c", script, path, REPO, "cpu"],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
+    timer = threading.Timer(120, proc.kill)  # bounds the readline()s
+    timer.start()
     lines = []
     try:
         for _ in range(40):
@@ -356,6 +362,7 @@ def test_sigkill_torn_tail_repaired_at_reboot(tmp_path):
                 break
         assert "READY" in lines, (lines, proc.stderr.read()[-2000:])
     finally:
+        timer.cancel()
         proc.kill()
         proc.wait(30)
         proc.stdout.close()

@@ -209,7 +209,8 @@ def test_poison_outlives_the_error_raised_at_submit():
     timer.start()
     with pytest.raises(FailpointError):
         chain.insert_block(pb[2])
-    timer.join()
+    timer.join(30)
+    assert not timer.is_alive(), "the release timer did not fire in 30 s"
     chain.pipeline.drain()  # nothing left: block 2 was discarded
     assert [b.number for b, _, _ in chain.bad_blocks] == [1]
     fault.clear_all()

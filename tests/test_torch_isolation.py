@@ -680,7 +680,10 @@ def test_no_source_imports_jax_or_coreth_tpu():
                 "peer/network.py", "peer/transport.py", "peer/testing.py",
                 "vm/syncervm.py", "vm/gossiper.py", "plugin/__init__.py",
                 "plugin/protocol.py", "plugin/server.py", "plugin/client.py",
-                "core/pruner.py"):
+                "core/pruner.py", "analysis/__init__.py",
+                "analysis/__main__.py", "analysis/engine.py",
+                "analysis/rules.py", "analysis/callgraph.py",
+                "analysis/cache.py", "graft_entry.py"):
         assert os.path.join("coreth_tpu_torch", mod) in names, mod
     assert not bad, bad
 
@@ -791,9 +794,8 @@ def test_plugin_test_child_imports_only_the_port():
 
 
 def test_relative_imports_resolve_inside_the_port():
-    """Every relative import of a port module names a module the port has
-    (the part left out, analysis/, is never imported, not even
-    lazily)."""
+    """Every relative import of a port module names a module the port
+    has."""
     root = os.path.join(REPO, "coreth_tpu_torch")
 
     def exists(base, dotted):
@@ -1054,6 +1056,56 @@ def test_shard_worker_imports_stdlib_fault_and_shardstats_only():
     for hostile in ("from .. import metrics\n", "import torch\n",
                     "from .mvcc import VersionedStateView\n"):
         assert stray(module_imports(hostile)), hostile
+
+
+_ANALYSIS_CHILD = r'''
+import sys
+
+FORBIDDEN = ("jax", "jaxlib", "coreth_tpu", "cryptography")
+
+
+def refused(name):
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if refused(name):
+            raise ImportError(f"the port must not import {name}")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+
+from coreth_tpu_torch.analysis.__main__ import main
+
+assert main(["--strict-baseline"]) == 0
+from coreth_tpu_torch.graft_entry import entry
+
+fn, args = entry(device="cpu")
+words, dig = fn(*args)
+assert int(dig.abs().sum()) > 0
+leaked = [m for m in sys.modules if refused(m)]
+assert not leaked, leaked
+print("ISOLATED-OK")
+'''
+
+
+def test_analysis_cli_and_graft_entry_run_without_jax_or_coreth_tpu(
+        tmp_path_factory):
+    """The port's analysis gate (its CLI) and its graft entry (entry() on
+    the CPU) under the import guard that refuses jax, jaxlib, coreth_tpu
+    and cryptography. The analysis cache is the test run's temporary one
+    that tests/test_torch_analysis.py uses too."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    env["CORETH_TPU_TORCH_ANALYSIS_CACHE"] = str(
+        tmp_path_factory.getbasetemp() / "coreth-tpu-torch-analysis.pkl")
+    r = subprocess.run([sys.executable, "-c", _ANALYSIS_CHILD], cwd=REPO,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "ISOLATED-OK" in r.stdout
+    assert "0 finding(s)" in r.stderr
 
 
 _SHARDED_CHILD = r'''

@@ -334,7 +334,10 @@ def test_fused_commit_error_reaches_insert_block(fused_blocks, fault,
         if not release.is_set():
             if fault == "launch":
                 raise KernelLaunchError("K2 launch failed: CUDA error 700")
-            release.wait()  # a device that stops answering
+            # a device that stops answering (for at most 120 s)
+            if not release.wait(120):
+                raise RuntimeError("the hung fused commit was never "
+                                   "released")
         return real(*a)
 
     monkeypatch.setattr(keccak_fused, "fused_commit", faulty)

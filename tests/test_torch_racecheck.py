@@ -21,6 +21,17 @@ from coreth_tpu.utils import racecheck as jrace
 from coreth_tpu_torch.utils import racecheck
 
 # canonical names, in CANONICAL_LOCK_ORDER's order, plus one unlisted
+# every wait of these tests is bounded: a stuck thread fails the test
+WAIT_S = 30
+
+
+def _join_all(threads):
+    for t in threads:
+        t.join(WAIT_S)
+    assert not [t for t in threads if t.is_alive()], \
+        f"a thread did not end within {WAIT_S} s"
+
+
 NAMES = ("VM.lock", "BlockChain.chainmu", "BlockChain._view_mu",
          "InsertPipeline._mu", "TxPool.mu", "Tree.lock", "Unlisted.mu")
 
@@ -51,7 +62,10 @@ def _run_lock_script(mod, script):
     def worker(i):
         idents[threading.get_ident()] = i
         while True:
-            go[i].wait()
+            # a worker left waiting exits, and the done.wait(5) of the
+            # next step sent to it fails
+            if not go[i].wait(WAIT_S):
+                return
             go[i].clear()
             step = inbox[i].pop(0)
             if step is None:
@@ -72,8 +86,7 @@ def _run_lock_script(mod, script):
     for i in range(nthreads):
         inbox[i].append(None)
         go[i].set()
-    for t in threads:
-        t.join()
+    _join_all(threads)
     w.unwrap_all()
     out = []
     for v in w.violations:
@@ -157,7 +170,7 @@ def _detector_reports(mod):
     with obj.mu:  # held by this thread while another enters
         t = threading.Thread(target=obj.mutate)
         t.start()
-        t.join()
+        _join_all([t])
     out.append([re.sub(r"\d{4,}", "T", v) for v in det.violations])
 
     other = Guarded()
@@ -167,15 +180,14 @@ def _detector_reports(mod):
     gate = threading.Barrier(2)
 
     def hammer():
-        gate.wait()
+        gate.wait(WAIT_S)  # BrokenBarrierError when the other never comes
         for _ in range(15):
             other.mutate()
 
     threads = [threading.Thread(target=hammer) for _ in range(2)]
     for t in threads:
         t.start()
-    for t in threads:
-        t.join()
+    _join_all(threads)
     out.append(bool(det2.violations))
     out.append(all("mutate entered by thread" in v for v in det2.violations))
     return out

@@ -115,7 +115,8 @@ class _Wedgy:
         self.release = threading.Event()
 
     def _hang(self):
-        self.release.wait()
+        # bounded: a test that never releases still ends this thread
+        self.release.wait(120)
         raise RuntimeError("the wedged call was abandoned")
 
     def run(self, export):

@@ -345,7 +345,8 @@ class _Wedgeable:
     def run(self, export):
         if self.armed:
             self.armed = False
-            self.release.wait()
+            if not self.release.wait(120):  # bounded, as every wait here
+                raise RuntimeError("the wedged run was never released")
         return self._ex.run(export)
 
     def __getattr__(self, name):
