@@ -300,10 +300,14 @@ _FLIGHT_COUNTERS = (
     "resident/lean_wire_bytes",
     "trie/keccak/batches", "trie/keccak/batch_msgs",
 )
+# the resident commit's phases, each updated where its work runs
+# (trie/resident_mirror.py, native/mpt.py, ops/keccak_resident.py)
 _FLIGHT_TIMERS = (
-    "resident/phase/commit", "resident/phase/plan", "resident/phase/export",
-    "resident/phase/scatter", "resident/phase/patch", "resident/phase/store",
-    "resident/phase/host_hash",
+    "resident/phase/commit", "resident/phase/update", "resident/phase/plan",
+    "resident/phase/export", "resident/phase/handoff",
+    "resident/phase/stage", "resident/phase/scatter", "resident/phase/patch",
+    "resident/phase/hash", "resident/phase/store", "resident/phase/readback",
+    "resident/phase/record", "resident/phase/host_hash",
 )
 
 

@@ -2,6 +2,10 @@
 gauges, meters, histograms, timers, with the EnabledExpensive gate and
 Prometheus-style export); counterpart of coreth_tpu/metrics/__init__.py.
 
+The commit pipeline's always-on phase timers (phase_timer, PhaseSeq,
+phase_add) are here too: each phase is also a span (metrics/spans.py)
+when spans are on, and a torch profiler range while a profiler session
+runs, carried from a thread the session does not record by PhaseRelay.
 The flight recorder is metrics/flight.py, the shard workers' stdlib-only
 accumulator metrics/shardstats.py, the HTTP exposition metrics/http.py,
 the profiler metrics/profiler.py and the exposition's command-line check
@@ -9,10 +13,17 @@ the profiler metrics/profiler.py and the exposition's command-line check
 
 from __future__ import annotations
 
+import bisect
+import math
+import random
 import re
+import sys
 import threading
 import time
+from collections import deque
 from typing import Dict, List, Optional, Tuple
+
+from . import spans as _spans
 
 enabled = True
 enabled_expensive = False  # metrics.EnabledExpensive gate
@@ -68,6 +79,11 @@ class Histogram:
     def __init__(self, reservoir: int = 1028, buckets=None):
         self._samples: List[float] = []
         self._reservoir = reservoir
+        # uniform reservoir sampling by skips (Li's algorithm L): once the
+        # reservoir is full, the 1-based count of the next value that
+        # takes a random slot, so the values between draw nothing
+        self._w = 1.0
+        self._next_pick = reservoir
         self._count = 0
         self._sum = 0.0
         self._lock = threading.Lock()
@@ -85,24 +101,31 @@ class Histogram:
 
     def update(self, v: float, exemplar: Optional[str] = None) -> None:
         with self._lock:
-            self._count += 1
-            self._sum += v
-            if self._buckets is not None:
-                import bisect
+            self._observe(v, exemplar)
 
-                i = bisect.bisect_left(self._buckets, v)
-                if i < len(self._buckets):
-                    self._bucket_counts[i] += 1
-                    if exemplar:
-                        self._exemplars[i] = (v, exemplar)
-            if len(self._samples) < self._reservoir:
-                self._samples.append(v)
-            else:
-                import random
+    def _observe(self, v: float, exemplar: Optional[str] = None) -> None:
+        """update's body; the caller holds the lock."""
+        self._count += 1
+        self._sum += v
+        if self._buckets is not None:
+            i = bisect.bisect_left(self._buckets, v)
+            if i < len(self._buckets):
+                self._bucket_counts[i] += 1
+                if exemplar:
+                    self._exemplars[i] = (v, exemplar)
+        if self._count <= self._reservoir:
+            self._samples.append(v)
+            if self._count == self._reservoir:
+                self._skip()
+        elif self._count == self._next_pick:
+            self._samples[int(random.random() * self._reservoir)] = v
+            self._skip()
 
-                i = random.randrange(self._count)
-                if i < self._reservoir:
-                    self._samples[i] = v
+    def _skip(self) -> None:
+        k = self._reservoir
+        self._w *= math.exp(math.log(1.0 - random.random()) / k)
+        self._next_pick += 1 + int(
+            math.log(1.0 - random.random()) / math.log1p(-self._w))
 
     def bucket_bounds(self) -> Optional[Tuple[float, ...]]:
         return self._buckets
@@ -182,45 +205,71 @@ class Meter:
 
 
 class Timer:
-    """Histogram of durations + a meter of calls."""
+    """Histogram of durations, their count and their exact total.
+
+    update() only appends to a deque (thread-safe without a lock: a few
+    tenths of a microsecond, so a phase timer can fire a dozen times per
+    block commit); every read folds what is pending into the histogram
+    and the total under the histogram's lock, as does an update that
+    finds FOLD_AT values pending."""
+
+    FOLD_AT = 256
 
     def __init__(self):
         self.hist = Histogram()
-        self.meter = Meter()
         self._total = 0.0
-        self._lock = threading.Lock()
+        self._pending: deque = deque()
 
     def update(self, seconds: float) -> None:
-        self.hist.update(seconds)
-        self.meter.mark()
-        with self._lock:
-            self._total += seconds
+        p = self._pending
+        p.append(seconds)
+        if len(p) >= self.FOLD_AT:
+            self._fold()
+
+    def _fold(self) -> Histogram:
+        h = self.hist
+        p = self._pending
+        with h._lock:
+            while p:
+                v = p.popleft()
+                self._total += v
+                h._observe(v)
+        return h
 
     def time(self):
-        timer = self
-
-        class _Ctx:
-            def __enter__(self):
-                self.t0 = time.monotonic()
-                return self
-
-            def __exit__(self, *a):
-                timer.update(time.monotonic() - self.t0)
-
-        return _Ctx()
+        return _TimerCtx(self)
 
     def count(self) -> int:
-        return self.meter.count()
+        return self._fold()._count
 
     def mean(self) -> float:
-        return self.hist.mean()
+        return self._fold().mean()
+
+    def percentiles(self, ps) -> List[float]:
+        return self._fold().percentiles(ps)
 
     def total(self) -> float:
         """Exact cumulative seconds across every update (unlike
         mean()*count(), which drifts once the reservoir saturates) —
         what the bench phase-attribution report divides."""
-        with self._lock:
+        h = self._fold()
+        with h._lock:
             return self._total
+
+
+class _TimerCtx:
+    __slots__ = ("_timer", "_t0")
+
+    def __init__(self, timer: Timer):
+        self._timer = timer
+
+    def __enter__(self):
+        self._t0 = time.monotonic()
+        return self
+
+    def __exit__(self, *a):
+        self._timer.update(time.monotonic() - self._t0)
+        return False
 
 
 # --- Prometheus exposition helpers ------------------------------------------
@@ -271,6 +320,9 @@ class Registry:
         self._lock = threading.Lock()
 
     def _get_or_register(self, name: str, factory):
+        m = self._metrics.get(name)  # registered once, never removed
+        if m is not None:
+            return m
         with self._lock:
             m = self._metrics.get(name)
             if m is None:
@@ -345,7 +397,7 @@ class Registry:
             elif isinstance(m, Timer):
                 summary(fam + "_seconds",
                         f"coreth_tpu_torch timer {name} (seconds)",
-                        m.hist.percentiles(_QUANTILES), m.total(), m.count())
+                        m.percentiles(_QUANTILES), m.total(), m.count())
             elif isinstance(m, Histogram):
                 if m.bucket_bounds() is not None:
                     # real histogram family: cumulative le buckets, the
@@ -386,7 +438,7 @@ class Registry:
                 out[name] = {"type": "meter", "count": m.count(),
                              "rate": m.rate_mean()}
             elif isinstance(m, Timer):
-                p50, p90, p99 = m.hist.percentiles(_QUANTILES)
+                p50, p90, p99 = m.percentiles(_QUANTILES)
                 out[name] = {"type": "timer", "count": m.count(),
                              "total_seconds": m.total(),
                              "mean_seconds": m.mean(),
@@ -441,15 +493,278 @@ class _NullCtx:
 _NULL_CTX = _NullCtx()
 
 
+# --- phases: the commit pipeline's always-on timers -------------------------
+#
+# A phase is a registry timer that the flight recorder and the benchmark
+# read in every run. When tracing asks for it, the same stretch is also a
+# span of the phase's name (spans.span, gated as ever) and a torch
+# profiler range of that name, which puts the phase on the device trace's
+# clock. A profiler session records only the threads that ran when it
+# began: a phase on a thread it does not record (the device watchdog's
+# worker) reaches it through a PhaseRelay, whose follower opens and closes
+# the range on the thread that handed the work over.
+
+_tls = threading.local()  # .relay: the PhaseRelay of a watchdog's worker
+_now = time.monotonic
+
+
+def _profiling() -> bool:
+    """A torch profiler session runs in this process: the module flag
+    alone, read without importing torch (about 0.1 us)."""
+    ap = sys.modules.get("torch.autograd.profiler")
+    return ap is not None and ap._is_profiler_enabled
+
+
+def _thread_profiled() -> bool:
+    """The running profiler session records this thread."""
+    import torch
+
+    return torch._C._autograd._profiler_enabled()
+
+
+def _trace_open(name: str):
+    """Open `name`'s span (spans on) and its profiler range (a session
+    runs): on this thread when the session records it, else through this
+    thread's relay, if it has one. Returns what _trace_close closes, or
+    None when nothing opened."""
+    sp = rf = relay = None
+    if _spans.enabled:
+        sp = _spans.tracer.span(name)
+        sp.__enter__()
+    if _profiling():
+        if _thread_profiled():
+            from torch.autograd.profiler import record_function
+
+            rf = record_function(name)
+            rf.__enter__()
+        else:
+            relay = getattr(_tls, "relay", None)
+            if relay is not None:
+                relay.post(name)
+    if sp is None and rf is None and relay is None:
+        return None
+    return sp, rf, relay
+
+
+def _trace_close(opened, exc_type=None) -> None:
+    sp, rf, relay = opened
+    if rf is not None:
+        rf.__exit__(None, None, None)
+    elif relay is not None:
+        relay.post(None)
+    if sp is not None:
+        sp.__exit__(exc_type, None, None)
+
+
+def _trace_next(opened, name: Optional[str]):
+    """Close `opened` (what _trace_open returned, or None) and open `name`
+    (None: nothing). A relayed range followed by another is one post, so
+    the follower never holds neither between them."""
+    relay = opened[2] if opened is not None else None
+    if (relay is not None and name is not None
+            and getattr(_tls, "relay", None) is relay and _profiling()):
+        sp = opened[0]
+        if sp is not None:
+            sp.__exit__(None, None, None)
+        if _spans.enabled:
+            sp = _spans.tracer.span(name)
+            sp.__enter__()
+        else:
+            sp = None
+        relay.post(name, close_first=True)
+        return sp, None, relay
+    if opened is not None:
+        _trace_close(opened)
+    return _trace_open(name) if name is not None else None
+
+
+class _Phase:
+    """One stretch of a phase (phase_timer). `seconds` holds its length
+    once the `with` block has closed."""
+
+    __slots__ = ("name", "seconds", "_timer", "_t0", "_opened")
+
+    def __init__(self, name: str, timer: Optional[Timer]):
+        self.name = name
+        self.seconds = 0.0
+        self._timer = timer
+
+    def __enter__(self):
+        self._opened = (_trace_open(self.name)
+                        if _spans.enabled or _profiling() else None)
+        self._t0 = _now()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.seconds = s = _now() - self._t0
+        if self._opened is not None:
+            _trace_close(self._opened, exc_type)
+        if self._timer is not None:
+            self._timer.update(s)
+        return False
+
+
 def phase_timer(name: str, registry: Optional[Registry] = None):
-    """Always-on phase-attribution timer for the commit pipeline
-    (plan / export / scatter / patch / store decomposition). Unlike
-    expensive_timer this is NOT gated: it fires a handful of times per
-    block commit, and the regression it guards (the resident-path CPU
-    overhead) must decompose mechanically in every bench run."""
+    """Always-on phase-attribution timer for the commit pipeline (the
+    resident/phase/* split: the flight recorder's, the benchmark's phase
+    readers). Unlike expensive_timer this is NOT gated: the `with`
+    block's seconds go to the registry timer `name` in every run, and
+    stay on the returned object as `.seconds`, so a caller that keeps its
+    own reading of the same work (IncrementalTrie.last_plan_ms) takes it
+    from the same clock reads. With spans on the block is also a span
+    named `name`; while a torch profiler session runs, also a profiler
+    range of that name."""
     if not enabled:
-        return _NULL_CTX
-    return (registry or default_registry).timer(name).time()
+        return _Phase(name, None)
+    reg = registry or default_registry
+    return _Phase(name, reg._metrics.get(name) or reg.timer(name))
+
+
+def phase_add(name: str, seconds: float,
+              registry: Optional[Registry] = None) -> None:
+    """Add `seconds` to the phase timer `name`: a phase measured in pieces
+    that no one `with` block covers (the device watchdog's handoff)."""
+    if enabled:
+        (registry or default_registry).timer(name).update(seconds)
+
+
+class PhaseSeq:
+    """Phases that follow one another on one thread, one clock read at
+    each boundary (a resident commit's executor run): to(name) closes the
+    running phase and starts `name` (None: none). A phase started again
+    adds to its sum, and the `with` block's end (close()) updates each
+    phase's timer once with its sum. When tracing, sampled as the
+    sequence starts, every stretch is also a span and a profiler range of
+    its phase's name, as with phase_timer."""
+
+    __slots__ = ("_registry", "_sums", "_cur", "_t", "_opened", "_traced")
+
+    def __init__(self, registry: Optional[Registry] = None):
+        self._registry = registry
+        # phase -> seconds; the stretch before the first phase goes
+        # under None and is dropped
+        self._sums: Dict[Optional[str], float] = {}
+        self._cur: Optional[str] = None
+        self._t = _now()
+        self._opened = None
+        self._traced = _spans.enabled or _profiling()
+
+    def __enter__(self) -> "PhaseSeq":
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.close()
+        return False
+
+    def to(self, name: Optional[str]) -> None:
+        t = _now()
+        sums = self._sums
+        cur = self._cur
+        sums[cur] = sums.get(cur, 0.0) + t - self._t
+        self._cur = name
+        self._t = t
+        if self._traced:
+            self._opened = _trace_next(self._opened, name)
+
+    def close(self) -> None:
+        self.to(None)
+        sums, self._sums = self._sums, {}
+        if enabled:
+            reg = self._registry or default_registry
+            for name, s in sums.items():
+                if name is not None:
+                    reg.timer(name).update(s)
+
+
+class PhaseRelay:
+    """Carries the phases of a thread that the running profiler session
+    does not record (native/mpt._run_with_watchdog's worker) to the thread
+    that handed it the work, which the session records. The worker calls
+    started() first and finish() last; in between its phases post each
+    boundary here. The caller's follow() opens and closes a range of the
+    same name on its own thread at each signal (a wake-up after the
+    boundary), with the range `own` (the watchdog's handoff) open until
+    the worker's first phase and again once the worker has finished."""
+
+    def __init__(self, own: Optional[str] = None):
+        self._cond = threading.Condition(threading.Lock())
+        self._posted: List[Optional[str]] = []
+        self._done = False
+        self._own = own
+
+    @classmethod
+    def for_caller(cls, own: Optional[str] = None) -> Optional["PhaseRelay"]:
+        """A relay when the running profiler session records this thread,
+        else None: no relay, no range, and the caller's wait stays one
+        Event.wait."""
+        if _profiling() and _thread_profiled():
+            return cls(own)
+        return None
+
+    def post(self, name: Optional[str], close_first: bool = False) -> None:
+        """A phase `name` starts (None: the innermost open one ends);
+        close_first: the innermost open one ends as it starts."""
+        with self._cond:
+            if close_first:
+                self._posted.append(None)
+            self._posted.append(name)
+            self._cond.notify()
+
+    def started(self) -> None:
+        """The worker's first instruction: its phases post here."""
+        _tls.relay = self
+
+    def finish(self) -> None:
+        """The worker's last instruction."""
+        _tls.relay = None
+        with self._cond:
+            if self._own is not None:
+                self._posted.append(self._own)
+            self._done = True
+            self._cond.notify()
+
+    def follow(self, start, timeout: float) -> bool:
+        """On the caller: open `own`, start the worker (`start()`), then
+        mirror its phases as profiler ranges on this thread until it
+        finishes (True) or `timeout` seconds after its start pass first
+        (False). Every range opened here is closed when it returns."""
+        from torch.autograd.profiler import record_function
+
+        opened = []
+
+        def open_range(name: str) -> None:
+            rf = record_function(name)
+            rf.__enter__()
+            opened.append(rf)
+
+        try:
+            if self._own is not None:
+                open_range(self._own)
+            own_open = self._own is not None
+            start()
+            deadline = time.monotonic() + timeout
+            while True:
+                with self._cond:
+                    while not self._posted and not self._done:
+                        left = deadline - time.monotonic()
+                        if left <= 0:
+                            return False
+                        self._cond.wait(left)
+                    posted, self._posted = self._posted, []
+                    done = self._done
+                if own_open:
+                    opened.pop().__exit__(None, None, None)
+                    own_open = False
+                for name in posted:
+                    if name is not None:
+                        open_range(name)
+                    elif opened:
+                        opened.pop().__exit__(None, None, None)
+                if done:
+                    return True
+        finally:
+            while opened:
+                opened.pop().__exit__(None, None, None)
 
 
 def observe_slo(name: str, seconds: float, exemplar: Optional[str] = None,

@@ -15,7 +15,11 @@ Design constraints, in order:
    in Perfetto / chrome://tracing.
 
 Enable per-process with set_enabled(True) or the CORETH_TPU_SPANS=1
-environment override.
+environment override. The commit pipeline's phase timers
+(metrics.phase_timer, metrics.PhaseSeq) open a span of the phase's name
+through span(); work handed to another thread keeps its parent through
+handed_over(), and a stretch that begins on one thread and ends on
+another is entered whole with record().
 """
 
 from __future__ import annotations
@@ -204,6 +208,54 @@ def span(name: str, **attrs):
     if not enabled:
         return _NULL_SPAN
     return tracer.span(name, **attrs)
+
+
+class _HandedOver:
+    """Places a span open on another thread at the bottom of this
+    thread's stack for the `with` block (handed_over)."""
+
+    __slots__ = ("_parent",)
+
+    def __init__(self, parent: Span):
+        self._parent = parent
+
+    def __enter__(self):
+        tracer._stack().append(self._parent)
+        return self
+
+    def __exit__(self, *a):
+        stack = tracer._stack()
+        if stack and stack[-1] is self._parent:
+            stack.pop()
+        elif self._parent in stack:
+            stack.remove(self._parent)
+        return False
+
+
+def handed_over(parent: Optional[Span]):
+    """On a worker thread that runs work handed over by another thread:
+    parent the worker's spans under `parent` (tracer.current() on the
+    handing thread, taken before the handoff) for the `with` block. A
+    shared no-op when `parent` is None (spans off, or nothing open)."""
+    if parent is None:
+        return _NULL_SPAN
+    return _HandedOver(parent)
+
+
+def record(name: str, start: float, end: float, **attrs) -> None:
+    """A finished span of `name` from `start` to `end` (time.monotonic()),
+    parented under this thread's current span: a stretch that no one
+    `with` block covers (the device watchdog's handoff, which begins on
+    one thread and ends on another). Nothing when spans are off."""
+    if not enabled:
+        return
+    s = tracer.span(name, **attrs)
+    s.tid = threading.get_ident()
+    cur = tracer.current()
+    if cur is not None:
+        s.parent_id = cur.span_id
+    s.start, s.end = start, end
+    tracer._commit(s)
 
 
 def set_enabled(flag: bool) -> None:

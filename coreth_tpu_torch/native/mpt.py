@@ -30,10 +30,12 @@ worker thread; every native-trie mutation stays on the calling thread, so
 an abandoned worker never races that rehash.
 
 Both libraries are built with g++ into coreth_tpu_torch/_build/ at first
-use; a failed build raises. The reference's phase timers are plain
-attributes: `last_plan_ms`,
-`last_export_ms`, `last_host_hash_ms` and `last_absorb_ms` of the last
-commit.
+use; a failed build raises. Each commit's host phases are the registry's
+resident/phase/* timers (metrics.phase_timer: `plan`, `export`,
+`host_hash`, `absorb`, `readback` of a template commit, and the
+watchdog's `handoff`); `last_plan_ms`, `last_export_ms`,
+`last_host_hash_ms` and `last_absorb_ms` keep the last commit's readings
+of the same clock reads.
 
 Reference seams: trie/hasher.go:195-201 (hashData), trie/trie.go:573-626
 (Hash/Commit walk), core/state/statedb.go:952 (IntermediateRoot drain).
@@ -54,6 +56,8 @@ from ..fault import failpoint
 from ..fault import register as _register_failpoint
 from ._build import build_and_load
 from ..device import DeviceWedgedError
+from ..metrics import PhaseRelay, phase_add, phase_timer
+from ..metrics import spans as _spans
 
 FP_BEFORE_ABSORB = _register_failpoint(
     "resident/before_absorb",
@@ -346,36 +350,68 @@ def plan_from_items(items: Sequence[Tuple[bytes, bytes]]) -> CommitPlan:
     return plan_commit(*items_to_arrays(items))
 
 
-def _run_with_watchdog(fn, timeout: float, what: str):
+def _run_with_watchdog(fn, timeout: float, what: str,
+                       handoff: Optional[str] = None):
     """Run fn() on a daemon worker; DeviceWedgedError on timeout. The
     abandoned worker may finish later, so fn must touch only device and
-    executor state, never shared host structures (the native trie)."""
+    executor state, never shared host structures (the native trie).
+
+    `handoff` names the phase timer that takes the watchdog's own cost:
+    from this call to the worker's first instruction, plus from the
+    worker's last to this call's return. The worker's spans nest under
+    this thread's current span. When a torch profiler session records this
+    thread (it never records the worker), the wait follows the worker's
+    phases through a PhaseRelay and opens a range of each, and of
+    `handoff` around the watchdog's own stretches, on this thread; else
+    it is one Event.wait. The deadline is start + timeout either way."""
+    t_call = time.monotonic()
     box: dict = {}
     done = threading.Event()
+    relay = PhaseRelay.for_caller(handoff)
+    parent = _spans.tracer.current() if _spans.enabled else None
 
     def work():
+        box["t0"] = time.monotonic()
+        if relay is not None:
+            relay.started()
         try:
-            box["val"] = fn()
+            with _spans.handed_over(parent):
+                box["val"] = fn()
         except BaseException as e:  # noqa: BLE001 — crosses threads
             box["err"] = e
         finally:
+            box["t1"] = time.monotonic()
+            if relay is not None:
+                relay.finish()
             done.set()
 
     t = threading.Thread(target=work, daemon=True, name=f"wd-{what}")
-    t.start()
-    if not done.wait(timeout):
+    if relay is None:
+        t.start()
+        answered = done.wait(timeout)
+    else:
+        answered = relay.follow(t.start, timeout)
+    if not answered:
         raise DeviceWedgedError(
             f"{what} produced nothing within {timeout:g}s")
+    if handoff is not None:
+        t_ret = time.monotonic()
+        phase_add(handoff, (box["t0"] - t_call) + (t_ret - box["t1"]))
+        if _spans.enabled:
+            _spans.record(handoff, t_call, box["t0"])
+            _spans.record(handoff, box["t1"], t_ret)
     if "err" in box:
         raise box["err"]
     return box["val"]
 
 
 def _guarded(fn, timeout: Optional[float], what: str):
-    """fn() on this thread when timeout is None, else under the watchdog."""
+    """fn() on this thread when timeout is None, else under the watchdog
+    (its cost in the resident/phase/handoff timer)."""
     if timeout is None:
         return fn()
-    return _run_with_watchdog(fn, timeout, what)
+    return _run_with_watchdog(fn, timeout, what,
+                              handoff="resident/phase/handoff")
 
 
 EMPTY_ROOT = bytes.fromhex(
@@ -387,10 +423,6 @@ EMPTY_ROOT = bytes.fromhex(
 # keccak pad bits, so a leaf costs 72 B of row payload + 4 B arena index +
 # 4 B length on the wire instead of the 136 B padded row.
 LEAN_ROW_WIDTH = 72
-
-
-def _ms_since(t0: float) -> float:
-    return (time.perf_counter() - t0) * 1e3
 
 
 class IncrementalTrie:
@@ -451,40 +483,44 @@ class IncrementalTrie:
     def num_nodes(self) -> int:
         return int(self._lib.mpt_inc_num_nodes(self._h))
 
+    def _plan(self, plan_fn) -> int:
+        """The native plan (`plan_fn`: mpt_inc_plan or mpt_inc_plan_res),
+        timed as the plan phase."""
+        with phase_timer("resident/phase/plan") as ph:
+            n_seg = int(plan_fn(self._h))
+        self.last_plan_ms = ph.seconds * 1e3
+        return n_seg
+
     def _export_plan(self):
         lib, h = self._lib, self._h
-        t0 = time.perf_counter()
-        n_seg = int(lib.mpt_inc_plan(h))
-        self.last_plan_ms = _ms_since(t0)
+        n_seg = self._plan(lib.mpt_inc_plan)
         if n_seg == 0:
             return None
-        t0 = time.perf_counter()
-        specs = np.empty((n_seg, 4), np.int32)
-        lib.mpt_inc_specs(h, specs.reshape(-1))
-        n_bytes = int(lib.mpt_inc_flat_bytes(h))
-        flat_words = np.ctypeslib.as_array(
-            lib.mpt_inc_flat_ptr(h), shape=(n_bytes,)).view(np.uint32)
-        n_pat = int(lib.mpt_inc_total_patches(h))
-        dst = np.empty(n_pat, np.int32)
-        child = np.empty(n_pat, np.int32)
-        shift = np.empty(n_pat, np.int32)
-        lib.mpt_inc_word_patches(h, dst, child, shift)
-        self.last_export_ms = _ms_since(t0)
+        with phase_timer("resident/phase/export") as ph:
+            specs = np.empty((n_seg, 4), np.int32)
+            lib.mpt_inc_specs(h, specs.reshape(-1))
+            n_bytes = int(lib.mpt_inc_flat_bytes(h))
+            flat_words = np.ctypeslib.as_array(
+                lib.mpt_inc_flat_ptr(h), shape=(n_bytes,)).view(np.uint32)
+            n_pat = int(lib.mpt_inc_total_patches(h))
+            dst = np.empty(n_pat, np.int32)
+            child = np.empty(n_pat, np.int32)
+            shift = np.empty(n_pat, np.int32)
+            lib.mpt_inc_word_patches(h, dst, child, shift)
+        self.last_export_ms = ph.seconds * 1e3
         return (_specs(specs), flat_words, dst, child, shift,
                 int(lib.mpt_inc_root_pos(h)))
 
     def commit_cpu(self, threads: int = 1) -> bytes:
         """Incremental host commit; returns the 32-byte root."""
         self._pin_mode("host")
-        t0 = time.perf_counter()
-        n_seg = self._lib.mpt_inc_plan(self._h)
-        self.last_plan_ms = _ms_since(t0)
+        n_seg = self._plan(self._lib.mpt_inc_plan)
         if n_seg == 0:
             return self.root()
         out = np.empty(32, np.uint8)
-        t0 = time.perf_counter()
-        self._lib.mpt_inc_execute_cpu(self._h, threads, out)
-        self.last_host_hash_ms = _ms_since(t0)
+        with phase_timer("resident/phase/host_hash") as ph:
+            self._lib.mpt_inc_execute_cpu(self._h, threads, out)
+        self.last_host_hash_ms = ph.seconds * 1e3
         return out.tobytes()
 
     def commit_device(self, planned=None, device=None) -> bytes:
@@ -504,9 +540,9 @@ class IncrementalTrie:
                                  root_pos, want_digests=True)
         dig8 = np.ascontiguousarray(dig).view(np.uint8).reshape(-1)
         out = np.empty(32, np.uint8)
-        t0 = time.perf_counter()
-        self._lib.mpt_inc_absorb(self._h, dig8, out)
-        self.last_absorb_ms = _ms_since(t0)
+        with phase_timer("resident/phase/absorb") as ph:
+            self._lib.mpt_inc_absorb(self._h, dig8, out)
+        self.last_absorb_ms = ph.seconds * 1e3
         return out.tobytes()
 
     # ---- resident commits (deferred absorb + template residency) ----
@@ -526,9 +562,7 @@ class IncrementalTrie:
         the upload payload (ops/keccak_resident.ResidentExecutor.run's
         input). Returns None when nothing is dirty."""
         lib, h = self._lib, self._h
-        t0 = time.perf_counter()
-        n_seg = int(lib.mpt_inc_plan_res(h))
-        self.last_plan_ms = _ms_since(t0)
+        n_seg = self._plan(lib.mpt_inc_plan_res)
         if n_seg == (1 << 64) - 1:
             raise ValueError("node RLP wider than the resident row limit")
         if n_seg == (1 << 64) - 2:
@@ -537,47 +571,47 @@ class IncrementalTrie:
                 "range (checked before any allocation)")
         if n_seg == 0:
             return None
-        t0 = time.perf_counter()
-        meta = np.empty(7, np.int64)
-        lib.mpt_inc_res_meta(h, meta)
-        total_lanes, total_patches = int(meta[0]), int(meta[1])
-        specs = np.empty((n_seg, 6), np.int32)
-        lib.mpt_inc_res_specs(h, specs.reshape(-1))
-        n_cls = int(meta[6])
-        cls_counts = np.empty((n_cls, 2), np.int32)
-        lib.mpt_inc_res_cls_counts(h, cls_counts.reshape(-1))
-        rowidx = np.empty(total_lanes, np.int32)
-        lane_slot = np.empty(total_lanes, np.int32)
-        off = np.empty(total_patches, np.int32)
-        src = np.empty(total_patches, np.int32)
-        oldidx = np.empty(total_patches, np.int32)
-        lib.mpt_inc_res_tables(h, rowidx, lane_slot, off, src, oldidx)
-        fresh = {}
-        classes = {}
-        for cls in range(1, n_cls):
-            n_fresh, rows_needed = (int(cls_counts[cls, 0]),
-                                    int(cls_counts[cls, 1]))
-            if rows_needed > 1:
-                classes[cls] = (n_fresh, rows_needed)
-            if n_fresh == 0:
-                continue
-            width = cls * 136
-            rows = np.empty(n_fresh * width, np.uint8)
-            idx = np.empty(n_fresh, np.int32)
-            lib.mpt_inc_res_fresh(h, cls, rows, idx)
-            fresh[cls] = (rows.view(np.uint32).reshape(n_fresh, width // 4),
-                          idx)
-        lean = None
-        n_lean = int(lib.mpt_inc_res_lean_count(h))
-        if n_lean:
-            lrows = np.empty(n_lean * LEAN_ROW_WIDTH, np.uint8)
-            lidx = np.empty(n_lean, np.int32)
-            llen = np.empty(n_lean, np.int32)
-            lib.mpt_inc_res_lean(h, lrows, lidx, llen)
-            lean = (lrows.view(np.uint32).reshape(n_lean,
-                                                  LEAN_ROW_WIDTH // 4),
-                    lidx, llen)
-        self.last_export_ms = _ms_since(t0)
+        with phase_timer("resident/phase/export") as ph:
+            meta = np.empty(7, np.int64)
+            lib.mpt_inc_res_meta(h, meta)
+            total_lanes, total_patches = int(meta[0]), int(meta[1])
+            specs = np.empty((n_seg, 6), np.int32)
+            lib.mpt_inc_res_specs(h, specs.reshape(-1))
+            n_cls = int(meta[6])
+            cls_counts = np.empty((n_cls, 2), np.int32)
+            lib.mpt_inc_res_cls_counts(h, cls_counts.reshape(-1))
+            rowidx = np.empty(total_lanes, np.int32)
+            lane_slot = np.empty(total_lanes, np.int32)
+            off = np.empty(total_patches, np.int32)
+            src = np.empty(total_patches, np.int32)
+            oldidx = np.empty(total_patches, np.int32)
+            lib.mpt_inc_res_tables(h, rowidx, lane_slot, off, src, oldidx)
+            fresh = {}
+            classes = {}
+            for cls in range(1, n_cls):
+                n_fresh, rows_needed = (int(cls_counts[cls, 0]),
+                                        int(cls_counts[cls, 1]))
+                if rows_needed > 1:
+                    classes[cls] = (n_fresh, rows_needed)
+                if n_fresh == 0:
+                    continue
+                width = cls * 136
+                rows = np.empty(n_fresh * width, np.uint8)
+                idx = np.empty(n_fresh, np.int32)
+                lib.mpt_inc_res_fresh(h, cls, rows, idx)
+                fresh[cls] = (
+                    rows.view(np.uint32).reshape(n_fresh, width // 4), idx)
+            lean = None
+            n_lean = int(lib.mpt_inc_res_lean_count(h))
+            if n_lean:
+                lrows = np.empty(n_lean * LEAN_ROW_WIDTH, np.uint8)
+                lidx = np.empty(n_lean, np.int32)
+                llen = np.empty(n_lean, np.int32)
+                lib.mpt_inc_res_lean(h, lrows, lidx, llen)
+                lean = (lrows.view(np.uint32).reshape(n_lean,
+                                                      LEAN_ROW_WIDTH // 4),
+                        lidx, llen)
+        self.last_export_ms = ph.seconds * 1e3
         return {
             "specs": specs,
             "classes": classes,
@@ -691,9 +725,7 @@ class IncrementalTrie:
 
         def sync() -> bytes:
             failpoint("resident/before_absorb")
-            if done is not None:
-                done.synchronize()
-            return executor.root_bytes(handle)
+            return executor.root_bytes(handle, done)
 
         return lambda: _guarded(sync, timeout, "resident drain")
 
@@ -724,7 +756,8 @@ class IncrementalTrie:
         def sync():
             executor.run(export)
             failpoint("resident/before_absorb")
-            return executor.host_digests()
+            with phase_timer("resident/phase/readback"):
+                return executor.host_digests()
 
         dig = _guarded(sync, timeout, "template commit")
         if sharded:
@@ -733,9 +766,9 @@ class IncrementalTrie:
         # order, as the planned path's digest matrix
         dig8 = np.ascontiguousarray(dig[1:]).view(np.uint8).reshape(-1)
         out = np.empty(32, np.uint8)
-        t0 = time.perf_counter()
-        self._lib.mpt_inc_res_absorb(self._h, dig8, out)
-        self.last_absorb_ms = _ms_since(t0)
+        with phase_timer("resident/phase/absorb") as ph:
+            self._lib.mpt_inc_res_absorb(self._h, dig8, out)
+        self.last_absorb_ms = ph.seconds * 1e3
         if int(export["root_lane"]) < 0:
             return self.root()  # the root is not among this plan's lanes
         return out.tobytes()
@@ -746,19 +779,20 @@ class IncrementalTrie:
         def sync():
             executor.run(export)
             failpoint("resident/before_absorb")
-            return executor.shard_digests(export)
+            with phase_timer("resident/phase/readback"):
+                return executor.shard_digests(export)
 
         parts = _guarded(sync, timeout, "template commit")
         out = np.empty(32, np.uint8)
-        t0 = time.perf_counter()
-        for lanes_k, digs_k in parts:
-            if lanes_k.shape[0]:
-                self._lib.mpt_inc_res_absorb_lanes(
-                    self._h, np.ascontiguousarray(lanes_k, np.int32),
-                    np.ascontiguousarray(digs_k).view(np.uint8).reshape(-1),
-                    lanes_k.shape[0])
-        missed = int(self._lib.mpt_inc_res_absorb_finish(self._h, out))
-        self.last_absorb_ms = _ms_since(t0)
+        with phase_timer("resident/phase/absorb") as ph:
+            for lanes_k, digs_k in parts:
+                if lanes_k.shape[0]:
+                    self._lib.mpt_inc_res_absorb_lanes(
+                        self._h, np.ascontiguousarray(lanes_k, np.int32),
+                        np.ascontiguousarray(digs_k).view(np.uint8)
+                        .reshape(-1), lanes_k.shape[0])
+            missed = int(self._lib.mpt_inc_res_absorb_finish(self._h, out))
+        self.last_absorb_ms = ph.seconds * 1e3
         if missed:
             # unabsorbed lanes stay dirty (the next plan re-hashes them),
             # but a partial absorb means the shard split itself is wrong

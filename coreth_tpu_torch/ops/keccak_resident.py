@@ -77,6 +77,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve
+from ..metrics import PhaseSeq, phase_timer
 from .keccak_planned import _strips
 from .keccak_torch import MASK32, WORDS_PER_BLOCK, to_int32
 
@@ -113,10 +114,9 @@ class ResidentExecutor:
     wrapper that launches the same kernel (a recorder).
 
     After every run(): h2d_bytes and last_transfers (the commit's host to
-    device traffic), last_dispatches (host-level steps, counted as the
-    reference counts its programs), last_lean_rows and last_lean_wire_bytes,
-    last_dig (the commit's digest matrix with the zero row 0, on the
-    device) and last_root (its root row); on CUDA, last_events holds the
+    device traffic), last_lean_rows and last_lean_wire_bytes, last_dig
+    (the commit's digest matrix with the zero row 0, on the device) and
+    last_root (its root row); on CUDA, last_events holds the
     events recorded before the first upload, after the uploads and after
     the store scatter, and last_done is the last of them (None on the
     CPU): a reader on another thread waits on it before reading."""
@@ -159,7 +159,6 @@ class ResidentExecutor:
         self._ring: list = []  # [(aux, rows, upload event or None)]
         self.h2d_bytes = 0
         self.last_transfers = 0
-        self.last_dispatches = 0
         self.last_lean_rows = 0
         self.last_lean_wire_bytes = 0
         # sharded state: per shard, the store's and each arena's row block
@@ -484,16 +483,24 @@ class ResidentExecutor:
         """Execute one resident commit on the executor's stream. `export`
         is the dict of native.mpt.IncrementalTrie.export_resident_plan().
         Returns the root digest as a lazy int32[8] on the device;
-        root_bytes() reads it."""
-        with self._on_stream():
+        root_bytes() reads it.
+
+        Its host time is five phases in turn (the resident/phase/* timers,
+        metrics.PhaseSeq): `stage` (the staging buffers packed, before
+        the first event), `scatter` (the uploads and the fresh and lean
+        rows into the arenas), then per segment `patch` and `hash`, each
+        summed over the commit, and `store` (the store scatter and the
+        last event)."""
+        with self._on_stream(), PhaseSeq() as ph:
             if self.shards > 1:
-                root = self._run_sharded(export)
+                root = self._run_sharded(export, ph)
             else:
-                root = self._run(export)
+                root = self._run(export, ph)
         self._note_collectives(export)
         return root
 
-    def _run(self, export) -> torch.Tensor:
+    def _run(self, export, ph: PhaseSeq) -> torch.Tensor:
+        ph.to("resident/phase/stage")
         specs = export["specs"]            # [n_seg, 6] int32 host array
         if len(specs) > MAX_SEGMENTS:
             raise ValueError(f"{len(specs)} segments > {MAX_SEGMENTS}")
@@ -558,6 +565,7 @@ class ResidentExecutor:
         self.last_lean_rows = n_lean
         self.last_lean_wire_bytes = n_lean * (4 * LEAN_WORDS + 8)
 
+        ph.to("resident/phase/scatter")
         cuda = self.device.type == "cuda"
         t0 = self._event() if cuda else None
         rows_d = rows_t[:rp].to(self.device, non_blocking=True)
@@ -566,7 +574,6 @@ class ResidentExecutor:
         self._ring.append((aux_t, rows_t, t_up))
         self.h2d_bytes = rp * 4 + n_aux * 4
         self.last_transfers = 2
-        self.last_dispatches = 1
 
         p = 0
         off_all = aux_d[p:p + len_off]; p += len_off
@@ -599,11 +606,14 @@ class ResidentExecutor:
         dig = self._zeros(1 + g_pad, 8)
         for blocks, lanes, gstart, npatch, patch_off, lane_off in specs_t:
             if npatch:
+                ph.to("resident/phase/patch")
                 sl = slice(patch_off, patch_off + npatch)
                 self._patch(blocks, self.store, dig, off_all[sl], src_all[sl],
                             oldidx_all[sl])
+            ph.to("resident/phase/hash")
             self._hash_segment(blocks, lanes, gstart, dig,
                                rowidx_all[lane_off:lane_off + lanes])
+        ph.to("resident/phase/store")
         # the store scatter runs last (the patches read the old digests);
         # pad lanes target the scratch slot 1, so the duplicate indices
         # there are harmless, and slot 0 is never written
@@ -615,11 +625,13 @@ class ResidentExecutor:
         self.last_root = dig[int(export["root_lane"]) + 1]
         return self.last_root
 
-    def _run_sharded(self, export) -> torch.Tensor:
+    def _run_sharded(self, export, ph: PhaseSeq) -> torch.Tensor:
         """One commit over the row shards (module docstring): host
         partitioning, two uploads, the up-front store gather, then per
         segment the strips beside dig, added on the parent row's shard,
-        and K1 per shard; the store scatter last."""
+        and K1 per shard; the store scatter last. The phases are _run's:
+        the partitioning is `stage`, the store gather `scatter`."""
+        ph.to("resident/phase/stage")
         specs = export["specs"]
         if len(specs) > MAX_SEGMENTS:
             raise ValueError(f"{len(specs)} segments > {MAX_SEGMENTS}")
@@ -728,6 +740,7 @@ class ResidentExecutor:
 
         aux_h = np.concatenate(aux) if aux else np.zeros(0, np.int32)
         rows_h = np.concatenate(rows) if rows else np.zeros(0, np.int32)
+        ph.to("resident/phase/scatter")
         cuda = home.type == "cuda"
         t0 = self._event() if cuda else None
         aux_d = {home: torch.from_numpy(aux_h).to(home)}
@@ -739,7 +752,6 @@ class ResidentExecutor:
                 rows_d[d] = rows_d[home].to(d)
         self.h2d_bytes = aux_h.nbytes + rows_h.nbytes
         self.last_transfers = 2
-        self.last_dispatches = 1
 
         def tab(d, piece):
             start, length = piece
@@ -777,6 +789,7 @@ class ResidentExecutor:
         g_pad = _pow2_bucket(int(export["total_lanes"]))
         dig = self._zeros(1 + g_pad, 8)
         for blocks, lanes, gstart, parts in seg_plan:
+            ph.to("resident/phase/patch")
             for k, (p_pat, p_word, p_lane, p_row) in enumerate(parts):
                 if p_pat is None:
                     continue
@@ -798,6 +811,7 @@ class ResidentExecutor:
                 idx = torch.where((idx >= 0) & (idx < scratch), idx,
                                   torch.full_like(idx, scratch))
                 flat.index_add_(0, idx, delta.reshape(-1))
+            ph.to("resident/phase/hash")
             for k, (p_pat, p_word, p_lane, p_row) in enumerate(parts):
                 if p_lane is None:
                     continue
@@ -807,6 +821,7 @@ class ResidentExecutor:
                 out = self.seg_impl(words.view(-1, blocks, WORDS_PER_BLOCK))
                 dig.index_copy_(0, gstart + 1 + tab(home, p_lane).long(),
                                 out.to(home))
+        ph.to("resident/phase/store")
         # the store scatter runs last (the patches read the old digests)
         for k, p_lane, p_local in store_plan:
             d = devs[k]
@@ -823,10 +838,15 @@ class ResidentExecutor:
         self.last_root = dig[int(export["root_lane"]) + 1]
         return self.last_root
 
-    def root_bytes(self, root) -> bytes:
+    def root_bytes(self, root, done=None) -> bytes:
         """Synchronise and render a run() result (or a host array of 8
-        words) as the 32-byte root, read on the executor's stream."""
-        if isinstance(root, torch.Tensor):
-            root = self._host(root)
-        return np.ascontiguousarray(root).view(np.uint32).astype(
-            "<u4").tobytes()
+        words) as the 32-byte root, read on the executor's stream, once
+        the event `done` (a pipelined commit's last, when given) has
+        completed: the resident/phase/readback timer."""
+        with phase_timer("resident/phase/readback"):
+            if done is not None:
+                done.synchronize()
+            if isinstance(root, torch.Tensor):
+                root = self._host(root)
+            return np.ascontiguousarray(root).view(np.uint32).astype(
+                "<u4").tobytes()

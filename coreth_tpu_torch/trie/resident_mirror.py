@@ -24,6 +24,18 @@ resolved to bytes), so the chain adapter can compare it against the
 header exactly where statedb.IntermediateRoot's result is used today
 (core/blockchain.go:1331 ValidateState).
 
+A commit's host time is split into the registry's resident/phase/*
+timers where each piece of work runs (metrics.phase_timer): `update`
+(the block's leaves into the native trie) and `record` (the mirror's
+bookkeeping after the root) here, around `commit`, the parent of the
+native planner's `plan` and `export`, the watchdog's `handoff`
+(native/mpt.py) and the executor's `stage`, `scatter`, `patch`, `hash`,
+`store` and `readback` (ops/keccak_resident.py); host commits add
+`host_hash`, store readbacks for an export or a spot-check `absorb`.
+With spans on each phase is a span under resident/commit (a pipelined
+dispatch opens one too); while a torch profiler session runs, a
+profiler range on the verifying thread, the watchdog worker's included.
+
 Upstream integration: state/resident_trie.py (the StateDB facade that
 feeds per-block account batches and reads through here),
 core/state_manager.py ResidentTrieWriter (consensus lifecycle + the
@@ -74,6 +86,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from ..device import DEVICE_FAULTS, DeviceLike, DeviceWedgedError
 from ..fault import FailpointError, failpoint
 from ..fault import register as _register_failpoint
+from ..metrics import phase_timer
+from ..metrics.spans import span
 from ..native.mpt import IncrementalTrie
 
 FP_SPOT_CHECK = _register_failpoint(
@@ -228,9 +242,6 @@ class ResidentAccountMirror:
         """Settle the trie's current state and return the 32-byte root:
         on the device, under the watchdog, or on the host in host mode.
         A device that does not answer raises DeviceWedgedError (_wedge)."""
-        from ..metrics import phase_timer
-        from ..metrics.spans import span
-
         with span("resident/commit", host_mode=self.host_mode):
             with phase_timer("resident/phase/commit"):
                 if self.host_mode:
@@ -452,9 +463,11 @@ class ResidentAccountMirror:
         already opened the scope and applied [updates]; [expected] is
         the header root this commit is optimistically recorded under."""
         try:
-            self._check_device()
-            resolve = self.trie.commit_resident_dispatch(
-                self.ex, self.device_timeout)
+            with span("resident/commit", host_mode=False, pipelined=True), \
+                    phase_timer("resident/phase/commit"):
+                self._check_device()
+                resolve = self.trie.commit_resident_dispatch(
+                    self.ex, self.device_timeout)
         except DEVICE_FAULTS as e:
             # wedge at dispatch: close the current block's open scope, so
             # the window below it stays as it was
@@ -621,7 +634,8 @@ class ResidentAccountMirror:
         export/spot-check read: the executor's store_parts() when it has
         them, else its `.store` (wrappers, stubs). The watchdog wraps only
         the readback; absorb mutates the trie on THIS thread, so an
-        abandoned worker can't race it."""
+        abandoned worker can't race it. Both are the
+        resident/phase/absorb timer."""
         import numpy as np
 
         from ..native.mpt import _run_with_watchdog
@@ -633,10 +647,11 @@ class ResidentAccountMirror:
         else:
             work, absorb = (lambda: np.asarray(self.ex.store)), \
                 self.trie.absorb_store
-        if self.device_timeout is None:
-            absorb(work())
-        else:
-            absorb(_run_with_watchdog(work, self.device_timeout, what))
+        with phase_timer("resident/phase/absorb"):
+            if self.device_timeout is None:
+                absorb(work())
+            else:
+                absorb(_run_with_watchdog(work, self.device_timeout, what))
 
     # ---- lifecycle -------------------------------------------------------
 
@@ -683,18 +698,15 @@ class ResidentAccountMirror:
         if expected_root is not None and self._pipelining():
             # refill the bounded window, then dispatch without waiting
             self._drain_pipeline(leave=self.pipeline_depth - 1)
-            self.trie.checkpoint()
-            self.trie.update(updates)
+            self._apply(updates)
             root = self._commit_dispatch(block_hash, expected_root)
+        else:
+            self._drain_pipeline()
+            self._apply(updates)
+            root = self._commit_scope()
+        with phase_timer("resident/phase/record"):
             self._dirty_since_export = True
             self._record(block_hash, parent_hash, updates, root)
-            return root
-        self._drain_pipeline()
-        self.trie.checkpoint()
-        self.trie.update(updates)
-        root = self._commit_scope()
-        self._dirty_since_export = True
-        self._record(block_hash, parent_hash, updates, root)
         return root
 
     @_locked  # guarded-by: _lock
@@ -727,19 +739,23 @@ class ResidentAccountMirror:
             self._switch_to(parent_hash)
         if expected_root is not None and self._pipelining():
             self._drain_pipeline(leave=self.pipeline_depth - 1)
-            self.trie.checkpoint()
-            self.trie.update(updates)
+            self._apply(updates)
             root = self._commit_dispatch(self.ANON, expected_root)
+        else:
+            self._drain_pipeline()
+            self._apply(updates)
+            root = self._commit_scope()
+        with phase_timer("resident/phase/record"):
             self._dirty_since_export = True
             self._record(self.ANON, parent_hash, updates, root)
-            return root
-        self._drain_pipeline()
-        self.trie.checkpoint()
-        self.trie.update(updates)
-        root = self._commit_scope()
-        self._dirty_since_export = True
-        self._record(self.ANON, parent_hash, updates, root)
         return root
+
+    def _apply(self, updates) -> None:  # guarded-by: _lock
+        """Open the block's undo scope and apply its leaves to the native
+        trie: the resident/phase/update timer."""
+        with phase_timer("resident/phase/update"):
+            self.trie.checkpoint()
+            self.trie.update(updates)
 
     # side-branch records (phantom previews, losing forks) kept replayable
     # before GC reclaims the oldest — generous: consensus only builds on

@@ -183,7 +183,7 @@ def test_resident_commits_equal_jax(seq, jax_ref, lean):
     for mine, theirs in zip(ex.exports, jax_ref["exports"][lean]):
         _assert_same_export(mine, theirs)
     # two uploads: the packed rows and one int32 table of every index
-    assert ex.last_transfers == 2 and ex.last_dispatches == 1
+    assert ex.last_transfers == 2
     if lean:
         n = ex.exports[-1]["lean"][1].shape[0]
         assert ex.last_lean_rows == n
