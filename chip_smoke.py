@@ -9,8 +9,8 @@
 Phases (each passes or the script exits non-zero):
   1. card: nvidia-smi name and power limit, torch and CUDA versions
   2. build: the host Keccak, the native planners and the native secp256k1
-     (g++), kernels K1 and K2 (nvcc), in parallel; ptxas registers and
-     spills of their four kernels
+     (g++), kernels K1, K2 and K3 (nvcc), in parallel; ptxas registers and
+     spills of their five kernels
   3. K1 against its plain torch version over a (P, L) grid, bit for bit,
      plus the known Keccak vectors, through each variant forced (1: one
      thread per lane, 2: cooperative) and the launch's own choice; the
@@ -22,6 +22,14 @@ Phases (each passes or the script exits non-zero):
   4b. the variant sweep: both variants of K1 and K2 at B in SWEEP_B x L in
      (1, 4) on CUDA events and in the profiler's trace, and the crossover
      that sets kCoopMaxLanes
+  4d. K3 at the replay's shapes: a resident trie of --accounts random
+     accounts (the benchmark's replay cell: 32-byte keys, 70-83-byte
+     values) committed on the card, two blocks of 1,429 leaf updates,
+     then a third recorded: each segment's K3 call replayed from the
+     arenas and store as they were, through K3 and through the plain
+     version, both bit-equal to the live run's arenas; K3's time a commit
+     in the profiler's trace and on CUDA events, its host enqueue, the
+     plain version's, and the bound (bytes at 3.35 TB/s; the launch)
   4c. the world and its CPU oracle, then gc.freeze(): the harness's own
      objects leave the garbage collector's view, so the port's pauses
      measured after it do not traverse them
@@ -466,7 +474,8 @@ from coreth_tpu_torch.metrics import default_registry, spans
 from coreth_tpu_torch.precompile import TPU_KECCAK_ADDR, TpuKeccakConfig, \
     function_selector
 from coreth_tpu_torch.precompile import tpu_keccak
-from coreth_tpu_torch.ops.keccak_resident import ResidentExecutor
+from coreth_tpu_torch.ops.keccak_resident import ResidentExecutor, \
+    resident_patch_plain
 from coreth_tpu_torch.plugin import VMServer
 from coreth_tpu_torch.ops.keccak_staged import segment_keccak_plain
 from coreth_tpu_torch.ops.keccak_torch import RATE, BatchedKeccak, \
@@ -527,6 +536,12 @@ KERNEL_NAMES = {
            keccak_cuda.COOP: "keccak_blocks_coop_kernel"},
 }
 VARIANT_NAME = {keccak_cuda.THREAD: "thread", keccak_cuda.COOP: "coop"}
+K3_KERNEL = "resident_patch_kernel"
+# K3's check at the replay's shapes: the leaves of a full 15M-gas block of
+# plain transfers (714 x 2 accounts and the coinbase), K3's bytes a patch
+# (12 B of indices, two 32-byte digests, 9 arena words read and written)
+PATCH_LEAVES = 1429
+K3_BYTES_PER_PATCH = 12 + 64 + 72
 
 # The genesis contracts' code, assembled by hand: for each 64-byte (key,
 # value) pair of the calldata SSTORE value at key, then one LOG1 whose data
@@ -916,6 +931,7 @@ def phase_build(dev) -> None:
     if dev.type == "cuda":
         jobs.append(("K1 segment_keccak (nvcc)", keccak_cuda.K1.load))
         jobs.append(("K2 keccak_blocks (nvcc)", keccak_cuda.K2.load))
+        jobs.append(("K3 resident_patch (nvcc)", keccak_cuda.K3.load))
     threads = [threading.Thread(target=build, args=job) for job in jobs]
     t0 = time.perf_counter()
     for t in threads:
@@ -934,12 +950,18 @@ def phase_build(dev) -> None:
                 log(f"{name} ptxas {fn}: {regs} registers, spill stores "
                     f"{stores} B, spill loads {loads} B")
             log(f"{name} kCoopMaxLanes {kernel.coop_max_lanes}")
+        for fn, (regs, stores, loads) in ptxas_report(
+                keccak_cuda.K3.build_log(), [K3_KERNEL]).items():
+            log(f"K3 ptxas {fn}: {regs} registers, spill stores {stores} "
+                f"B, spill loads {loads} B")
 
 
-def ptxas_report(build_log: str) -> dict:
+def ptxas_report(build_log: str, names=None) -> dict:
     """{kernel name: (registers, spill store bytes, spill load bytes)} from
-    nvcc's -Xptxas -v output, for the names in KERNEL_NAMES."""
-    names = [n for v in KERNEL_NAMES.values() for n in v.values()]
+    nvcc's -Xptxas -v output, for `names` (default: those in
+    KERNEL_NAMES)."""
+    if names is None:
+        names = [n for v in KERNEL_NAMES.values() for n in v.values()]
     out, current, spill = {}, None, (None, None)
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
@@ -1071,12 +1093,13 @@ def _lead_in(names) -> None:
                     keccak_cuda.keccak256_blocks(w, n, variant=v)
 
 
-def profiled_device_ms(fn, kernels: dict) -> list:
+def profiled_device_ms(fn, kernels: dict, lead_in=None) -> list:
     """Device time of the kernels whose name holds each key of `kernels`
     while fn() runs, from torch.profiler's CUDA activity (CUPTI). The
-    session opens with a lead-in (LEAD_IN launches of each kernel, then
-    LEAD_GAP_S of idle card); the records after that gap are fn()'s. Each
-    value is the number of launches of that kernel fn() makes: a name
+    session opens with a lead-in (LEAD_IN launches of each kernel, by
+    `lead_in()` when given, then LEAD_GAP_S of idle card); the records
+    after that gap are fn()'s. Each value is the number of launches of
+    that kernel fn() makes: a name
     whose records after the gap are another number, or that shows no
     device time, reads None, and the shortfall is logged. The garbage
     collector is off during the session. A name matches itself alone: no
@@ -1088,7 +1111,10 @@ def profiled_device_ms(fn, kernels: dict) -> list:
     gc.disable()
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _lead_in(kernels)
+            if lead_in is None:
+                _lead_in(kernels)
+            else:
+                lead_in()
             torch.cuda.synchronize()
             time.sleep(LEAD_GAP_S)
             fn()
@@ -1262,6 +1288,173 @@ def phase_sweep(dev, reps: int = 20) -> dict:
                 f"{[b for b, won in zip(SWEEP_B, coop_wins) if not won]}")
     log(f"sweep: {time.perf_counter() - t_start:.1f} s")
     return crossover
+
+
+def _replay_items(n: int, rng) -> list:
+    """n accounts as the benchmark's replay cell makes them: 32 uniform
+    key bytes, 70-83 value bytes."""
+    keys = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    lens = rng.integers(70, 84, n)
+    ends = np.cumsum(lens)
+    blob = rng.bytes(int(ends[-1])) if n else b""
+    return [(keys[i].tobytes(), blob[ends[i] - lens[i]:ends[i]])
+            for i in range(n)]
+
+
+def _events_ms(fn, reps: int) -> float:
+    """Mean ms per fn() on CUDA events, after the card is idle."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def _enqueue_ms(fn, reps: int) -> float:
+    """Mean host ms to enqueue fn(), from an idle card."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def phase_patch(dev, n_accounts: int, seed: int, reps: int = 20) -> dict:
+    """K3 at the replay's shapes (phase 4d): a resident trie of n_accounts
+    replay accounts committed on `dev`, two blocks of PATCH_LEAVES leaf
+    updates, then a third recorded: every K3 call with the arenas as they
+    were before the commit's first patch and the store before its
+    scatter. The calls replayed through K3 and through the plain version
+    must both equal the live run's arenas. On the card, times a commit's
+    K3 calls (the profiler's kernel time, CUDA events, host enqueue)
+    beside the plain version's and the bound. Returns the numbers for the
+    result line."""
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    items = _replay_items(n_accounts, rng)
+    keys = [k for k, _ in items]
+    trie = IncrementalTrie(items)
+    del items
+    ex = ResidentExecutor(device=dev)
+    launches0 = keccak_cuda.patch_launches
+    ex.root_bytes(trie.commit_resident(ex))
+    real = keccak_cuda.resident_patch
+    calls, bases, pre = [], {}, []
+
+    def record(flat, store, dig, tables, m, start, n):
+        if not pre:
+            pre.append(store.clone())
+        bases.setdefault(flat.data_ptr(), (flat, flat.clone()))
+        calls.append((flat.data_ptr(), dig, tables, m, start, n))
+        real(flat, store, dig, tables, m, start, n)
+
+    for b in range(3):
+        pick = rng.choice(len(keys), min(PATCH_LEAVES, len(keys)),
+                          replace=False)
+        trie.update([(keys[int(i)], rng.bytes(int(rng.integers(70, 84))))
+                     for i in pick])
+        if b == 2:
+            keccak_cuda.resident_patch = record
+        try:
+            ex.root_bytes(trie.commit_resident(ex))
+        finally:
+            keccak_cuda.resident_patch = real
+    cuda = dev.type == "cuda"
+    launches = keccak_cuda.patch_launches - launches0
+    check(ex.last_patch_launches == (len(calls) if cuda else 0),
+          f"K3: last_patch_launches {ex.last_patch_launches} against "
+          f"{len(calls)} calls")
+    store = pre[0]
+
+    def plain(flat, dig, tables, m, start, n):
+        e = start + n
+        resident_patch_plain(flat, store, dig, tables[start:e],
+                             tables[m + start:m + e],
+                             tables[2 * m + start:2 * m + e])
+
+    def k3(flat, dig, tables, m, start, n):
+        real(flat, store, dig, tables, m, start, n)
+
+    def replay(fn, copies):
+        for key, dig, tables, m, start, n in calls:
+            fn(copies[key], dig, tables, m, start, n)
+
+    worst = 0
+    for fn in (k3, plain):
+        copies = {k: base.clone() for k, (_, base) in bases.items()}
+        replay(fn, copies)
+        for k, (live, _) in bases.items():
+            worst = max(worst, max_abs_err(copies[k], live))
+            check(torch.equal(copies[k], live),
+                  f"K3: the recorded commit replayed through "
+                  f"{fn.__name__} differs from the live arenas")
+        del copies
+    sizes = [c[-1] for c in calls]
+    patches = sum(sizes)
+    bound_ms = patches * K3_BYTES_PER_PATCH / HBM_BYTES_PER_S * 1e3
+    log(f"K3 at the replay's shapes ({n_accounts} accounts, "
+        f"{PATCH_LEAVES} leaves a block): the recorded commit's "
+        f"{len(calls)} calls over {patches} patches ({min(sizes)}-"
+        f"{max(sizes)} a segment, {len(bases)} arena classes), K3 and the "
+        f"plain version bit-equal to the live run (max abs err {worst}); "
+        f"K3 launches in the phase {launches} (genesis and 3 blocks)")
+    out = {"err": worst, "launches": launches, "ms": None,
+           "plain_ms": None, "bound_ms": bound_ms}
+    if cuda:
+        scratch = {k: base.clone() for k, (_, base) in bases.items()}
+        tiny = torch.zeros(64, dtype=torch.int32, device=dev)
+        tiny_tab = torch.zeros(3, dtype=torch.int32, device=dev)
+        tiny8 = torch.zeros((1, 8), dtype=torch.int32, device=dev)
+
+        def one():
+            real(tiny, tiny8, tiny8, tiny_tab, 1, 0, 1)
+
+        def lead():
+            for _ in range(LEAD_IN):
+                one()
+
+        def commit():
+            replay(k3, scratch)
+
+        def commit_plain():
+            replay(plain, scratch)
+
+        commit()
+        commit_plain()
+        k3_ev = _events_ms(commit, reps)
+        k3_host = _enqueue_ms(commit, reps)
+        (k3_kernel,) = profiled_device_ms(
+            lambda: [commit() for _ in range(reps)],
+            {K3_KERNEL: reps * len(calls)}, lead_in=lead)
+        (floor,) = profiled_device_ms(
+            lambda: [one() for _ in range(64)], {K3_KERNEL: 64},
+            lead_in=lead)
+        pl_ev = _events_ms(commit_plain, 5)
+        pl_host = _enqueue_ms(commit_plain, 5)
+        k3_ms = None if k3_kernel is None else k3_kernel / reps
+        per = "not measured" if k3_ms is None else \
+            f"{k3_ms / len(calls) * 1e3:.2f} us"
+        one_us = "not measured" if floor is None else \
+            f"{floor / 64 * 1e3:.2f} us"
+        log(f"K3 a commit ({len(calls)} launches): kernel {fmt_ms(k3_ms)} "
+            f"in the profiler's trace ({per} a launch; a one-patch "
+            f"launch {one_us}), events {k3_ev:.4f} ms, host enqueue "
+            f"{k3_host:.4f} ms ({k3_host / len(calls) * 1e3:.1f} us a "
+            f"launch); the plain version: events {pl_ev:.4f} ms, host "
+            f"enqueue {pl_host:.4f} ms; bound: bytes {bound_ms * 1e3:.2f} "
+            f"us at 3.35 TB/s ({K3_BYTES_PER_PATCH} B a patch), so the "
+            f"launch bounds it")
+        out.update(ms=k3_ms, plain_ms=pl_ev)
+        del scratch
+    del bases, calls, pre, ex, trie
+    log(f"K3 phase: {time.perf_counter() - t_start:.1f} s")
+    return out
 
 
 class _Recorder:
@@ -6170,6 +6363,8 @@ def main() -> int:
     grid2_err = phase_grid_k2(dev, args.seed)
     if dev.type == "cuda":
         phase_sweep(dev)
+    mark(t_start, "K3 at the replay's shapes")
+    k3 = phase_patch(dev, args.accounts, args.seed + 13)
 
     mark(t_start, "world and CPU oracle")
     t0 = time.perf_counter()
@@ -6522,6 +6717,19 @@ def main() -> int:
             + ml_k2_coop + sy_k2_coop + ch_k2_coop + gr_k2_coop,
             bg_kernel, bb_kernel, e2_kernel, dk_kernel, ck_kernel,
             mk_kernel, sk_kernel, cx_kernel, gk_kernel),
+    }, {
+        "name": "resident_patch",
+        "route": "cuda",
+        "source": "coreth_tpu_torch/ops/csrc/resident_patch.cu",
+        "replaces": "coreth_tpu/ops/keccak_resident.py:412 (XLA ops in "
+                    "_fused_program; no Pallas kernel)",
+        "launches": k3["launches"],
+        "max_abs_err": k3["err"],
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": "launch (bytes below it)",
+        "library_ms": None,
     }]}), flush=True)
     if dev.type != "cuda":
         return 0  # a rehearsal prints no result line

@@ -1,5 +1,5 @@
-"""Kernels K1 (segment Keccak-256) and K2 (variable-length Keccak-256) on
-Hopper: build, bind and call.
+"""Kernels K1 (segment Keccak-256), K2 (variable-length Keccak-256) and K3
+(the resident executor's delta patch) on Hopper: build, bind and call.
 
 K1 replaces the TPU kernel coreth_tpu/ops/keccak_pallas.py:211
 segment_keccak_pallas (body _make_segment_kernel at :172); K2 replaces
@@ -11,12 +11,20 @@ the card: about 4.35k 32-bit ops per 136-byte block absorbed, 0.26 ns
 against 0.041 ns of memory time per lane-block; one permutation's latency
 when it does not).
 
-Each source holds two kernels: one thread per lane (variant 1) for wide
-batches, and five threads of a warp per lane (variant 2, "cooperative")
-for small ones. With variant=None the launch picks by the lane count
-alone: the cooperative kernel for B <= the source's kCoopMaxLanes (read
-back as `K1.coop_max_lanes` / `K2.coop_max_lanes` once built); 1 or 2
-forces one; any other value raises. Nothing retries another kernel.
+K3 (csrc/resident_patch.cu) replaces no Pallas kernel: it takes the place
+of the XLA ops inside the reference's whole-commit program
+(coreth_tpu/ops/keccak_resident.py:412 _fused_program) that add one
+segment's delta strips into a class arena; its source note gives its
+bound (the launch). Its plain version is
+ops/keccak_resident.resident_patch_plain.
+
+K1's and K2's sources each hold two kernels: one thread per lane
+(variant 1) for wide batches, and five threads of a warp per lane
+(variant 2, "cooperative") for small ones. With variant=None the launch
+picks by the lane count alone: the cooperative kernel for B <= the
+source's kCoopMaxLanes (read back as `K1.coop_max_lanes` /
+`K2.coop_max_lanes` once built); 1 or 2 forces one; any other value
+raises. Nothing retries another kernel.
 
 Each is built at first use with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -30,7 +38,8 @@ uint32 op coverage is thin). A CPU tensor goes to the kernel's plain torch
 version, whatever the variant; a CUDA tensor launches a kernel or raises.
 `launches` counts K1 launches and `launches_coop` those of them that ran
 the cooperative kernel; `blocks_launches` and `blocks_launches_coop` count
-K2's the same way. Nothing else changes them.
+K2's the same way; `patch_launches` counts K3's. Nothing else changes
+them.
 """
 
 from __future__ import annotations
@@ -58,12 +67,15 @@ launches = 0              # K1
 launches_coop = 0         # K1 launches of the cooperative kernel
 blocks_launches = 0       # K2
 blocks_launches_coop = 0  # K2 launches of the cooperative kernel
+patch_launches = 0        # K3
 
 
 def reset_counts() -> None:
     """Set every launch count to 0."""
     global launches, launches_coop, blocks_launches, blocks_launches_coop
+    global patch_launches
     launches = launches_coop = blocks_launches = blocks_launches_coop = 0
+    patch_launches = 0
 
 
 def _nvcc() -> str:
@@ -76,8 +88,9 @@ def _nvcc() -> str:
 
 class _Kernel:
     """One CUDA source built into its own library at first use; `load()`
-    returns its launch function with argtypes set, and sets
-    `coop_max_lanes` from the source's kCoopMaxLanes."""
+    returns its launch function with argtypes set, and, where the library
+    exports <prefix>_coop_max_lanes (a source with a cooperative kernel),
+    sets `coop_max_lanes` from its kCoopMaxLanes."""
 
     def __init__(self, source: str, prefix: str, argtypes: List):
         self.src = os.path.join(_CSRC, source)
@@ -96,9 +109,11 @@ class _Kernel:
             if self.fn is None:
                 lib = build_and_load([_nvcc(), *NVCC_FLAGS], [self.src],
                                      self.lib_name, timeout=600)
-                limit = getattr(lib, f"{self._prefix}_coop_max_lanes")
-                limit.argtypes, limit.restype = [], ctypes.c_longlong
-                self.coop_max_lanes = int(limit())
+                limit = getattr(lib, f"{self._prefix}_coop_max_lanes",
+                                None)
+                if limit is not None:
+                    limit.argtypes, limit.restype = [], ctypes.c_longlong
+                    self.coop_max_lanes = int(limit())
                 fn = getattr(lib, f"{self._prefix}_launch")
                 fn.argtypes = self._argtypes
                 fn.restype = ctypes.c_int
@@ -121,6 +136,11 @@ K1 = _Kernel("segment_keccak.cu", "segment_keccak",
 # (words, nblocks, out, b, blocks, variant, stream)
 K2 = _Kernel("keccak_blocks.cu", "keccak_blocks",
              [_P, _P, _P, ctypes.c_longlong, _I, _I, _P])
+_L = ctypes.c_longlong
+# (flat, scratch, store, store rows, dig, dig rows, off, src, oldidx, n,
+#  stream)
+K3 = _Kernel("resident_patch.cu", "resident_patch",
+             [_P, _L, _P, _L, _P, _L, _P, _P, _P, _L, _P])
 
 
 def _check(fn: str, words, variant) -> None:
@@ -215,3 +235,76 @@ def keccak256_blocks(words: torch.Tensor, nblocks: torch.Tensor,
     blocks_launches += 1
     blocks_launches_coop += ran == COOP
     return out
+
+
+def _check_patch(flat, store, dig, tables, n_tables: int, start: int,
+                 n: int) -> None:
+    """Raise on what K3 does not take; cheap, as it runs per segment."""
+    dev = None
+    for name, t, dims in (("flat", flat, 1), ("store", store, 2),
+                          ("dig", dig, 2), ("tables", tables, 1)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"resident_patch takes {name} as a torch.Tensor")
+        if t.dtype != torch.int32:
+            raise TypeError(
+                f"resident_patch takes int32 {name}, got {t.dtype}")
+        if t.dim() != dims:
+            raise ValueError(f"resident_patch takes a {dims}-D {name}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"resident_patch takes a contiguous {name}")
+        if not (t.is_cuda or t.is_cpu):
+            raise ValueError(f"resident_patch cannot run on {t.device}")
+        # device indices (-1 on the CPU) compare without building devices
+        d = (t.get_device(), t.is_cpu)
+        if dev is None:
+            dev = d
+        elif d != dev:
+            raise ValueError(f"resident_patch: flat on {flat.device}, "
+                             f"{name} on {t.device}")
+    if store.shape[1] != 8 or dig.shape[1] != 8:
+        raise ValueError(f"resident_patch takes [S, 8] store and [G, 8] "
+                         f"dig, got {tuple(store.shape)} and "
+                         f"{tuple(dig.shape)}")
+    if flat.shape[0] < 1:
+        raise ValueError("resident_patch needs the scratch word in flat")
+    if not (0 <= start and 0 <= n and start + n <= n_tables
+            and 3 * n_tables <= tables.shape[0]):
+        raise ValueError(
+            f"resident_patch: patches [{start}, {start + n}) of tables of "
+            f"{n_tables} do not fit {tables.shape[0]} words")
+
+
+def resident_patch(flat: torch.Tensor, store: torch.Tensor,
+                   dig: torch.Tensor, tables: torch.Tensor, n_tables: int,
+                   start: int, n: int) -> None:
+    """Add one segment's (new - old) delta strips into a class arena, in
+    place: K3 on CUDA, ops/keccak_resident.resident_patch_plain for CPU
+    tensors.
+
+    flat: int32[W + 1], the class's arena rows flat, the scratch word last;
+    store: int32[S, 8] (u32 bits), the digest store as before this
+    commit's scatter; dig: int32[G, 8], this commit's digest matrix (row 0
+    the zero sentinel); tables: int32, the commit's patch tables back to
+    back from word 0 (off, src, oldidx: n_tables words each); the
+    segment's patches are words [start, start + n) of each. On CUDA the
+    kernel reads the tables through pointers: nothing is sliced, cast or
+    allocated, and it launches once, on the current stream."""
+    global patch_launches
+    _check_patch(flat, store, dig, tables, n_tables, start, n)
+    if flat.is_cpu:
+        from .keccak_resident import resident_patch_plain
+
+        end, m = start + n, n_tables
+        resident_patch_plain(flat, store, dig, tables[start:end],
+                             tables[m + start:m + end],
+                             tables[2 * m + start:2 * m + end])
+        return
+    if n == 0:
+        return
+    t = tables.data_ptr()
+    _launch(K3, "resident_patch", flat, flat.data_ptr(), flat.shape[0] - 1,
+            store.data_ptr(), store.shape[0], dig.data_ptr(), dig.shape[0],
+            t + 4 * start, t + 4 * (n_tables + start),
+            t + 4 * (2 * n_tables + start), n)
+    patch_launches += 1

@@ -30,15 +30,21 @@ each class = scratch; dig row 0 = zero sentinel. JAX drops an out-of-range
 scatter index (mode="drop"); torch on CUDA would assert and poison the
 context, so every arena is allocated with one scratch word past its rows
 and a patch strip word past the rows lands there instead (never clamped).
-The arenas stay int32, the bit pattern K1 reads: strips are computed in
-int64, narrowed to int32 two's-complement bits and index_add_-ed (which
-wraps, and accumulates where neighbouring holes' 9-word strips overlap).
+The arenas stay int32, the bit pattern K1 reads. A segment's delta patch
+is kernel K3 (ops/keccak_cuda.resident_patch, csrc/resident_patch.cu),
+one launch a segment with patches, on a CUDA tensor: it reads the
+uploaded tables through pointers and adds each strip word with a 32-bit
+atomic. Its plain version, resident_patch_plain below, runs for CPU
+tensors: strips computed in int64, narrowed to int32 two's-complement
+bits and index_add_-ed. Both wrap, and accumulate where neighbouring
+holes' 9-word strips overlap.
 
 A commit is the reference's fused form: one upload of the packed fresh
 rows and one of every index table (pinned host staging on CUDA,
 non_blocking), then the fresh-row scatters, the lean expansion, each
-segment's delta patch, gather and K1, and the store scatter, all queued on
-the executor's stream with no host synchronisation until the root is read.
+segment's delta patch (K3), gather and K1, and the store scatter, all
+queued on the executor's stream with no host synchronisation until the
+root is read.
 The staging buffers form a ring of `pipeline_depth` + 1 entries; an entry
 is refilled only once the CUDA event recorded after its upload has
 completed, so up to `pipeline_depth` commits may be in flight.
@@ -57,8 +63,9 @@ partitioned on the host: the same two uploads go to the first shard
 device (and by device copy to each other distinct device), every store
 slot a patch reads is gathered from its owner up front (the store scatter
 runs last, so they all read the store as it was), then per segment the
-delta strips are computed beside the digest matrix, which stays on the
-first device (a later patch may read any earlier lane), and added into
+delta strips are computed by torch ops (not K3) beside the digest
+matrix, which stays on the first device (a later patch may read any
+earlier lane), and added into
 the shard that owns the parent row; K1 runs per shard over the lanes
 whose rows it owns, and the store scatter writes each digest to its
 slot's owner. One shard is the unsharded form on that device.
@@ -78,6 +85,7 @@ import torch
 
 from ..device import DeviceLike, resolve
 from ..metrics import PhaseSeq, phase_timer
+from . import keccak_cuda
 from .keccak_planned import _strips
 from .keccak_torch import MASK32, WORDS_PER_BLOCK, to_int32
 
@@ -91,6 +99,31 @@ def _count(name: str, n: int) -> None:
     from ..metrics import default_registry
 
     default_registry.counter(name).inc(n)
+
+
+def resident_patch_plain(flat: torch.Tensor, store: torch.Tensor,
+                         dig: torch.Tensor, off: torch.Tensor,
+                         src: torch.Tensor, oldidx: torch.Tensor) -> None:
+    """Kernel K3's plain version (keccak_cuda.resident_patch takes it for
+    CPU tensors): add one segment's (new - old) strips into a class's flat
+    arena (the scratch word last), in place. off, src, oldidx: the
+    segment's int32 patch tables."""
+    scratch = flat.shape[0] - 1
+    src = src.long()
+    # signed source: +k = this commit's dig row k, -k = store slot k,
+    # 0 = none (both gathers hit their all-zero row 0)
+    new = torch.where(src[:, None] > 0, dig[src.clamp(min=0)],
+                      store[(-src).clamp(min=0)])
+    old = store[oldidx.long()]
+    off = off.long()
+    shift = off & 3
+    delta = (_strips(new, shift) - _strips(old, shift)) & MASK32
+    idx = ((off >> 2)[:, None]
+           + torch.arange(9, dtype=torch.int64, device=flat.device)
+           ).reshape(-1)
+    idx = torch.where((idx >= 0) & (idx < scratch), idx,
+                      torch.full_like(idx, scratch))
+    flat.index_add_(0, idx, to_int32(delta.reshape(-1)))
 
 
 def _pow2_bucket(n: int, floor: int = 16) -> int:
@@ -116,7 +149,9 @@ class ResidentExecutor:
     After every run(): h2d_bytes and last_transfers (the commit's host to
     device traffic), last_lean_rows and last_lean_wire_bytes, last_dig
     (the commit's digest matrix with the zero row 0, on the device) and
-    last_root (its root row); on CUDA, last_events holds the
+    last_root (its root row), last_patch_launches (K3 launches, one a
+    segment with patches; 0 on the CPU and when sharded); on CUDA,
+    last_events holds the
     events recorded before the first upload, after the uploads and after
     the store scatter, and last_done is the last of them (None on the
     CPU): a reader on another thread waits on it before reading."""
@@ -161,6 +196,7 @@ class ResidentExecutor:
         self.last_transfers = 0
         self.last_lean_rows = 0
         self.last_lean_wire_bytes = 0
+        self.last_patch_launches = 0
         # sharded state: per shard, the store's and each arena's row block
         # (+ one scratch word past an arena block's rows)
         self._store_parts: list = []
@@ -422,26 +458,6 @@ class ResidentExecutor:
 
     # ---- the device steps ----
 
-    def _patch(self, cls: int, store, dig, off, src, oldidx) -> None:
-        """Add one segment's (new - old) strips into the class's arena."""
-        flat = self._flat[cls]
-        scratch = flat.shape[0] - 1
-        src = src.long()
-        # signed source: +k = this commit's dig row k, -k = store slot k,
-        # 0 = none (both gathers hit their all-zero row 0)
-        new = torch.where(src[:, None] > 0, dig[src.clamp(min=0)],
-                          store[(-src).clamp(min=0)])
-        old = store[oldidx.long()]
-        off = off.long()
-        shift = off & 3
-        delta = (_strips(new, shift) - _strips(old, shift)) & MASK32
-        idx = ((off >> 2)[:, None]
-               + torch.arange(9, dtype=torch.int64, device=flat.device)
-               ).reshape(-1)
-        idx = torch.where((idx >= 0) & (idx < scratch), idx,
-                          torch.full_like(idx, scratch))
-        flat.index_add_(0, idx, to_int32(delta.reshape(-1)))
-
     def _hash_segment(self, cls: int, lanes: int, gstart: int, dig,
                       ridx) -> None:
         words = self._arena(cls).index_select(0, ridx.long())
@@ -575,10 +591,9 @@ class ResidentExecutor:
         self.h2d_bytes = rp * 4 + n_aux * 4
         self.last_transfers = 2
 
-        p = 0
-        off_all = aux_d[p:p + len_off]; p += len_off
-        src_all = aux_d[p:p + len_off]; p += len_off
-        oldidx_all = aux_d[p:p + len_off]; p += len_off
+        # the patch tables (off, src, oldidx) are aux_d's first 3 * len_off
+        # words, which K3 reads in place
+        p = 3 * len_off
         rowidx_all = aux_d[p:p + len_rowidx]; p += len_rowidx
         lane_slot = aux_d[p:p + g_pad]; p += g_pad
         rp = 0
@@ -604,12 +619,14 @@ class ResidentExecutor:
             full[:, WORDS_PER_BLOCK - 1] |= _SIGN_BIT
             self._arena(1).index_copy_(0, lidx, full)
         dig = self._zeros(1 + g_pad, 8)
+        patched = 0
         for blocks, lanes, gstart, npatch, patch_off, lane_off in specs_t:
             if npatch:
                 ph.to("resident/phase/patch")
-                sl = slice(patch_off, patch_off + npatch)
-                self._patch(blocks, self.store, dig, off_all[sl], src_all[sl],
-                            oldidx_all[sl])
+                keccak_cuda.resident_patch(self._flat[blocks], self.store,
+                                           dig, aux_d, len_off, patch_off,
+                                           npatch)
+                patched += 1
             ph.to("resident/phase/hash")
             self._hash_segment(blocks, lanes, gstart, dig,
                                rowidx_all[lane_off:lane_off + lanes])
@@ -621,6 +638,7 @@ class ResidentExecutor:
         if t0 is not None:
             self.last_events = (t0, t_up, self._event())
             self.last_done = self.last_events[2]
+        self.last_patch_launches = patched if cuda else 0
         self.last_dig = dig
         self.last_root = dig[int(export["root_lane"]) + 1]
         return self.last_root
