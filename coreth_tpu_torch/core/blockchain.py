@@ -1194,6 +1194,7 @@ class BlockChain:
             "phases": {},
             "parallel": {},
             "writes": writes,
+            "run": "verify" if writes else "insert",
             "trace_id": ctx.trace_id if ctx is not None else None,
         }
         with self._insert_recs_mu:
@@ -1292,6 +1293,9 @@ class BlockChain:
             block, header, parent, rec, phases, _metrics, insert_timer)
 
         if not writes:
+            # a built block's check run (run "insert") enters the ring
+            # too, beside its build's record and its verify's
+            self.flight_recorder.record(rec)
             return
         self._commit_validated(block, statedb, receipts, used_gas,
                                rec, phases, _metrics)

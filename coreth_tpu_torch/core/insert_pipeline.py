@@ -282,6 +282,7 @@ class InsertPipeline:
             "phases": {},
             "parallel": {},
             "writes": True,
+            "run": "verify",
             "trace_id": ctx.trace_id if ctx is not None else None,
         }
         entry = _Entry(block, parent_header, rec, ctx)

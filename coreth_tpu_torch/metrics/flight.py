@@ -13,7 +13,17 @@ Each record is a plain dict built by core/blockchain during insert:
      "parallel": {"mode": ..., ...},         # optimistic-executor verdict
      "host_mode": bool | None,               # device vs host hashing
      "trace_id": str | None,                 # insert-… id (tracectx)
+     "run": "build" | "insert" | "verify",   # which run of the block
      "accepted": bool, "seq": int}
+
+A block the VM builds runs its transactions three times, and each run
+leaves a record under the block's hash, in this order: "build" (the
+miner: phases execute, finalize with the state root, commit; no counter
+deltas, `resident` or `host_mode`), "insert" (the built block's check,
+InsertBlockManual with writes=False) and "verify" (the insert that
+commits, and the only run of a block that arrives from a peer). find()
+gives the newest, the verify run's once it has run, and mark_accepted
+marks it.
 
 `parallel` starts present-but-empty and `host_mode`/`counters` are
 stamped in the insert's finally block, so host-fallback and

@@ -127,6 +127,7 @@ class Worker:
         block_ctx = new_block_context(header, self.chain, self.coinbase)
         evm = EVM(block_ctx, TxContext(), statedb, self.config, Config())
 
+        t0 = _time.monotonic()
         ordered = TxByPriceAndNonce(pending, header.base_fee)
         while True:
             tx = ordered.peek()
@@ -156,13 +157,31 @@ class Worker:
             ordered.shift()
 
         header.gas_used = used_gas[0]
+        t1 = _time.monotonic()
         block = self.engine.finalize_and_assemble(
             self.config, header, parent.header, statedb, txs, receipts
         )
+        t2 = _time.monotonic()
         # persist the assembled block's state so verify can run against it
         root = statedb.commit(self.config.is_eip158(block.number))
         assert root == block.header.root
+        self._record(block, {"execute": t1 - t0, "finalize": t2 - t1,
+                             "commit": _time.monotonic() - t2})
         return block
+
+    def _record(self, block: Block, phases: Dict[str, float]) -> None:
+        """The build's flight record (run "build"; metrics/flight.py): the
+        transactions applied (execute), finalize_and_assemble with the
+        state root (finalize) and the state's commit, in seconds."""
+        recorder = getattr(self.chain, "flight_recorder", None)
+        if recorder is None:
+            return
+        recorder.record({
+            "number": block.number, "hash": block.hash(),
+            "txs": len(block.transactions),
+            "gas_used": block.header.gas_used, "phases": phases,
+            "parallel": {}, "writes": False, "run": "build",
+            "trace_id": None})
 
     def _gas_limit(self, parent: Header, timestamp: int) -> int:
         if self.config.is_cortina(timestamp):

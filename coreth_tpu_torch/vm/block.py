@@ -11,6 +11,8 @@ from __future__ import annotations
 
 from enum import Enum
 
+from ..metrics import phase_timer
+
 
 class BlockStatus(Enum):
     PROCESSING = 0
@@ -54,22 +56,24 @@ class VMBlock:
 
     def verify(self, writes: bool = True) -> None:
         """Verify (block.go:229-253): syntactic checks + InsertBlockManual
-        + pinning the block's pending atomic state (atomic_backend.go)."""
-        self.syntactic_verify()
-        for atx in self.atomic_txs:
-            atx.semantic_verify(self.vm, self.eth_block.base_fee)
-        if writes:
-            # conflict-check against pending ancestors BEFORE the chain
-            # insert so a double-spending fork never lands in the chain
-            self.vm.atomic_backend.insert_block(self)
-        try:
-            self.vm.blockchain.insert_block_manual(self.eth_block, writes)
-        except Exception:
+        + pinning the block's pending atomic state (atomic_backend.go),
+        under the phase vm/phase/verify."""
+        with phase_timer("vm/phase/verify"):
+            self.syntactic_verify()
+            for atx in self.atomic_txs:
+                atx.semantic_verify(self.vm, self.eth_block.base_fee)
             if writes:
-                self.vm.atomic_backend.reject(self)
-            raise
-        if writes:
-            self.vm.add_verified_block(self)
+                # conflict-check against pending ancestors BEFORE the chain
+                # insert so a double-spending fork never lands in the chain
+                self.vm.atomic_backend.insert_block(self)
+            try:
+                self.vm.blockchain.insert_block_manual(self.eth_block, writes)
+            except Exception:
+                if writes:
+                    self.vm.atomic_backend.reject(self)
+                raise
+            if writes:
+                self.vm.add_verified_block(self)
 
     def syntactic_verify(self) -> None:
         from .block_verification import syntactic_verify
@@ -78,13 +82,17 @@ class VMBlock:
 
     def accept(self) -> None:
         """Accept (block.go:136-169): chain accept + the block's pending
-        atomic state applied in one repository/shared-memory batch."""
+        atomic state applied in one repository/shared-memory batch, under
+        the phase vm/phase/accept. The chain's acceptor persists the
+        block's state after this returns (its own timer,
+        chain/block/accepts)."""
         vm = self.vm
-        vm.blockchain.accept(self.eth_block)
-        self.status = BlockStatus.ACCEPTED
-        vm.set_last_accepted(self)
-        vm.atomic_backend.accept(self)
-        vm.forget_verified_block(self.id())
+        with phase_timer("vm/phase/accept"):
+            vm.blockchain.accept(self.eth_block)
+            self.status = BlockStatus.ACCEPTED
+            vm.set_last_accepted(self)
+            vm.atomic_backend.accept(self)
+            vm.forget_verified_block(self.id())
 
     def reject(self) -> None:
         """Reject (block.go:173-191): losing fork; re-issue atomic txs."""

@@ -50,6 +50,7 @@ from ..core.genesis import Genesis
 from ..core.txpool import TxPool, TxPoolConfig
 from ..core.types import Block as EthBlock
 from ..device import DeviceLike
+from ..metrics import phase_timer
 from ..miner.worker import Worker
 from ..state.database import Database
 from ..trie.triedb import TrieDatabase
@@ -494,17 +495,18 @@ class VM:
     # --- snowman interface -------------------------------------------------
 
     def build_block(self) -> VMBlock:
-        """buildBlock (vm.go:991-1032)."""
-        try:
-            from ..metrics.spans import span
+        """buildBlock (vm.go:991-1032), under the phase vm/phase/build."""
+        with phase_timer("vm/phase/build"):
+            try:
+                from ..metrics.spans import span
 
-            with span("vm/buildBlock"):
-                return self._build_block_inner()
-        finally:
-            # the engine consumed the PendingTxs notification by calling
-            # us — success or not, reopen the gate + arm the retry timer
-            # (block_builder.go handleGenerateBlock)
-            self.block_builder.handle_generate_block()
+                with span("vm/buildBlock"):
+                    return self._build_block_inner()
+            finally:
+                # the engine consumed the PendingTxs notification by
+                # calling us — success or not, reopen the gate + arm the
+                # retry timer (block_builder.go handleGenerateBlock)
+                self.block_builder.handle_generate_block()
 
     def _build_block_inner(self) -> VMBlock:
         with self.lock:
@@ -666,5 +668,6 @@ class VM:
         return fee
 
     def issue_tx(self, tx) -> None:
-        """eth tx entry (API/gossip)."""
-        self.txpool.add_local(tx)
+        """eth tx entry (API/gossip), under the phase vm/phase/issue."""
+        with phase_timer("vm/phase/issue"):
+            self.txpool.add_local(tx)
